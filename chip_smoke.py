@@ -22,7 +22,18 @@ fatal when it fails (exit code != 0 and no result line):
    input;
 5. models.kmeans.benchmark at 1M x 300 k=100 for the three paths, and the
    CLI (python -m harp_tpu_torch kmeans --bench --quantize int8);
-6. one JSON line of the kernels, the card's name and power limit, and
+6. K3 (sgd_tile_update) against its plain version for one rotation step at
+   MovieLens-20M width (138,493 x 26,744, 20M ratings, rank 64, one worker,
+   two H chunks, 256 x 256 tiles), compute dtype bf16 and f32: W and H
+   within rtol 1e-4 / atol 1e-5 and se within rtol 1e-5 (the gradient sums
+   are added in another f32 order), cnt equal;
+7. models.mfsgd.MFSGD at that width with algo="pallas": train_epoch, then
+   train_epochs(3), K3 launched once per rotation step (2 per epoch),
+   finite RMSEs falling below the first epoch's, and the card agreeing with
+   the CPU on a small input for all three algos;
+8. models.mfsgd.benchmark at that width for pallas, and the CLI
+   (python -m harp_tpu_torch mfsgd --algo pallas --epochs 3);
+9. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -39,12 +50,16 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s and tensor-core op/s
+# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, tensor-core op/s and
+# f32 op/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 N, D, K, ITERS = 1_000_000, 300, 100, 10
 SHAPES = [(N, D, K), (N + 3, D, K), (N, D, 1000)]
+
+# MovieLens-20M width (the reference's graded MF-SGD config)
+ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS = 138_493, 26_744, 20_000_000, 64, 3
 
 
 def fail(msg: str) -> None:
@@ -73,6 +88,209 @@ def blobs(n, d, k, gen, dev, spread=8.0, noise=0.5):
     pts = centers[assign] + noise * torch.randn((n, d), generator=gen,
                                                 device=dev)
     return pts, centers
+
+
+def distinct_rows(ids, real, tile) -> int:
+    """Sum over entries (rows of ``ids`` [NE, C]) of the distinct tile rows
+    that the entry's real slots touch."""
+    import numpy as np
+
+    s = np.sort(np.where(real, ids, tile), axis=-1)
+    new = np.ones(s.shape, bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return int((new & (s < tile)).sum())
+
+
+def k3_work(eu, ei, u_tile, i_tile) -> dict:
+    """What one rotation step's entries ask of K3, counted from the data:
+    slots, real ratings, and the distinct W and H tile rows of each entry
+    summed over the entries (rows no rating of an entry touches keep a zero
+    gradient and need no apply)."""
+    real = eu < u_tile
+    return {"entries": eu.shape[0], "slots": eu.size,
+            "ratings": int(real.sum()),
+            "rows": distinct_rows(eu, real, u_tile)
+            + distinct_rows(ei, real, i_tile)}
+
+
+def k3_bound_ms(work, u_bound, h_rows, rank) -> tuple[float, str]:
+    """K3's least time for one rotation step: bytes are eu for every slot
+    (4 bytes: it marks the pads), ei and ev for the real ratings (8 bytes),
+    ou and oi once, and W and H read and written once; operations are 10
+    f32 flops a rating and rank element (dot 2, the two gradients 3 each,
+    their two sums 2) plus the apply, 2 a rank element of each distinct row
+    an entry touches, on the CUDA cores (67 TFLOP/s f32)."""
+    nbytes = (4 * work["slots"] + 8 * work["ratings"] + 8 * work["entries"]
+              + 2 * 4 * (u_bound + h_rows) * rank)
+    ops = 10.0 * work["ratings"] * rank + 2.0 * work["rows"] * rank
+    return bound_ms(nbytes, ops, "f32")
+
+
+def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 6-8; returns K3's row of the kernels line and its launches on
+    the MF-SGD main path."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.ops import mfsgd_kernel as K3
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    # -- 6. K3 against its plain version, one rotation step ------------------
+    t0 = time.perf_counter()
+    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
+    ut = it = 256
+    eu, ei, ev, ou, oi, _, _, ub, ibc = MF.partition_ratings_tiles(
+        u, i, v, ML_USERS, ML_ITEMS, 1, ut, it, 2048, n_slices=2)
+    sched = K3.LevelSchedule.build(eu[0], ei[0], ou[0], oi[0], ut, it, ub,
+                                   ibc, dev)
+    ent = [torch.from_numpy(a[0].copy()).to(dev) for a in (eu, ei, ev, ou, oi)]
+    work = k3_work(eu[0], ei[0], ut, it)
+    ne, c = eu.shape[1:]
+    print(f"K3 prep: {time.perf_counter() - t0:.1f} s; one step: {ne} "
+          f"entries x {c} slots, {work['ratings']} ratings, {work['rows']} "
+          f"distinct tile rows over the entries, W [{ub}, {ML_RANK}], H "
+          f"chunk [{ibc}, {ML_RANK}], {sched.n_levels} levels, at most "
+          f"{sched.max_width} entries wide")
+    del u, i, v, eu, ei, ev, ou, oi
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    scale = 1.0 / ML_RANK ** 0.5
+    W = torch.rand((ub, ML_RANK), generator=gen, device=dev) * scale
+    H = torch.rand((ibc, ML_RANK), generator=gen, device=dev) * scale
+    row = None
+    for cd in (torch.bfloat16, torch.float32):
+        kw = dict(lr=0.01, reg=0.05, u_tile=ut, i_tile=it, compute_dtype=cd,
+                  schedule=sched)
+        W1, H1, se1, c1 = K3.sgd_tile_update(W, H, *ent, **kw)
+        W2, H2, se2, c2 = K3.sgd_tile_update_plain(W, H, *ent, **kw)
+        torch.cuda.synchronize()
+        werr = float((W1 - W2).abs().max())
+        herr = float((H1 - H2).abs().max())
+        serr = abs(float(se1) - float(se2)) / float(se2)
+        ok_w = bool(((W1 - W2).abs() <= 1e-5 + 1e-4 * W2.abs()).all())
+        ok_h = bool(((H1 - H2).abs() <= 1e-5 + 1e-4 * H2.abs()).all())
+        if not (ok_w and ok_h and serr <= 1e-5
+                and float(c1) == float(c2) == work["ratings"]):
+            fail(f"K3 {cd} disagrees with its plain version: W err {werr}, "
+                 f"H err {herr}, se rel err {serr}, cnt {float(c1)} vs "
+                 f"{float(c2)}")
+        if torch.equal(W1, W):
+            fail("K3 left W unchanged")
+        ms = cuda_ms(lambda: K3.sgd_tile_update(W, H, *ent, **kw), reps=10,
+                     warmup=1)
+        plain = cuda_ms(lambda: K3.sgd_tile_update_plain(W, H, *ent, **kw),
+                        reps=2, warmup=1)
+        b_ms, b_by = k3_bound_ms(work, ub, ibc, ML_RANK)
+        print(f"K3 {str(cd).removeprefix('torch.')}: W err {werr:.3e}, H err "
+              f"{herr:.3e}, se rel err {serr:.2e}, cnt {int(c1)} equal; "
+              f"kernel {ms:.4f} ms/call ({sched.n_levels} CUDA launches a "
+              f"call), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"[{card}]")
+        if cd == torch.bfloat16:  # the main path's compute dtype
+            row = {"max_abs_err": max(werr, herr), "ms": ms,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        del W1, H1, W2, H2
+    del ent, W, H
+
+    # -- 7. MF-SGD through the public entry -----------------------------------
+    cfg = MF.MFSGDConfig(rank=ML_RANK, algo="pallas")
+    model = MF.MFSGD(ML_USERS, ML_ITEMS, cfg, seed=0)
+    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
+    t0 = time.perf_counter()
+    model.set_ratings(u, i, v)
+    prep = time.perf_counter() - t0
+    del u, i, v
+    K3.reset_launches()  # the MF-SGD main path's run starts here
+    t0 = time.perf_counter()
+    first = model.train_epoch()
+    after_one = K3.LAUNCHES["sgd_tile_update"]
+    t1 = time.perf_counter()
+    rmses = model.train_epochs(EPOCHS)
+    t2 = time.perf_counter()
+    launches = K3.LAUNCHES["sgd_tile_update"]  # ... and ends here
+    if (after_one, launches) != (2, 2 * (1 + EPOCHS)):
+        fail(f"MF-SGD pallas: K3 launches {after_one} after one epoch and "
+             f"{launches} after {1 + EPOCHS}; expected 2 per epoch")
+    if not (np.isfinite([first, *rmses]).all() and rmses[-1] < first):
+        fail(f"MF-SGD pallas: RMSEs {first}, {rmses} not finite and falling")
+    print(f"MFSGD pallas at {ML_USERS} x {ML_ITEMS}, {ML_NNZ} ratings, rank "
+          f"{ML_RANK}: set_ratings {prep:.1f} s; train_epoch rmse {first:.6f} "
+          f"({t1 - t0:.3f} s); train_epochs({EPOCHS}) rmse "
+          f"{[round(r, 6) for r in rmses]} ({(t2 - t1) / EPOCHS:.4f} s/epoch);"
+          f" K3 launches {launches} [{card}]")
+    profile_epoch(model, card)
+    del model
+    small = MF.synthetic_ratings(300, 200, 6000, rank=4, noise=0.05, seed=1)
+    for algo in ("pallas", "dense", "scatter"):
+        kw = ({"chunk": 512} if algo == "scatter" else
+              {"u_tile": 16, "i_tile": 16, "entry_cap": 64})
+        cfg = MF.MFSGDConfig(rank=16, algo=algo, lr=0.05, **kw)
+        out = {}
+        for where in ("cpu", "cuda"):  # the card starts from the CPU's init
+            m = MF.MFSGD(300, 200, cfg, seed=2, device=where,
+                         state=None if where == "cpu" else state)
+            state = {"W": m.W, "H": m.H}
+            m.set_ratings(*small)
+            out[where] = (m.train_epochs(3), *m.factors())
+        r_g, W_g, H_g = out["cuda"]
+        r_c, W_c, H_c = out["cpu"]
+        if not (np.allclose(r_g, r_c, rtol=1e-5, atol=0)
+                and np.allclose(W_g, W_c, rtol=1e-4, atol=1e-5)
+                and np.allclose(H_g, H_c, rtol=1e-4, atol=1e-5)):
+            fail(f"MFSGD {algo}: the card and the CPU disagree on a small "
+                 f"input (rmse {r_g} vs {r_c})")
+    print("MFSGD: card and CPU agree on 300 x 200, 6000 ratings, rank 16, "
+          "3 epochs from the same init, for pallas, dense and scatter "
+          "(factors rtol 1e-4 / atol 1e-5, RMSEs rtol 1e-5)")
+
+    # -- 8. benchmark and CLI ----------------------------------------------------
+    out = MF.benchmark(ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS,
+                       algo="pallas")
+    if not (np.isfinite(out["rmse_final"])
+            and out["rmse_final"] < out["rmse_first_epoch"]):
+        fail(f"MF-SGD benchmark: RMSE not finite and falling: {out}")
+    print(f"MFSGD benchmark pallas: {out['updates_per_sec_per_chip']:.6e} "
+          f"updates/s per card, {out['sec_per_epoch']:.6f} s/epoch, rmse "
+          f"{out['rmse_first_epoch']:.6f} -> {out['rmse_final']:.6f}, prep "
+          f"{out['prep_sec']:.1f} s; K3 {row['ms']:.4f} ms/call x 2 calls "
+          f"an epoch [{card}]")
+    cli = subprocess.run(
+        [sys.executable, "-m", "harp_tpu_torch", "mfsgd", "--algo", "pallas",
+         "--epochs", str(EPOCHS)], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    if cli.returncode:
+        fail(f"MF-SGD CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
+    crow = json.loads(cli.stdout.strip().splitlines()[-1])
+    if crow.get("backend") != "cuda" or not np.isfinite(crow["rmse_final"]):
+        fail(f"MF-SGD CLI row is not a finite cuda result: {crow}")
+    print(f"CLI: {json.dumps(crow)}")
+    return row, launches
+
+
+def profile_epoch(model, card: str) -> None:
+    """Device busy share of one train_epoch, from torch.profiler's CUDA
+    kernel times over the epoch's wall (the epoch ends in a readback)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_epoch()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if busy <= 0:
+        print("MFSGD profile: the profiler saw no device time; idle share "
+              "not measured")
+        return
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"MFSGD profile of one train_epoch: wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s, idle share {1 - busy / wall:.3f}; top: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms"
+                      f" x{e.count}" for e in top) + f" [{card}]")
 
 
 def main() -> int:
@@ -261,11 +479,17 @@ def main() -> int:
         fail(f"CLI row is not a finite cuda result: {row}")
     print(f"CLI: {json.dumps(row)}")
 
-    # -- 6. result -----------------------------------------------------------
+    # -- 6-8. MF-SGD -----------------------------------------------------------
+    rows["sgd_tile_update"], launches["sgd_tile_update"] = mfsgd_phases(
+        dev, card)
+
+    # -- 9. result -----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",
-                               "harp_tpu/ops/kmeans_kernel.py:110")}
+                               "harp_tpu/ops/kmeans_kernel.py:110"),
+           "sgd_tile_update": ("harp_tpu_torch/csrc/mfsgd_tile_update.cu",
+                               "harp_tpu/ops/mfsgd_kernel.py:133")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **rows[name], "library_ms": None} for name in src]

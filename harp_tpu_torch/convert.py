@@ -28,3 +28,24 @@ def kmeans_state_from_numpy(state: dict, device) -> dict:
                              f"shape {s.shape}")
         out["col_scale"] = torch.from_numpy(s.copy()).to(device)
     return out
+
+
+def mfsgd_state_from_numpy(state: dict, device) -> dict:
+    """The reference's MF-SGD factors → the port's tensors on ``device``.
+
+    ``state`` holds the global ``"W"`` [u_bound * n, rank] and ``"H"``
+    [i_bound * n, rank] in the reference's storage layout (worker-major,
+    rows padded per worker range and per H chunk), which is the port's
+    too; ``models.mfsgd.MFSGD(state=...)`` checks the shapes and shards
+    them.  Returns the same keys as f32 tensors."""
+    out = {}
+    for key in ("W", "H"):
+        a = np.asarray(state[key], dtype=np.float32)
+        if a.ndim != 2:
+            raise ValueError(f"{key} must be [rows, rank], got shape "
+                             f"{a.shape}")
+        out[key] = torch.from_numpy(a.copy()).to(device)
+    if out["W"].shape[1] != out["H"].shape[1]:
+        raise ValueError(f"W and H ranks differ: {out['W'].shape[1]} vs "
+                         f"{out['H'].shape[1]}")
+    return out

@@ -37,8 +37,8 @@ import torch
 
 from harp_tpu_torch.ops import kmeans_kernel
 from harp_tpu_torch.parallel import collective as C
-from harp_tpu_torch.parallel.mesh import (WorkerMesh, current_mesh,
-                                         num_workers, worker_id)
+from harp_tpu_torch.parallel.mesh import (WorkerMesh, num_workers,
+                                         resolve_mesh, worker_id)
 from harp_tpu_torch.utils import telemetry
 from harp_tpu_torch.utils.timing import device_sync
 
@@ -269,15 +269,6 @@ def kmeanspp_init(points, k, seed=0, sample=50_000):
     return np.stack(centers)
 
 
-def _resolve_mesh(mesh: WorkerMesh | None, device) -> WorkerMesh:
-    if mesh is None:
-        return WorkerMesh(device) if device is not None else current_mesh()
-    if device is not None and torch.device(device).type != mesh.device.type:
-        raise ValueError(f"device={device!r} disagrees with the mesh's "
-                         f"{mesh.device}")
-    return mesh
-
-
 def _exact_f32(device: torch.device) -> None:
     """Full-f32 products on the card (TF32 off for matmul and cuDNN)."""
     if device.type == "cuda":
@@ -308,7 +299,7 @@ def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
         raise NotImplementedError(
             "fit's checkpoint/fault path (ckpt_dir, fault) is "
             + _NOT_PORTED.format(item=2))
-    mesh = _resolve_mesh(mesh, device)
+    mesh = resolve_mesh(mesh, device)
     _exact_f32(mesh.device)
     variant = _effective_variant(variant, k, mesh.num_workers)
     cfg = KMeansConfig(k=k, iters=iters, dtype=dtype,
@@ -362,7 +353,7 @@ def benchmark(n=1_000_000, d=300, k=100, iters=10, mesh=None,
     ``seed + 1 + w``).  ``max(warmup, 1)`` untimed iterations run first;
     the timed window holds ``iters`` iterations as a Python loop with one
     synchronize at its end."""
-    mesh = _resolve_mesh(mesh, device)
+    mesh = resolve_mesh(mesh, device)
     dev = mesh.device
     _exact_f32(dev)
     variant = _effective_variant(variant, k, mesh.num_workers)

@@ -96,7 +96,35 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with each entry point of
+    ``signatures`` ({function: ctypes argtypes}) typed, returning an int
+    CUDA error code.  Pointers and the stream must be ``c_void_p``: an
+    untyped Python int would be cut to 32 bits."""
+    lib = load(name)
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def require(t, what: str, dtypes, shape, device) -> None:
+    """A kernel wrapper's check of one tensor argument: its device, dtype
+    (one of ``dtypes``), shape and contiguity, raising on what the kernel
+    does not take."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected one of "
+                        f"{[str(d) for d in dtypes]}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")

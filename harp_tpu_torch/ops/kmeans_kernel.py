@@ -58,27 +58,9 @@ def reset_launches() -> None:
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _BOUND.get(name)
-    if lib is None:
-        lib = build.load(name)
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
-        _BOUND[name] = lib
-    return lib
-
-
-def _require(t: torch.Tensor, what: str, dtypes, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{what} has dtype {t.dtype}, expected one of "
-                        f"{[str(d) for d in dtypes]}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    if name not in _BOUND:
+        _BOUND[name] = build.bind(name, _SIGNATURES[name])
+    return _BOUND[name]
 
 
 def _grid(lib, fn: str, n: int, d: int, k: int) -> int:
@@ -123,11 +105,11 @@ def kmeans_partials_int8(pts_q, c_q, c_scale, c2, col_scale):
     n, d = pts_q.shape
     k = c_q.shape[0]
     dev = pts_q.device
-    _require(pts_q, "pts_q", (torch.int8,), (n, d), dev)
-    _require(c_q, "c_q", (torch.int8,), (k, d), dev)
-    _require(c_scale, "c_scale", (torch.float32,), (k,), dev)
-    _require(c2, "c2", (torch.float32,), (k,), dev)
-    _require(col_scale, "col_scale", (torch.float32,), (d,), dev)
+    build.require(pts_q, "pts_q", (torch.int8,), (n, d), dev)
+    build.require(c_q, "c_q", (torch.int8,), (k, d), dev)
+    build.require(c_scale, "c_scale", (torch.float32,), (k,), dev)
+    build.require(c2, "c2", (torch.float32,), (k,), dev)
+    build.require(col_scale, "col_scale", (torch.float32,), (d,), dev)
     if dev.type == "cpu":
         return kmeans_partials_int8_plain(pts_q, c_q, c_scale, c2, col_scale)
     if dev.type != "cuda":
@@ -182,9 +164,10 @@ def kmeans_partials(points, centroids):
     n, d = points.shape
     k = centroids.shape[0]
     dev = points.device
-    _require(points, "points", (torch.float32, torch.bfloat16), (n, d), dev)
-    _require(centroids, "centroids",
-             (torch.float32, torch.bfloat16, torch.float16), (k, d), dev)
+    build.require(points, "points", (torch.float32, torch.bfloat16),
+                  (n, d), dev)
+    build.require(centroids, "centroids",
+                  (torch.float32, torch.bfloat16, torch.float16), (k, d), dev)
     if dev.type == "cpu":
         return kmeans_partials_plain(points, centroids)
     if dev.type != "cuda":

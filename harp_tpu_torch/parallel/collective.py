@@ -16,6 +16,8 @@ reduce          the allreduce combiner, then zeros off the root
 push            ``reduce_scatter_tensor`` (ADD/AVG); MAX/MIN reduce,
                 then keep this worker's block
 pull            ``all_gather_into_tensor`` along ``concat_dim``
+rotate          ``batch_isend_irecv``: one send to worker
+                ``(i + shift) % n``, one receive from ``(i - shift) % n``
 barrier         ``barrier``
 ==============  =======================================================
 
@@ -34,16 +36,16 @@ import torch
 import torch.distributed as dist
 
 from harp_tpu_torch.parallel.mesh import num_workers, worker_id
-from harp_tpu_torch.utils.telemetry import record_comm
+from harp_tpu_torch.utils.telemetry import record_comm, tree_leaves
 
 
-def _tree_map(fn: Callable, tree: Any):
+def tree_map(fn: Callable, tree: Any):
     if isinstance(tree, tuple):
-        return tuple(_tree_map(fn, x) for x in tree)
+        return tuple(tree_map(fn, x) for x in tree)
     if isinstance(tree, list):
-        return [_tree_map(fn, x) for x in tree]
+        return [tree_map(fn, x) for x in tree]
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 
@@ -104,7 +106,7 @@ def allreduce(tree: Any, op: "Combiner | str" = Combiner.ADD):
     """All workers end with the combined value — Harp ``allreduce``."""
     comb = _as_combiner(op)
     record_comm("allreduce", tree, combiner=comb.value)
-    return _tree_map(comb.reduce, tree)
+    return tree_map(comb.reduce, tree)
 
 
 def allgather(tree: Any, *, tiled: bool = True):
@@ -118,7 +120,7 @@ def allgather(tree: Any, *, tiled: bool = True):
         stacked = _all_gather_stack(x)
         return stacked.reshape(-1, *x.shape[1:]) if tiled else stacked
 
-    return _tree_map(gather, tree)
+    return tree_map(gather, tree)
 
 
 def broadcast(tree: Any, root: int = 0):
@@ -133,7 +135,7 @@ def broadcast(tree: Any, root: int = 0):
             dist.broadcast(y, src=root)
         return y.to(x.dtype)
 
-    return _tree_map(bcast, tree)
+    return tree_map(bcast, tree)
 
 
 def reduce(tree: Any, op: "Combiner | str" = Combiner.ADD, root: int = 0):
@@ -148,7 +150,7 @@ def reduce(tree: Any, op: "Combiner | str" = Combiner.ADD, root: int = 0):
             total = torch.zeros_like(total)
         return total.to(x.dtype)
 
-    return _tree_map(red, tree)
+    return tree_map(red, tree)
 
 
 def push(tree: Any, op: "Combiner | str" = Combiner.ADD, *,
@@ -186,7 +188,7 @@ def push(tree: Any, op: "Combiner | str" = Combiner.ADD, *,
         return total.narrow(scatter_dim, worker_id() * block,
                             block).contiguous()
 
-    return _tree_map(do_push, tree)
+    return tree_map(do_push, tree)
 
 
 def pull(tree: Any, *, concat_dim: int = 0):
@@ -196,7 +198,7 @@ def pull(tree: Any, *, concat_dim: int = 0):
     def do_pull(x):
         return torch.cat(list(_all_gather_stack(x).unbind(0)), dim=concat_dim)
 
-    return _tree_map(do_pull, tree)
+    return tree_map(do_pull, tree)
 
 
 def barrier() -> torch.Tensor:
@@ -218,3 +220,94 @@ def quantize_to_int8(x: torch.Tensor, amax) -> tuple[torch.Tensor,
     scale = torch.clamp_min(amax, 1e-30) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def _ring_move(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """This worker's ``x`` goes to worker ``(i + shift) % n``; returns what
+    worker ``(i - shift) % n`` sent.  A shift that is a multiple of the
+    ring size (one worker included) returns a copy."""
+    nw = num_workers()
+    if shift % nw == 0:
+        return x.clone()
+    me = worker_id()
+    send = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+    recv = torch.empty_like(send)
+    # both sides are posted before any wait: a blocking send-first pair
+    # deadlocks gloo, whose sends complete only when received
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, (me + shift) % nw),
+        dist.P2POp(dist.irecv, recv, (me - shift) % nw)])
+    for w in works:
+        w.wait()
+    return recv.to(x.dtype)
+
+
+def rotate(tree: Any, shift: int = 1):
+    """Ring-shift partitions: worker *i*'s data goes to worker
+    *(i + shift) % n* — Harp ``rotate``, the model-rotation primitive.
+    Exact: the bytes move unchanged."""
+    record_comm("rotate", tree)
+    return tree_map(lambda x: _ring_move(x, shift), tree)
+
+
+_WIRE_DTYPES = (torch.bfloat16, torch.int8)
+
+
+def _quantized_move(tree: Any, wire_dtype: torch.dtype, move) -> Any:
+    """``move`` on a narrow wire, rounding once per call: bf16 is one cast
+    each way; int8 quantizes every float leaf against a worker-shared
+    |max| (all leaves' |max| in ONE stacked MAX allreduce, so sender and
+    receiver dequantize with the same scale and no scale rides the wire),
+    error at most ``|max| / 254`` an element.  Non-float leaves move
+    exact."""
+    leaves = tree_leaves(tree)
+    floats = [x for x in leaves if x.is_floating_point()]
+    amaxes = None
+    if wire_dtype == torch.int8 and floats:
+        amax = torch.stack([x.abs().amax().to(torch.float32) for x in floats])
+        amaxes = iter(Combiner.MAX.reduce(amax).unbind(0))
+
+    def one(x):
+        if not x.is_floating_point():
+            return move(x)
+        if wire_dtype == torch.bfloat16:
+            return move(x.to(torch.bfloat16)).to(x.dtype)
+        q, scale = quantize_to_int8(x, next(amaxes))
+        return (move(q).to(torch.float32) * scale).to(x.dtype)
+
+    return tree_map(one, tree)
+
+
+def rotate_quantized(tree: Any, shift: int = 1, *,
+                     wire_dtype: torch.dtype = torch.bfloat16):
+    """:func:`rotate` on a quantized wire (``torch.bfloat16`` or
+    ``torch.int8``): half or a quarter of the bytes per hop, one rounding
+    per call whatever the ring size — on one worker too."""
+    if wire_dtype not in _WIRE_DTYPES:
+        raise ValueError(f"unsupported wire_dtype {wire_dtype!r} "
+                         "(use torch.bfloat16 or torch.int8)")
+    record_comm("rotate_quantized", tree, wire_dtype=wire_dtype)
+    return _quantized_move(tree, wire_dtype, lambda x: _ring_move(x, shift))
+
+
+#: ring payload formats of :func:`ring_hop` (and of the rotation pipeline)
+RING_WIRES = {"exact": None, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def ring_hop(tree: Any, shift: int = 1, wire: str = "exact"):
+    """One hop of the rotation pipeline: the reference's
+    ``reshard(blocked(0), blocked(0, shift), wire=...)``.  A shift that is
+    a multiple of the ring size (one worker included) moves nothing: the
+    tree comes back as it is, unrounded and unrecorded.  Otherwise the hop
+    is recorded under the verb ``reshard`` at its wire's width and moves
+    as :func:`rotate` (exact) or :func:`rotate_quantized` does."""
+    if wire not in RING_WIRES:
+        raise ValueError(f"wire must be one of {tuple(RING_WIRES)}, "
+                         f"got {wire!r}")
+    if shift % num_workers() == 0:
+        return tree
+    wd = RING_WIRES[wire]
+    record_comm("reshard", tree, wire_dtype=wd)
+    if wd is None:
+        return tree_map(lambda x: _ring_move(x, shift), tree)
+    return _quantized_move(tree, wd, lambda x: _ring_move(x, shift))

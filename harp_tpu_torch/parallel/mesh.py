@@ -120,6 +120,17 @@ class WorkerMesh:
 _CURRENT_MESH: WorkerMesh | None = None
 
 
+def resolve_mesh(mesh: WorkerMesh | None, device) -> WorkerMesh:
+    """An entry point's group: ``mesh`` if given (it must agree with
+    ``device``), else one on ``device``, else the process-wide default."""
+    if mesh is None:
+        return WorkerMesh(device) if device is not None else current_mesh()
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={device!r} disagrees with the mesh's "
+                         f"{mesh.device}")
+    return mesh
+
+
 def current_mesh() -> WorkerMesh:
     """The process-wide default group (made on first use, on this worker's
     card — which raises where there is none)."""

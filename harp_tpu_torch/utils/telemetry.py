@@ -1,5 +1,5 @@
 """Comm ledger and span tracer — the part of ``harp_tpu.utils.telemetry``
-that KMeans needs.
+that KMeans and MF-SGD need.
 
 **CommLedger**: every verb in :mod:`harp_tpu_torch.parallel.collective`
 calls :func:`record_comm`, which adds the call's per-worker payload bytes
@@ -8,7 +8,9 @@ calls :func:`record_comm`, which adds the call's per-worker payload bytes
 per *call*, at run time; there is no trace-time sheet to multiply.
 ``run(tag, steps)`` counts ``steps`` executions of the tagged block (the
 Lloyd iterations of one ``fit``), so ``bytes_per_execution`` is the
-recorded total over the executions.
+recorded total over the executions.  A verb on a quantized wire passes
+``wire_dtype``: its float leaves count at the wire's width (the int8 wire
+one byte an element), its other leaves at their own.
 
 **Spans**: ``with span("kmeans.fit"): ...`` records name, duration and
 attributes.
@@ -58,13 +60,17 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
-def _tree_bytes(tree: Any) -> tuple[int, int]:
+def _tree_bytes(tree: Any, wire_dtype: "torch.dtype | None" = None
+                ) -> tuple[int, int]:
     """(payload bytes, number of leaves) of one verb call, per worker."""
     leaves = tree_leaves(tree)
     total = 0
     for x in leaves:
         x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
-        total += x.numel() * x.element_size()
+        width = x.element_size()
+        if wire_dtype is not None and x.is_floating_point():
+            width = wire_dtype.itemsize
+        total += x.numel() * width
     return total, len(leaves)
 
 
@@ -83,14 +89,17 @@ class CommLedger:
         return self._tags.setdefault(name, {"executions": 0, "verbs": {}})
 
     def record(self, verb: str, tree: Any, *,
-               combiner: str | None = None) -> None:
+               combiner: str | None = None,
+               wire_dtype: "torch.dtype | None" = None) -> None:
         if not _ENABLED:
             return
-        payload, n_leaves = _tree_bytes(tree)
+        payload, n_leaves = _tree_bytes(tree, wire_dtype)
+        wire = None if wire_dtype is None else str(wire_dtype).removeprefix(
+            "torch.")
         t = self._tag(self._tag_stack[-1] if self._tag_stack else _UNTAGGED)
-        rec = t["verbs"].setdefault((verb, combiner), {
-            "verb": verb, "combiner": combiner, "payload_bytes": 0,
-            "calls": 0, "leaves": n_leaves})
+        rec = t["verbs"].setdefault((verb, combiner, wire), {
+            "verb": verb, "combiner": combiner, "wire_dtype": wire,
+            "payload_bytes": 0, "calls": 0, "leaves": n_leaves})
         rec["payload_bytes"] += payload
         rec["calls"] += 1
 
@@ -171,8 +180,9 @@ def span(name: str, **attrs: Any):
     return tracer.span(name, **attrs)
 
 
-def record_comm(verb: str, tree: Any, *, combiner: str | None = None) -> None:
+def record_comm(verb: str, tree: Any, *, combiner: str | None = None,
+                wire_dtype: "torch.dtype | None" = None) -> None:
     """The one hook the collective verbs call, once per call."""
     if not _ENABLED:
         return
-    ledger.record(verb, tree, combiner=combiner)
+    ledger.record(verb, tree, combiner=combiner, wire_dtype=wire_dtype)

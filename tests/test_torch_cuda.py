@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain versions on the card.
+"""Kernels K1, K2 and K3 against their plain versions on the card.
 
 These need an NVIDIA card with ``nvcc``; elsewhere each test skips (the
 fixture decides, never the import).  On the card, from the repo root:
@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from harp_tpu_torch.ops import kmeans_kernel as KK
+from harp_tpu_torch.ops import mfsgd_kernel as K3
 from harp_tpu_torch.models import kmeans as KM
+from harp_tpu_torch.models import mfsgd as MF
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +24,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1/K2 have no CPU mode)")
+        pytest.skip("needs a CUDA device (kernels K1-K3 have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -106,3 +108,55 @@ def test_fit_runs_each_kernel_once_per_iteration(dev):
     KM.fit(pts, k=8, iters=4, seed=0, use_pallas=True)
     KM.fit(pts, k=8, iters=2, seed=0)
     assert KK.LAUNCHES == {"kmeans_partials_int8": 3, "kmeans_partials": 4}
+
+
+def _k3_entries(tile, cap, rank, dev, nu=200, ni=120, nnz=5000, seed=0):
+    u, i, v = MF.synthetic_ratings(nu, ni, nnz, seed=seed)
+    eu, ei, ev, ou, oi, _, _, ub, ib = MF.partition_ratings_tiles(
+        u, i, v, nu, ni, 1, tile, tile, cap, n_slices=1)
+    ent = [torch.from_numpy(a[0].copy()).to(dev) for a in (eu, ei, ev, ou, oi)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    W = torch.rand((ub, rank), generator=g, device=dev) / 4
+    H = torch.rand((ib, rank), generator=g, device=dev) / 4
+    return W, H, ent
+
+
+@pytest.mark.parametrize("rank", [8, 64, 100])
+@pytest.mark.parametrize("tile,cap", [(8, 16), (16, 64), (32, 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(dev, rank, tile, cap, dtype):
+    W, H, ent = _k3_entries(tile, cap, rank, dev)
+    kw = dict(lr=0.05, reg=0.02, u_tile=tile, i_tile=tile,
+              compute_dtype=dtype)
+    before = K3.LAUNCHES["sgd_tile_update"]
+    W1, H1, se1, c1 = K3.sgd_tile_update(W, H, *ent, **kw)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES["sgd_tile_update"] == before + 1
+    W2, H2, se2, c2 = K3.sgd_tile_update_plain(W, H, *ent, **kw)
+    # the gradient sums are added in another f32 order (shared-memory
+    # atomics): the reference's tolerance for dense vs pallas
+    torch.testing.assert_close(W1, W2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(H1, H2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(se1, se2, rtol=1e-5, atol=0)
+    assert float(c1) == float(c2) == float((ent[0] < tile).sum())
+    assert not torch.equal(W1, W)
+
+
+def test_k3_refuses_accumulators_beyond_shared_memory(dev):
+    W, H, ent = _k3_entries(512, 16, 64, dev)  # 2 x 128 KB of accumulators
+    with pytest.raises(ValueError, match="shared memory"):
+        K3.sgd_tile_update(W, H, *ent, lr=0.1, reg=0.0, u_tile=512,
+                           i_tile=512)
+
+
+def test_mfsgd_pallas_launches_k3_once_per_rotation_step(dev):
+    u, i, v = MF.synthetic_ratings(300, 200, 6000, seed=1)
+    cfg = MF.MFSGDConfig(rank=16, algo="pallas", u_tile=16, i_tile=16,
+                         entry_cap=64)
+    m = MF.MFSGD(300, 200, cfg)
+    m.set_ratings(u, i, v)
+    K3.reset_launches()
+    r = m.train_epochs(3)
+    assert K3.LAUNCHES == {"sgd_tile_update": 2 * 3}
+    assert r[-1] < r[0]

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from harp_tpu_torch.models import kmeans as KM
+from harp_tpu_torch.models import mfsgd as MF
 from harp_tpu_torch.ops import build
 from harp_tpu_torch.parallel import mesh as M
 
@@ -57,6 +58,8 @@ def test_importing_the_whole_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 10 and "harp_tpu_torch.ops.kmeans_kernel" in mods
+    assert {"harp_tpu_torch.ops.mfsgd_kernel", "harp_tpu_torch.models.mfsgd",
+            "harp_tpu_torch.parallel.rotate"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -72,7 +75,8 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
     assert M.WorkerMesh("cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("entry", ["fit", "benchmark", "cli"])
+@pytest.mark.parametrize("entry", ["fit", "benchmark", "cli", "mfsgd-MFSGD",
+                                   "mfsgd-benchmark", "mfsgd-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -81,8 +85,15 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
             KM.fit(pts, k=2, iters=1)
         elif entry == "benchmark":
             KM.benchmark(n=16, d=4, k=2, iters=1)
-        else:
+        elif entry == "cli":
             KM.main(["--n", "16", "--d", "4", "--k", "2", "--iters", "1"])
+        elif entry == "mfsgd-MFSGD":
+            MF.MFSGD(16, 8, MF.MFSGDConfig(rank=4))
+        elif entry == "mfsgd-benchmark":
+            MF.benchmark(n_users=16, n_items=8, nnz=32, rank=4, epochs=1)
+        else:
+            MF.main(["--users", "16", "--items", "8", "--nnz", "32",
+                     "--rank", "4", "--epochs", "1"])
 
 
 def test_mesh_and_device_must_agree():
@@ -100,7 +111,8 @@ def test_build_needs_nvcc_and_names_it(tmp_path, monkeypatch):
 
 
 def test_library_names_follow_the_source_hash():
-    assert build.sources() == ["kmeans_partials", "kmeans_partials_int8"]
+    assert build.sources() == ["kmeans_partials", "kmeans_partials_int8",
+                               "mfsgd_tile_update"]
     a = build.library_path("kmeans_partials")
     b = build.library_path("kmeans_partials_int8")
     assert a.parent == b.parent == build.BUILD_DIR and a != b

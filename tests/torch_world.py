@@ -199,3 +199,152 @@ def run_kmeans_cases(rank: int, world: int, pts: np.ndarray,
     out["num_workers"] = mesh.num_workers
     out["is_master"] = is_master()
     return out
+
+
+# ---- rotation --------------------------------------------------------------
+
+ROTATE_SHIFTS = (1, -1, 5)
+PIPELINE_CASES = [(nc, wire) for nc in (1, 2, 4)
+                  for wire in ("exact", "bf16", "int8")]
+
+
+def rotate_inputs(world: int = WORLD) -> dict:
+    """Every worker's inputs for the rotation cases: [world, ...] arrays."""
+    rng = np.random.default_rng(7)
+    return {
+        "float32": rng.normal(size=(world, 4, 3)).astype(np.float32),
+        "int32": rng.integers(-9, 10, size=(world, 4, 3)).astype(np.int32),
+        "bool": rng.random((world, 4, 3)) < 0.5,
+        "big": (1e3 * rng.normal(size=(world, 6))).astype(np.float32),
+        "small": (1e-3 * rng.normal(size=(world, 6))).astype(np.float32),
+        # small integers: exact on every wire but int8
+        "slice": rng.integers(0, 10, size=(world, 8, 3)).astype(np.float32),
+    }
+
+
+def pipeline_step(lib, wire: str = "exact"):
+    """An order-sensitive rotation step for ``lib`` (torch or jax.numpy):
+    any change of order, of step or of chunk changes the result.  On the
+    exact wire it keeps to integer-valued f32 arithmetic, so it is exact;
+    on a quantized wire it is smooth, so one rounding per hop stays
+    small."""
+    def exact(acc, cur, t):
+        acc = lib.remainder(acc * 2 + cur.sum() * (t + 1), 1000003.0)
+        return acc, cur + lib.remainder(acc, 7.0)
+
+    def smooth(acc, cur, t):
+        acc = acc * 0.5 + cur.sum() * (t + 1)
+        return acc, cur * 1.01 + 0.25
+
+    return exact if wire == "exact" else smooth
+
+
+def run_rotate_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.parallel.rotate import (resident_chunk_index,
+                                                rotate_pipeline)
+    from harp_tpu_torch.utils import telemetry
+
+    inp = {k: torch.from_numpy(a[rank].copy())
+           for k, a in rotate_inputs(world).items()}
+    out = {}
+    for shift in ROTATE_SHIFTS:
+        for dt in ("float32", "int32", "bool"):
+            out[f"rotate-{shift}-{dt}"] = C.rotate(inp[dt], shift).numpy()
+    tree = {"big": inp["big"], "small": inp["small"], "n": inp["int32"]}
+    for name, wd in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        got = C.rotate_quantized(tree, wire_dtype=wd)
+        out[f"rq-{name}"] = {k: v.numpy() for k, v in got.items()}
+    out["rq-int8-shift-1"] = C.rotate_quantized(
+        inp["float32"], -1, wire_dtype=torch.int8).numpy()
+    for nc, wire in PIPELINE_CASES:
+        acc, sl = rotate_pipeline(pipeline_step(torch, wire), torch.zeros(()),
+                                  inp["slice"],
+                                  n_chunks=nc, wire=wire)
+        out[f"pipe-{nc}-{wire}"] = (acc.numpy(), sl.numpy())
+    for nc in (1, 2, 4):
+        rows = 8 // nc
+        ids = torch.arange(rank * nc, (rank + 1) * nc,
+                           dtype=torch.float32).repeat_interleave(rows)
+
+        def check(err, cur, t, nc=nc):
+            return err + (cur - resident_chunk_index(t, nc)).abs().sum(), cur
+
+        out[f"resident-{nc}"] = float(rotate_pipeline(
+            check, torch.zeros(()), ids[:, None], n_chunks=nc)[0])
+    with telemetry.scope():
+        for wire in ("exact", "bf16", "int8"):
+            with telemetry.ledger.run(wire):
+                rotate_pipeline(lambda a, c, t: (a, c), None, inp["slice"],
+                                n_chunks=2, wire=wire)
+        with telemetry.ledger.run("rotate"):
+            C.rotate(inp["slice"])
+        out["ledger"] = telemetry.ledger.summary()
+    return out
+
+
+# ---- MF-SGD ----------------------------------------------------------------
+
+#: (case id, MFSGDConfig kwargs) run on every worker of the MF-SGD world
+MFSGD_CASES = [
+    ("pallas", {"algo": "pallas", "u_tile": 8, "i_tile": 8,
+                "entry_cap": 16}),
+    ("dense", {"algo": "dense", "u_tile": 8, "i_tile": 8, "entry_cap": 16}),
+    ("scatter", {"algo": "scatter", "chunk": 64}),
+    ("scatter-chunks4-int8", {"algo": "scatter", "chunk": 64,
+                              "rotate_chunks": 4, "rotate_wire": "int8"}),
+]
+MFSGD_SHAPE = {"n_users": 96, "n_items": 64, "nnz": 3000, "rank": 8}
+
+
+def mfsgd_case_inputs(kw: dict, n_workers: int, seed: int = 1):
+    """Ratings and the initial factors (global, in the storage layout) for
+    a case: both packages start from these."""
+    from harp_tpu_torch.models import mfsgd as MF
+
+    s = MFSGD_SHAPE
+    u, i, v = MF.synthetic_ratings(s["n_users"], s["n_items"], s["nnz"],
+                                   rank=4, noise=0.05, seed=seed)
+    cfg = MF.MFSGDConfig(rank=s["rank"], **kw)
+    nc = MF.rotate_chunks_resolved(cfg)
+    if cfg.algo == "scatter":
+        u_bound = -(-s["n_users"] // n_workers)
+        i_bound = nc * -(-s["n_items"] // (nc * n_workers))
+    else:
+        _, _, u_bound, ibc = MF._dense_bounds(
+            s["n_users"], s["n_items"], n_workers, nc * n_workers,
+            *MF.tiles(cfg))
+        i_bound = nc * ibc
+    rng = np.random.default_rng(seed + 100)
+    scale = 1.0 / np.sqrt(s["rank"])
+    W0 = rng.uniform(0, scale, (u_bound * n_workers, s["rank"]))
+    H0 = rng.uniform(0, scale, (i_bound * n_workers, s["rank"]))
+    return u, i, v, W0.astype(np.float32), H0.astype(np.float32)
+
+
+def run_mfsgd_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch import convert
+    from harp_tpu_torch.models import mfsgd as MF
+
+    s = MFSGD_SHAPE
+    out = {}
+    for cid, kw in MFSGD_CASES:
+        u, i, v, W0, H0 = mfsgd_case_inputs(kw, world)
+        cfg = MF.MFSGDConfig(rank=s["rank"], lr=0.02, reg=0.01,
+                             compute_dtype=torch.float32, **kw)
+        m = MF.MFSGD(s["n_users"], s["n_items"], cfg, device="cpu",
+                     state=convert.mfsgd_state_from_numpy(
+                         {"W": W0, "H": H0}, "cpu"))
+        m.set_ratings(u, i, v)
+        r2 = [m.train_epoch() for _ in range(2)]
+        W2, H2 = m.W.numpy().copy(), m.H.numpy().copy()
+        r5 = m.train_epochs(3)
+        Wf, Hf = m.factors()
+        out[cid] = {"rmse": r2 + r5, "W2": W2, "H2": H2, "W": m.W.numpy(),
+                    "H": m.H.numpy(), "factors": (Wf, Hf),
+                    "predict_rmse": m.predict_rmse(u, i, v)}
+    return out
