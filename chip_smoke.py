@@ -33,7 +33,25 @@ fatal when it fails (exit code != 0 and no result line):
    the CPU on a small input for all three algos;
 8. models.mfsgd.benchmark at that width for pallas, and the CLI
    (python -m harp_tpu_torch mfsgd --algo pallas --epochs 3);
-9. one JSON line of the kernels, the card's name and power limit, and
+9. K4 (cgs_entry_update, through its step entry point cgs_step) against
+   its plain version at the LDA benchmark width (100k docs x 50k words,
+   1000 topics, 100 tokens a doc; 512 x 512 tiles, C = 768, cc from
+   chunk_width): the first 256 entries of one rotation step with injected
+   uniforms for f32 and int16 Ndk, then the whole step on the Philox arm;
+   tables, topics and dNk bit-equal;
+10. K4's Philox arm on a flat tile: topic frequencies match the posterior;
+11. models.lda.LDA on synthetic_corpus(96, 64, 4, 50) for pallas and dense,
+   four seeds, twelve sweeps: chain invariants, rising likelihood, and the
+   two algos' mean log-likelihoods within 0.05;
+12. models.lda.benchmark(algo="pallas") at the benchmark width (K4 launched
+   once per rotation step: 2 an epoch), and the CLI (python -m
+   harp_tpu_torch lda --algo pallas);
+13. torch.profiler over one sample_epoch at that width: device busy and
+   idle share, top kernels;
+14. one sample_epoch at the graded enwiki-1M size (1M docs, 100M tokens,
+   int16 Ndk) when phase 12's epoch is under 3 s: prep, epoch time, peak
+   device memory and the chain invariants;
+15. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -60,6 +78,15 @@ SHAPES = [(N, D, K), (N + 3, D, K), (N, D, 1000)]
 
 # MovieLens-20M width (the reference's graded MF-SGD config)
 ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS = 138_493, 26_744, 20_000_000, 64, 3
+
+# LDA benchmark width (the reference's benchmark() defaults, graded config
+# #3 scaled to one card) and the graded enwiki-1M doc count
+LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_TPD, LDA_EPOCHS = 100_000, 50_000, 1000, 100, 2
+ENWIKI_DOCS = 1_000_000
+# H100 SXM special-function (MUFU) rate: 16 results per clock per SM
+# (CUDA C++ Programming Guide, arithmetic throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost clock
+SFU_OPS_S = 16 * 132 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -244,7 +271,7 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
           "3 epochs from the same init, for pallas, dense and scatter "
           "(factors rtol 1e-4 / atol 1e-5, RMSEs rtol 1e-5)")
 
-    # -- 8. benchmark and CLI ----------------------------------------------------
+    # -- 8. benchmark and CLI -------------------------------------------------
     out = MF.benchmark(ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS,
                        algo="pallas")
     if not (np.isfinite(out["rmse_final"])
@@ -268,27 +295,294 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
     return row, launches
 
 
-def profile_epoch(model, card: str) -> None:
-    """Device busy share of one train_epoch, from torch.profiler's CUDA
-    kernel times over the epoch's wall (the epoch ends in a readback)."""
+def k4_work(ed, d_tile) -> dict:
+    """What one rotation step's entries ask of K4, counted from the data."""
+    real = ed < d_tile
+    return {"entries": ed.shape[0], "slots": ed.size,
+            "tokens": int(real.sum())}
+
+
+def k4_bound_ms(work, ndk_bytes, nwk_bytes, K) -> tuple[float, str]:
+    """K4's least time for one rotation step.  Bytes: cd for every slot (4
+    B: it marks the pads), cw and z read and z written for the real tokens
+    (12 B), od/ow and the two seed words per entry (16 B), nk read and
+    written, and Ndk and the word chunk read and written once.  Operations:
+    ~10 f32 operations per real token and topic (three gathers less the own
+    assignment, three prior adds and clamps, the ratio's two products and
+    one division, the compare) on the CUDA cores at 67 TFLOP/s, and one log
+    each on the special-function units (SFU_OPS_S); the two run side by
+    side, so the slower one bounds."""
+    nbytes = (4 * work["slots"] + 12 * work["tokens"] + 16 * work["entries"]
+              + 8 * K + 2 * (ndk_bytes + nwk_bytes))
+    el = work["tokens"] * K
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(10.0 * el / PEAK_OPS["f32"], el / SFU_OPS_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def lda_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 9-14; returns K4's row of the kernels line and its launches
+    on the LDA main path (phase 12's benchmark)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import lda as LD
+    from harp_tpu_torch.ops import lda_kernel as K4
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    # -- 9. K4 against its plain version, one rotation step ------------------
+    t0 = time.perf_counter()
+    cfg = LD.LDAConfig(n_topics=LDA_TOPICS, algo="pallas")
+    model = LD.LDA(LDA_DOCS, LDA_VOCAB, cfg, seed=0)
+    model.set_tokens(*LD.benchmark_corpus(LDA_DOCS, LDA_VOCAB, LDA_TPD, 0))
+    s = 0
+    ed, ew, od, ow = (a[s] for a in model._tokens)
+    z0, plan, cc = model.z_grid[s].clone(), model._plans[s], model.cc
+    ne, c = ed.shape
+    wrows = model.Nwk.shape[0] // 2
+    Ndk, Nwk, Nk = model.Ndk.clone(), model.Nwk[:wrows].clone(), model.Nk
+    work = k4_work(ed.cpu().numpy(), cfg.d_tile)
+    print(f"K4 prep: {time.perf_counter() - t0:.1f} s; one step: {ne} "
+          f"entries x {c} slots, {work['tokens']} tokens, cc {cc} (count "
+          f"bounds {model._count_bounds}), {plan.launches} CUDA launches a "
+          f"step, Ndk {tuple(Ndk.shape)}, word chunk {tuple(Nwk.shape)}")
+    del model
+    kw = dict(alpha=cfg.alpha, beta=cfg.beta, vbeta=LDA_VOCAB * cfg.beta,
+              d_tile=cfg.d_tile, w_tile=cfg.w_tile, cc=cc)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n_sub = min(256, ne)
+    sub = [a[:n_sub] for a in (ed, ew, od, ow)]
+    u = torch.rand((n_sub, c, LDA_TOPICS), generator=gen,
+                   device=dev).clamp_min_(2.0 ** -25)
+    sub_plan = K4.EntryPlan(plan.n_chunks[:n_sub].copy(), cc, plan.d_rows,
+                            plan.w_rows)
+    err = 0.0
+    for dt in (torch.float32, torch.int16):
+        outs = []
+        for fn in (K4.cgs_step, K4.cgs_step_plain):
+            st = [Ndk.to(dt, copy=True), Nwk.clone(), z0[:n_sub].clone()]
+            extra = {"plan": sub_plan} if fn is K4.cgs_step else {}
+            d = fn(st[0], st[1], Nk, st[2], *sub, u=u, **kw, **extra)
+            outs.append(st + [d])
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            err = max(err, float((a.float() - b.float()).abs().max()))
+            if not torch.equal(a, b):
+                fail(f"K4 ({dt}, injected uniforms) differs from its plain "
+                     f"version on the first {n_sub} entries")
+        moved = int((outs[0][2] != z0[:n_sub]).sum())
+        print(f"K4 {str(dt).removeprefix('torch.')} Ndk, injected uniforms, "
+              f"first {n_sub} entries: tables, topics and dNk bit-equal to "
+              f"the plain version; {moved} topics moved")
+    st = [Ndk.clone(), Nwk.clone(), z0[:n_sub].clone()]
+    ms_sub = cuda_ms(lambda: K4.cgs_step(st[0], st[1], Nk, st[2], *sub, u=u,
+                                         plan=sub_plan, **kw),
+                     reps=3, warmup=1)
+    plain_sub = cuda_ms(lambda: K4.cgs_step_plain(st[0], st[1], Nk, st[2],
+                                                  *sub, u=u, **kw),
+                        reps=1, warmup=0)
+    del st
+    del u
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (ne, 2), dtype=torch.int32,
+                          generator=gen, device=dev)
+    full = (ed, ew, od, ow)
+    ka = [Ndk.clone(), Nwk.clone(), z0.clone()]
+    pa = [Ndk.clone(), Nwk.clone(), z0.clone()]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    d1 = K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full, seeds=seeds, plan=plan,
+                     **kw)
+    start.record()
+    d2 = K4.cgs_step_plain(pa[0], pa[1], Nk, pa[2], *full, seeds=seeds, **kw)
+    end.record()
+    end.synchronize()
+    plain = start.elapsed_time(end)
+    for a, b in zip(ka + [d1], pa + [d2]):
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        if not torch.equal(a, b):
+            fail("K4 (Philox arm) differs from its plain version on a whole "
+                 "rotation step")
+    del pa
+    ms = cuda_ms(lambda: K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full,
+                                     seeds=seeds, plan=plan, **kw),
+                 reps=3, warmup=1)
+    b_ms, b_by = k4_bound_ms(work, Ndk.numel() * 4, Nwk.numel() * 4,
+                             LDA_TOPICS)
+    print(f"K4 whole step, Philox arm: bit-equal to the plain version; "
+          f"kernel {ms:.4f} ms/step ({plan.launches} CUDA launches, "
+          f"{ms * 1e3 / plan.launches:.3f} us a launch), plain {plain:.4f} "
+          f"ms/step, bound {b_ms:.4f} ms ({b_by}); first {n_sub} entries "
+          f"with injected uniforms: kernel {ms_sub:.4f} ms, plain "
+          f"{plain_sub:.4f} ms [{card}]")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by}
+    del ka, Ndk, Nwk, full, seeds
+
+    # -- 10. the Philox arm draws from the posterior --------------------------
+    Kf, C_ = 8, 256
+    av = torch.tensor([1.0, 2, 3, 4, 1, 1, 1, 3], device=dev) * 10_000
+    bv = torch.tensor([4.0, 1, 2, 1, 1, 2, 1, 1], device=dev) * 10_000
+    Db = torch.zeros((8, Kf), device=dev)
+    Wb = torch.zeros((8, Kf), device=dev)
+    Db[0], Wb[0] = av, bv
+    zeros = torch.zeros(C_, dtype=torch.int32, device=dev)
+    a_, b_, c_ = av.cpu().numpy(), bv.cpu().numpy(), np.full(Kf, 1e6)
+    a_[0] -= 1
+    b_[0] -= 1
+    c_[0] -= 1
+    p = a_ * b_ / c_
+    p /= p.sum()
+    counts = np.zeros(Kf)
+    reps = 64
+    for r in range(reps):
+        zn = K4.cgs_entry_update(
+            Db, Wb, torch.full((Kf,), 1e6, device=dev), zeros, zeros, zeros,
+            alpha=0.0, beta=0.0, vbeta=0.0, cc=C_,
+            seed2=torch.tensor([3, 100 + r], dtype=torch.int32,
+                               device=dev))[2]
+        counts += np.bincount(zn.cpu().numpy(), minlength=Kf)
+    freq = counts / (reps * C_)
+    se = np.sqrt(p * (1 - p) / (reps * C_)).max()
+    if np.abs(freq - p).max() > 5 * se + 0.005:
+        fail(f"K4 Philox draws {freq} do not match the posterior {p}")
+    print(f"K4 Philox arm on a flat tile: frequencies {np.round(freq, 4)} vs "
+          f"posterior {np.round(p, 4)}, max gap {np.abs(freq - p).max():.4f}"
+          f" (limit {5 * se + 0.005:.4f})")
+
+    # -- 11. small corpus on the card: invariants, pallas vs dense -----------
+    d, w = LD.synthetic_corpus(96, 64, 4, 50)
+    lls = {}
+    for algo in ("pallas", "dense"):
+        lls[algo] = []
+        for seed in range(4):
+            m = LD.LDA(96, 64, LD.LDAConfig(
+                n_topics=8, algo=algo, sampler="exprace", d_tile=16,
+                w_tile=16, entry_cap=64), seed=10 + seed)
+            m.set_tokens(d, w)
+            ll0 = m.log_likelihood()
+            m.sample_epochs(12)
+            Ndk_, Nwk_ = m.doc_topic_table(), m.word_topic_table()
+            Nk_ = m.Nk.cpu().numpy()
+            if not (Ndk_.sum() == Nwk_.sum() == m.n_tokens
+                    and np.array_equal(Nwk_.sum(0), Nk_)
+                    and np.array_equal(Nwk_, np.round(Nwk_))
+                    and (Ndk_ >= 0).all() and (Nwk_ >= 0).all()):
+                fail(f"LDA {algo} seed {seed}: chain invariants broken")
+            lls[algo].append(m.log_likelihood())
+            if not lls[algo][-1] > ll0:
+                fail(f"LDA {algo}: log-likelihood {lls[algo][-1]} did not "
+                     f"rise from {ll0}")
+    gap = abs(np.mean(lls["pallas"]) - np.mean(lls["dense"]))
+    if gap >= 0.05:
+        fail(f"LDA pallas vs dense mean log-likelihood gap {gap} >= 0.05: "
+             f"{lls}")
+    print(f"LDA 96 docs x 64 words, 8 topics, 4 seeds x 12 sweeps: "
+          f"invariants hold; mean log-likelihood pallas "
+          f"{np.mean(lls['pallas']):.4f}, dense {np.mean(lls['dense']):.4f}, "
+          f"gap {gap:.4f} (gate 0.05)")
+
+    # -- 12. benchmark and CLI (the LDA main path) ----------------------------
+    K4.reset_launches()  # the LDA main path's run starts here
+    out = LD.benchmark(LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_TPD, LDA_EPOCHS,
+                       algo="pallas")
+    launches = K4.LAUNCHES["cgs_entry_update"]  # ... and ends here
+    if launches != 2 * (1 + LDA_EPOCHS):
+        fail(f"LDA benchmark: K4 launches {launches}, expected 2 per epoch")
+    if not np.isfinite(out["log_likelihood"]):
+        fail(f"LDA benchmark: non-finite log-likelihood: {out}")
+    print(f"LDA benchmark pallas: {out['tokens_per_sec_per_chip']:.6e} "
+          f"tokens/s per card, {out['sec_per_epoch']:.6f} s/epoch, "
+          f"log-likelihood {out['log_likelihood']:.6f}, prep "
+          f"{out['prep_sec']:.1f} s; K4 {ms:.4f} ms/step x 2 steps an epoch, "
+          f"{launches} calls [{card}]")
+    cli = subprocess.run(
+        [sys.executable, "-m", "harp_tpu_torch", "lda", "--algo", "pallas"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if cli.returncode:
+        fail(f"LDA CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
+    crow = json.loads(cli.stdout.strip().splitlines()[-1])
+    if crow.get("backend") != "cuda" or not np.isfinite(
+            crow["log_likelihood"]):
+        fail(f"LDA CLI row is not a finite cuda result: {crow}")
+    print(f"CLI: {json.dumps(crow)}")
+
+    # -- 13. profile one sweep ------------------------------------------------
+    model = LD.LDA(LDA_DOCS, LDA_VOCAB, cfg, seed=1)
+    model.set_tokens(*LD.benchmark_corpus(LDA_DOCS, LDA_VOCAB, LDA_TPD, 0))
+    model.sample_epoch()
+    t0 = time.perf_counter()
+    model.sample_epoch()
+    bare = time.perf_counter() - t0
+    profile_epoch(model, card, "LDA", "sample_epoch", bare)
+    del model
+
+    # -- 14. enwiki-1M on this card -------------------------------------------
+    if out["sec_per_epoch"] >= 3.0:
+        print(f"LDA enwiki-1M skipped: the benchmark epoch took "
+              f"{out['sec_per_epoch']:.3f} s (>= 3 s)")
+        return row, launches
+    torch.cuda.reset_peak_memory_stats()
+    big = LD.LDA(ENWIKI_DOCS, LDA_VOCAB, LD.LDAConfig(
+        n_topics=LDA_TOPICS, algo="pallas", ndk_dtype="int16"), seed=0)
+    corpus = LD.benchmark_corpus(ENWIKI_DOCS, LDA_VOCAB, LDA_TPD, 0)
+    t0 = time.perf_counter()
+    big.set_tokens(*corpus)
+    prep = time.perf_counter() - t0
+    del corpus
+    t0 = time.perf_counter()
+    big.sample_epoch()
+    sweep = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = ENWIKI_DOCS * LDA_TPD
+    # exact sums in row blocks: a whole-table int64 copy would be 8 GB
+    ndk_sum = sum(int(b.sum(dtype=torch.int64))
+                  for b in big.Ndk.split(1 << 16))
+    nwk_sum = int(big.Nwk.sum(dtype=torch.float64))
+    ok = (ndk_sum == nwk_sum == big.n_tokens == n_tok
+          and torch.equal(big.Nwk.sum(0), big.Nk)
+          and int(big.Ndk.min()) >= 0 and float(big.Nwk.min()) >= 0)
+    if not ok:
+        fail(f"LDA enwiki-1M: invariants broken (Ndk sum {ndk_sum}, Nwk sum "
+             f"{nwk_sum}, tokens {n_tok})")
+    print(f"LDA enwiki-1M ({ENWIKI_DOCS} docs x {LDA_VOCAB} words, "
+          f"{LDA_TOPICS} topics, "
+          f"{n_tok} tokens, int16 Ndk {tuple(big.Ndk.shape)}): prep "
+          f"{prep:.1f} s, one sample_epoch {sweep:.3f} s "
+          f"({n_tok / sweep:.6e} tokens/s), cc {big.cc}, peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB (set_tokens and the sweep), "
+          f"invariants hold [{card}]")
+    return row, launches
+
+
+def profile_epoch(model, card: str, app: str = "MFSGD",
+                  what: str = "train_epoch", bare: float | None = None
+                  ) -> None:
+    """Device busy share of one epoch (``what``: its method), from
+    torch.profiler's CUDA kernel times over the epoch's wall (the epoch ends
+    in a readback); ``bare``, the wall of an unprofiled epoch, gives a
+    second idle share free of the profiler's own host cost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.train_epoch()
+        getattr(model, what)()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     if busy <= 0:
-        print("MFSGD profile: the profiler saw no device time; idle share "
+        print(f"{app} profile: the profiler saw no device time; idle share "
               "not measured")
         return
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"MFSGD profile of one train_epoch: wall {wall:.4f} s, device "
-          f"busy {busy:.4f} s, idle share {1 - busy / wall:.3f}; top: "
+    unprofiled = ("" if bare is None else f" (unprofiled wall {bare:.4f} s, "
+                  f"idle share {max(1 - busy / bare, 0.0):.3f})")
+    print(f"{app} profile of one {what}: wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s, idle share {1 - busy / wall:.3f}"
+          f"{unprofiled}; top: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms"
                       f" x{e.count}" for e in top) + f" [{card}]")
 
@@ -479,17 +773,23 @@ def main() -> int:
         fail(f"CLI row is not a finite cuda result: {row}")
     print(f"CLI: {json.dumps(row)}")
 
-    # -- 6-8. MF-SGD -----------------------------------------------------------
+    # -- 6-8. MF-SGD ----------------------------------------------------------
     rows["sgd_tile_update"], launches["sgd_tile_update"] = mfsgd_phases(
         dev, card)
 
-    # -- 9. result -----------------------------------------------------------
+    # -- 9-14. LDA ------------------------------------------------------------
+    rows["cgs_entry_update"], launches["cgs_entry_update"] = lda_phases(
+        dev, card)
+
+    # -- 15. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",
                                "harp_tpu/ops/kmeans_kernel.py:110"),
            "sgd_tile_update": ("harp_tpu_torch/csrc/mfsgd_tile_update.cu",
-                               "harp_tpu/ops/mfsgd_kernel.py:133")}
+                               "harp_tpu/ops/mfsgd_kernel.py:133"),
+           "cgs_entry_update": ("harp_tpu_torch/csrc/lda_cgs_entry.cu",
+                                "harp_tpu/ops/lda_kernel.py:190")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 **rows[name], "library_ms": None} for name in src]

@@ -4,6 +4,8 @@
     python -m harp_tpu_torch kmeans --n 4096 --d 16 --k 8 --device cpu
     python -m harp_tpu_torch mfsgd --algo pallas --epochs 3
     python -m harp_tpu_torch mfsgd --users 2000 --items 500 --nnz 50000 --device cpu
+    python -m harp_tpu_torch lda --algo pallas
+    python -m harp_tpu_torch lda --docs 96 --vocab 64 --topics 8 --d-tile 16 --w-tile 16 --entry-cap 64 --algo pallas --device cpu
     python -m harp_tpu_torch --list
 """
 
@@ -17,6 +19,8 @@ APPS = {
                "KMeans Lloyd iterations (allreduce)"),
     "mfsgd": ("harp_tpu_torch.models.mfsgd",
               "MF-SGD with model rotation (rotate)"),
+    "lda": ("harp_tpu_torch.models.lda",
+            "LDA-CGS with model rotation (rotate + Nk allreduce)"),
 }
 
 

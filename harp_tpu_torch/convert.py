@@ -49,3 +49,41 @@ def mfsgd_state_from_numpy(state: dict, device) -> dict:
         raise ValueError(f"W and H ranks differ: {out['W'].shape[1]} vs "
                          f"{out['H'].shape[1]}")
     return out
+
+
+def lda_state_from_numpy(pack: dict, device) -> dict:
+    """The reference's LDA pack (``harp_tpu.models.lda.LDA.pack_tokens``) →
+    the port's tensors on ``device``, so both packages start from the same
+    chain.
+
+    ``pack`` holds ``"Ndk"`` [docs, K] (f32 or int16), ``"Nwk"`` [words, K]
+    f32, ``"Nk"`` [K] f32, ``"z_grid"`` (int32, shaped like the first token
+    array) and ``"tokens"``: ``(ed, ew, od, ow)`` for the tiled algos or
+    ``(bd, bw, bm)`` for scatter, in the global storage layout, which is the
+    port's too.  Returns the same keys (``tokens`` a tuple) with the shapes
+    checked; ``models.lda.LDA`` shards them."""
+    Ndk, Nwk = np.asarray(pack["Ndk"]), np.asarray(pack["Nwk"], np.float32)
+    if Ndk.dtype not in (np.float32, np.int16):
+        raise ValueError(f"Ndk must be float32 or int16, got {Ndk.dtype}")
+    if Ndk.ndim != 2 or Nwk.ndim != 2 or Ndk.shape[1] != Nwk.shape[1]:
+        raise ValueError(f"Ndk {Ndk.shape} and Nwk {Nwk.shape} must be "
+                         f"[rows, K] with one K")
+    K = Ndk.shape[1]
+    Nk = np.asarray(pack["Nk"], np.float32)
+    if Nk.shape != (K,):
+        raise ValueError(f"Nk must be [{K}], got shape {Nk.shape}")
+    tokens = tuple(np.asarray(a) for a in pack["tokens"])
+    if len(tokens) not in (3, 4):
+        raise ValueError(f"tokens must be (ed, ew, od, ow) or (bd, bw, bm), "
+                         f"got {len(tokens)} arrays")
+    z = np.asarray(pack["z_grid"], np.int32)
+    if z.shape != tokens[0].shape or tokens[1].shape != z.shape:
+        raise ValueError(f"z_grid {z.shape} must have the token ids' shape "
+                         f"{tokens[0].shape}")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+    return {"Ndk": t(Ndk), "Nwk": t(Nwk), "Nk": t(Nk), "z_grid": t(z),
+            "tokens": tuple(t(a) for a in tokens),
+            "n_tokens": int(pack["n_tokens"])}

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 against their plain versions on the card.
+"""Kernels K1, K2, K3 and K4 against their plain versions on the card.
 
 These need an NVIDIA card with ``nvcc``; elsewhere each test skips (the
 fixture decides, never the import).  On the card, from the repo root:
@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from harp_tpu_torch.ops import kmeans_kernel as KK
+from harp_tpu_torch.ops import lda_kernel as K4
 from harp_tpu_torch.ops import mfsgd_kernel as K3
 from harp_tpu_torch.models import kmeans as KM
+from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
 
 pytestmark = pytest.mark.cuda
@@ -24,7 +26,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K3 have no CPU mode)")
+        pytest.skip("needs a CUDA device (kernels K1-K4 have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -160,3 +162,96 @@ def test_mfsgd_pallas_launches_k3_once_per_rotation_step(dev):
     r = m.train_epochs(3)
     assert K3.LAUNCHES == {"sgd_tile_update": 2 * 3}
     assert r[-1] < r[0]
+
+
+def _k4_step(dev, K, dtype, NE=6, C=512, DR=32, WR=32, seed=0, hi=40):
+    rng = np.random.default_rng(seed)
+    Ndk = torch.from_numpy(rng.integers(0, hi, (3 * DR, K)).astype(
+        np.int16 if dtype == torch.int16 else np.float32)).to(dev)
+    Nwk = torch.from_numpy(rng.integers(0, hi, (2 * WR, K)).astype(
+        np.float32)).to(dev)
+    nk = Nwk.sum(0) + 100
+    ids = lambda hi_: torch.from_numpy(  # noqa: E731
+        rng.integers(0, hi_, (NE, C)).astype(np.int32)).to(dev)
+    cd, cw, z = ids(DR), ids(WR), ids(K)
+    cd[1, 300:] = DR  # trailing pads
+    cd[2] = DR        # an entry without a token
+    od = torch.from_numpy(rng.integers(0, 3, NE).astype(np.int32) * DR).to(dev)
+    ow = torch.from_numpy(rng.integers(0, 2, NE).astype(np.int32) * WR).to(dev)
+    return Ndk, Nwk, nk, z, cd, cw, od, ow
+
+
+@pytest.mark.parametrize("K", [8, 13, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+@pytest.mark.parametrize("arm", ["injected", "philox"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_k4_step_matches_plain_bit_for_bit(dev, K, dtype, arm, exact):
+    """Both arms, f32 and int16 doc counts (the int16 CAS atomics), exact
+    and bf16-rounded gathers, K not a multiple of 4: the step's tables,
+    topics and dNk equal the plain version's bit for bit."""
+    Ndk, Nwk, nk, z, cd, cw, od, ow = _k4_step(dev, K, dtype,
+                                               hi=40 if exact else 3000)
+    NE, C = cd.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(K)
+    drawn = ({"u": torch.rand((NE, C, K), generator=g, device=dev)
+              .clamp_min(2.0 ** -25)} if arm == "injected" else
+             {"seeds": torch.randint(-2 ** 31, 2 ** 31 - 1, (NE, 2),
+                                     dtype=torch.int32, generator=g,
+                                     device=dev)})
+    kw = dict(alpha=0.1, beta=0.01, vbeta=0.5, d_tile=32, w_tile=32, cc=128,
+              exact_gathers=exact, **drawn)
+    a = [t.clone() for t in (Ndk, Nwk, z)]
+    b = [t.clone() for t in (Ndk, Nwk, z)]
+    before = K4.LAUNCHES["cgs_entry_update"]
+    d1 = K4.cgs_step(a[0], a[1], nk, a[2], cd, cw, od, ow, **kw)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["cgs_entry_update"] == before + 1
+    d2 = K4.cgs_step_plain(b[0], b[1], nk, b[2], cd, cw, od, ow, **kw)
+    for x, y in zip(a + [d1], b + [d2]):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[2], z)
+    assert torch.equal(a[2][2], z[2]) and torch.equal(a[2][1, 300:],
+                                                      z[1, 300:])
+    assert int(a[0].double().sum()) == int(Ndk.double().sum())  # no leak
+
+
+def test_k4_entry_wrapper_and_reruns(dev):
+    """The single-entry wrapper leaves its inputs alone, and reruns of the
+    step (atomics in any order) give the same tables."""
+    Ndk, Nwk, nk, z, cd, cw, od, ow = _k4_step(dev, 64, torch.int16)
+    Db, Wb = Ndk[:32].clone(), Nwk[:32].clone()
+    seed2 = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    out = K4.cgs_entry_update(Db, Wb, nk, z[0], cd[0], cw[0], alpha=0.1,
+                              beta=0.01, vbeta=0.5, cc=128, seed2=seed2)
+    ref = K4.cgs_entry_update(Db.cpu(), Wb.cpu(), nk.cpu(), z[0].cpu(),
+                              cd[0].cpu(), cw[0].cpu(), alpha=0.1, beta=0.01,
+                              vbeta=0.5, cc=128, seed2=seed2.cpu())
+    for x, y in zip(out, ref):  # the card against the CPU's plain version
+        assert torch.equal(x.cpu(), y)
+    assert torch.equal(Db, Ndk[:32]) and torch.equal(Wb, Nwk[:32])
+    seeds = torch.arange(12, dtype=torch.int32, device=dev).reshape(6, 2)
+    runs = []
+    for _ in range(2):
+        t = [x.clone() for x in (Ndk, Nwk, z)]
+        K4.cgs_step(t[0], t[1], nk, t[2], cd, cw, od, ow, alpha=0.1,
+                    beta=0.01, vbeta=0.5, d_tile=32, w_tile=32, cc=128,
+                    seeds=seeds)
+        runs.append(t)
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def test_lda_pallas_launches_k4_once_per_rotation_step(dev):
+    d, w = LD.synthetic_corpus(96, 64, 4, 50, seed=0)
+    cfg = LD.LDAConfig(n_topics=8, algo="pallas", d_tile=16, w_tile=16,
+                       entry_cap=64)
+    m = LD.LDA(96, 64, cfg, seed=1)
+    m.set_tokens(d, w)
+    ll0 = m.log_likelihood()
+    K4.reset_launches()
+    m.sample_epochs(3)
+    assert K4.LAUNCHES == {"cgs_entry_update": 2 * 3}
+    assert m.log_likelihood() > ll0
+    Ndk = m.doc_topic_table()
+    assert Ndk.sum() == m.n_tokens and (Ndk >= 0).all()

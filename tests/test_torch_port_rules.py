@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from harp_tpu_torch.models import kmeans as KM
+from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
 from harp_tpu_torch.ops import build
 from harp_tpu_torch.parallel import mesh as M
@@ -59,7 +60,8 @@ def test_importing_the_whole_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 10 and "harp_tpu_torch.ops.kmeans_kernel" in mods
     assert {"harp_tpu_torch.ops.mfsgd_kernel", "harp_tpu_torch.models.mfsgd",
-            "harp_tpu_torch.parallel.rotate"} <= set(mods)
+            "harp_tpu_torch.parallel.rotate", "harp_tpu_torch.ops.lda_kernel",
+            "harp_tpu_torch.models.lda"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -76,7 +78,8 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("entry", ["fit", "benchmark", "cli", "mfsgd-MFSGD",
-                                   "mfsgd-benchmark", "mfsgd-cli"])
+                                   "mfsgd-benchmark", "mfsgd-cli", "lda-LDA",
+                                   "lda-benchmark", "lda-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -91,6 +94,14 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
             MF.MFSGD(16, 8, MF.MFSGDConfig(rank=4))
         elif entry == "mfsgd-benchmark":
             MF.benchmark(n_users=16, n_items=8, nnz=32, rank=4, epochs=1)
+        elif entry == "lda-LDA":
+            LD.LDA(16, 8, LD.LDAConfig(n_topics=4))
+        elif entry == "lda-benchmark":
+            LD.benchmark(n_docs=16, vocab_size=8, n_topics=4,
+                         tokens_per_doc=2, epochs=1, algo="pallas")
+        elif entry == "lda-cli":
+            LD.main(["--docs", "16", "--vocab", "8", "--topics", "4",
+                     "--tokens-per-doc", "2", "--epochs", "1"])
         else:
             MF.main(["--users", "16", "--items", "8", "--nnz", "32",
                      "--rank", "4", "--epochs", "1"])
@@ -112,7 +123,7 @@ def test_build_needs_nvcc_and_names_it(tmp_path, monkeypatch):
 
 def test_library_names_follow_the_source_hash():
     assert build.sources() == ["kmeans_partials", "kmeans_partials_int8",
-                               "mfsgd_tile_update"]
+                               "lda_cgs_entry", "mfsgd_tile_update"]
     a = build.library_path("kmeans_partials")
     b = build.library_path("kmeans_partials_int8")
     assert a.parent == b.parent == build.BUILD_DIR and a != b

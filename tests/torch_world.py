@@ -348,3 +348,58 @@ def run_mfsgd_cases(rank: int, world: int) -> dict:
                     "H": m.H.numpy(), "factors": (Wf, Hf),
                     "predict_rmse": m.predict_rmse(u, i, v)}
     return out
+
+
+# ---- LDA -------------------------------------------------------------------
+
+#: (case id, LDAConfig kwargs) run on every worker of the LDA world
+LDA_CASES = [
+    ("pallas", {"algo": "pallas", "d_tile": 16, "w_tile": 16,
+                "entry_cap": 64}),
+    ("dense", {"algo": "dense", "d_tile": 16, "w_tile": 16,
+               "entry_cap": 64, "sampler": "exprace"}),
+    ("scatter-chunks4", {"algo": "scatter", "chunk": 64,
+                         "sampler": "gumbel", "rotate_chunks": 4}),
+]
+LDA_SHAPE = {"n_docs": 96, "vocab_size": 64, "n_topics": 8,
+             "tokens_per_doc": 50, "seed": 3}
+
+
+def lda_corpus():
+    from harp_tpu_torch.models import lda as L
+
+    s = LDA_SHAPE
+    return L.synthetic_corpus(s["n_docs"], s["vocab_size"], 4,
+                              s["tokens_per_doc"], seed=0)
+
+
+def run_lda_cases(rank: int, world: int, noises: dict) -> dict:
+    """Every LDA case on this worker: one ``sample_epoch`` under the
+    injected draws ``noises[case][rank][t]``, then the tables and the
+    ledger of a second epoch on the generator."""
+    import torch
+
+    from harp_tpu_torch.models import lda as L
+    from harp_tpu_torch.utils import telemetry
+
+    s = LDA_SHAPE
+    d, w = lda_corpus()
+    out = {}
+    for cid, kw in LDA_CASES:
+        cfg = L.LDAConfig(n_topics=s["n_topics"], **kw)
+        m = L.LDA(s["n_docs"], s["vocab_size"], cfg, device="cpu",
+                  seed=s["seed"])
+        m.set_tokens(d, w)
+        nz = noises[cid][rank]
+        m.sample_epoch(noise=lambda t, _s: torch.from_numpy(nz[t]))
+        res = {"Ndk": m.Ndk.numpy().copy(), "Nwk": m.Nwk.numpy().copy(),
+               "Nk": m.Nk.numpy().copy(), "z_grid": m.z_grid.numpy().copy(),
+               "doc_topic": m.doc_topic_table(),
+               "word_topic": m.word_topic_table(),
+               "token_state": m.token_state(),
+               "log_likelihood": m.log_likelihood()}
+        with telemetry.scope():
+            m.sample_epoch()
+            res["ledger"] = telemetry.ledger.summary()["lda.epochs"]
+        out[cid] = res
+    return out
