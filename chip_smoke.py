@@ -51,7 +51,32 @@ fatal when it fails (exit code != 0 and no result line):
 14. one sample_epoch at the graded enwiki-1M size (1M docs, 100M tokens,
    int16 Ndk) when phase 12's epoch is under 3 s: prep, epoch time, peak
    device memory and the chain invariants;
-15. one JSON line of the kernels, the card's name and power limit, and
+15. K5 (pegasos_grad) against its plain version at 500,256 x 128 (500k
+   rows + 256 support-vector rows), f32 and bf16 x: gs equal (0/1 weights,
+   +-1 labels: small integers), gw within 1e-5 * sum_i sw_i |x_i| (f32
+   summation order), reruns bit-equal;
+16. models.svm at 500k x 128 with algo="pallas": SVM.fit with K5 launched
+   1000 times (200 steps x 5 rounds), train_acc on the first 50k rows above
+   SVM_ACC_FLOOR, the card and the CPU agreeing on a small input for both
+   algos and all three sv_wires, benchmark and the CLI (python -m
+   harp_tpu_torch svm --algo pallas), and torch.profiler over one fit;
+17. K6 (smacof_bx) against its plain version at n = 4096, dim 3, f32 and
+   bf16 delta, and at a ragged n = 4099: within rtol 1e-4 / atol 1e-5 (f32
+   summation order), reruns bit-equal;
+18. models.wdamds.mds at n = 4096, dim 3, 30 iterations, algo="pallas": K6
+   launched 30 times, a finite stress below the one-iteration stress, the
+   card and the CPU agreeing on a small input for both algos (stress rtol
+   1e-3), benchmark and the CLI, and torch.profiler over one mds;
+19. K7 (hist_bins) against its plain version at 200k x 64 features x 32
+   bins, 32 trees, on the row codes and weights of every level 0-5 of a
+   real fit: bit-equal int32; torch.bincount of the same weighted cells
+   timed beside it (library_ms);
+20. models.rf at 200k x 64, 32 trees, depth 6, hist_algo="pallas": K7
+   launched once per level, the forest bit-equal to the dense arm's on the
+   card under the same seed, train_acc on 20k rows above RF_ACC_FLOOR,
+   benchmark and the CLI (python -m harp_tpu_torch rf --hist-algo pallas),
+   and torch.profiler over one fit;
+21. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -87,6 +112,21 @@ ENWIKI_DOCS = 1_000_000
 # (CUDA C++ Programming Guide, arithmetic throughput, compute capability
 # 9.0) x 132 SMs x 1.98 GHz boost clock
 SFU_OPS_S = 16 * 132 * 1.98e9
+# H100 SXM shared memory: 32 banks of 4 bytes, one access per bank and
+# clock (CUDA C++ Programming Guide, shared memory of compute capability
+# 9.0) x 132 SMs x 1.98 GHz: at most one 4-byte atomic update per bank and
+# clock
+SMEM_UPDATES_S = 32 * 132 * 1.98e9
+
+# SVM, WDA-MDS and RF at the reference's benchmark() defaults
+SVM_N, SVM_D, SVM_K = 500_000, 128, 256
+MDS_N, MDS_DIM, MDS_ITERS = 4096, 3, 30
+RF_N, RF_F, RF_TREES, RF_DEPTH = 200_000, 64, 32, 6
+# train_acc floors, from the CPU run of the same task at 20,000 rows
+# (models.svm.synthetic_data(20000, 128) with algo="pallas": 0.9914;
+# models.rf.synthetic_classification(20000, 64) with the default forest:
+# 0.9976), less 0.02
+SVM_ACC_FLOOR, RF_ACC_FLOOR = 0.97, 0.97
 
 
 def fail(msg: str) -> None:
@@ -98,6 +138,21 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def run_cli(app: str, *args: str) -> dict:
+    """``python -m harp_tpu_torch <app> <args>``: its JSON row, which must
+    name the card."""
+    cli = subprocess.run([sys.executable, "-m", "harp_tpu_torch", app, *args],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600)
+    if cli.returncode:
+        fail(f"{app} CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
+    row = json.loads(cli.stdout.strip().splitlines()[-1])
+    if row.get("backend") != "cuda":
+        fail(f"{app} CLI row is not a cuda result: {row}")
+    print(f"CLI: {json.dumps(row)}")
+    return row
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -282,16 +337,9 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
           f"{out['rmse_first_epoch']:.6f} -> {out['rmse_final']:.6f}, prep "
           f"{out['prep_sec']:.1f} s; K3 {row['ms']:.4f} ms/call x 2 calls "
           f"an epoch [{card}]")
-    cli = subprocess.run(
-        [sys.executable, "-m", "harp_tpu_torch", "mfsgd", "--algo", "pallas",
-         "--epochs", str(EPOCHS)], cwd=REPO, capture_output=True, text=True,
-        timeout=600)
-    if cli.returncode:
-        fail(f"MF-SGD CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
-    crow = json.loads(cli.stdout.strip().splitlines()[-1])
-    if crow.get("backend") != "cuda" or not np.isfinite(crow["rmse_final"]):
-        fail(f"MF-SGD CLI row is not a finite cuda result: {crow}")
-    print(f"CLI: {json.dumps(crow)}")
+    crow = run_cli("mfsgd", "--algo", "pallas", "--epochs", str(EPOCHS))
+    if not np.isfinite(crow["rmse_final"]):
+        fail(f"MF-SGD CLI row is not finite: {crow}")
     return row, launches
 
 
@@ -496,16 +544,9 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
           f"log-likelihood {out['log_likelihood']:.6f}, prep "
           f"{out['prep_sec']:.1f} s; K4 {ms:.4f} ms/step x 2 steps an epoch, "
           f"{launches} calls [{card}]")
-    cli = subprocess.run(
-        [sys.executable, "-m", "harp_tpu_torch", "lda", "--algo", "pallas"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if cli.returncode:
-        fail(f"LDA CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
-    crow = json.loads(cli.stdout.strip().splitlines()[-1])
-    if crow.get("backend") != "cuda" or not np.isfinite(
-            crow["log_likelihood"]):
-        fail(f"LDA CLI row is not a finite cuda result: {crow}")
-    print(f"CLI: {json.dumps(crow)}")
+    crow = run_cli("lda", "--algo", "pallas")
+    if not np.isfinite(crow["log_likelihood"]):
+        fail(f"LDA CLI row is not finite: {crow}")
 
     # -- 13. profile one sweep ------------------------------------------------
     model = LD.LDA(LDA_DOCS, LDA_VOCAB, cfg, seed=1)
@@ -555,6 +596,324 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     return row, launches
 
 
+def svm_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 15-16; returns K5's row of the kernels line and its launches
+    on the SVM main path (one SVM.fit)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import svm as SV
+    from harp_tpu_torch.ops import svm_kernel as K5
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    # -- 15. K5 against its plain version ----------------------------------
+    n, d = SVM_N + SVM_K, SVM_D  # a round's rows: the shard + the SV rows
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    # x on a grid of 1/32 in [-4, 4) and w of 2^-9 in (-0.5, 0.5): every
+    # product is a multiple of 2^-14 below 2 and every margin below 2^8, so
+    # each margin is exact in f32 whatever the order of its sum; so gs must
+    # be equal, and gw, a sum over 500k rows, keeps the f32-order tolerance.
+    # bf16 holds both grids exactly, so the bf16 arm takes w off its grid by
+    # a factor 1 + e, |e| < 2^-10: below half a bf16 step, so bf16(w) is the
+    # grid w and the margins stay exact only if K5 rounds w as it must.
+    # coef is 0 or +-1 here, as on the main path, so its bf16 rounding is a
+    # no-op; the card tests check that rounding with fractional weights.
+    x32 = (torch.randn((n, d), generator=gen, device=dev) * 32).round().clamp(
+        -128, 127) / 32
+    y = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    sw = torch.ones(n, device=dev)
+    sw[SVM_N:] = (torch.rand(SVM_K, generator=gen, device=dev) < 0.5).to(
+        torch.float32)  # the SV rows' candidate mask
+    w = (torch.randn(d, generator=gen, device=dev) * (2.0 / d ** 0.5)
+         * 512).round().clamp(-255, 255) / 512
+    b = torch.tensor(0.125, device=dev)
+    w_off = w * (1 + (torch.rand(d, generator=gen, device=dev) - 0.5) / 512)
+    if not (bool(torch.equal(w_off.to(torch.bfloat16).float(), w))
+            and int((w_off != w).sum()) > d // 2):
+        fail("K5 bf16: the off-grid w does not round back to the grid")
+    row = None
+    for xdt in (torch.float32, torch.bfloat16):
+        x = x32.to(xdt)
+        args = (w if xdt == torch.float32 else w_off, b, x, y, sw)
+        gw1, gs1 = K5.pegasos_grad(*args)
+        gw2, gs2 = K5.pegasos_grad_plain(*args)
+        gw3, gs3 = K5.pegasos_grad(*args)
+        torch.cuda.synchronize()
+        err = float((gw1 - gw2).abs().max())
+        tol = 1e-5 * (sw @ x.to(torch.float32).abs()) + 1e-6
+        if float(gs1) != float(gs2):
+            fail(f"K5 {xdt}: gs {float(gs1)} != plain {float(gs2)}")
+        if not bool(((gw1 - gw2).abs() <= tol).all()):
+            fail(f"K5 {xdt}: gw err {err} above 1e-5 * sum sw |x|")
+        if not (torch.equal(gw1, gw3) and torch.equal(gs1, gs3)):
+            fail(f"K5 {xdt}: reruns differ")
+        ms = cuda_ms(lambda: K5.pegasos_grad(*args), reps=50, warmup=3)
+        plain = cuda_ms(lambda: K5.pegasos_grad_plain(*args), reps=10,
+                        warmup=2)
+        # x once, y and sw, w and b in; gw and gs out; 4 f32 op a element
+        nbytes = n * d * x.element_size() + 8 * n + 8 * d + 8
+        b_ms, b_by = bound_ms(nbytes, 4.0 * n * d, "f32")
+        name = str(xdt).removeprefix("torch.")
+        print(f"K5 {name} at {n} x {d}: gs {float(gs1):.0f} equal, gw max "
+              f"err {err:.3e} (tol >= {float(tol.min()):.3e}), reruns "
+              f"bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) [{card}]")
+        if xdt == torch.float32:  # the main path's x
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by}
+        del x, gw1, gw2, gw3
+    del x32
+
+    # -- 16. SVM through the public entry ----------------------------------
+    x, yh = SV.synthetic_data(SVM_N, SVM_D, seed=0)
+    K5.reset_launches()  # the SVM main path's run starts here
+    t0 = time.perf_counter()
+    model = SV.SVM(SV.SVMConfig(algo="pallas")).fit(x, yh)
+    wall = time.perf_counter() - t0
+    launches = K5.LAUNCHES["pegasos_grad"]  # ... and ends here
+    acc = model.accuracy(x[:50_000], yh[:50_000])
+    if launches != 1000:
+        fail(f"SVM fit: K5 launches {launches}, expected 200 x 5 = 1000")
+    if not (np.isfinite(model.w).all() and acc > SVM_ACC_FLOOR):
+        fail(f"SVM fit: train_acc {acc} (floor {SVM_ACC_FLOOR}) or w not "
+             "finite")
+    print(f"SVM fit pallas at {SVM_N} x {SVM_D}: {wall:.3f} s incl. H2D, "
+          f"train_acc {acc:.4f} on 50k rows (floor {SVM_ACC_FLOOR}), K5 "
+          f"launches {launches} [{card}]")
+    profile_run(lambda: model.fit(x, yh), card, "SVM", "fit")
+    xs, ys = SV.synthetic_data(2000, 16, seed=3)
+    for algo in ("xla", "pallas"):
+        for wire in ("exact", "bf16", "int8"):
+            cfg = SV.SVMConfig(algo=algo, sv_wire=wire, inner_steps=100,
+                               outer_rounds=3, sv_per_worker=64)
+            g = SV.SVM(cfg).fit(xs, ys)
+            c = SV.SVM(cfg, device="cpu").fit(xs, ys)
+            if not (np.allclose(g.w, c.w, rtol=1e-3, atol=1e-5)
+                    and np.allclose(g.b, c.b, rtol=1e-3, atol=1e-6)):
+                fail(f"SVM {algo} {wire}: the card and the CPU disagree on "
+                     f"a small input (b {g.b} vs {c.b})")
+    print("SVM: card and CPU agree on 2000 x 16 for xla and pallas on the "
+          "exact, bf16 and int8 wires (w and b rtol 1e-3)")
+    out = SV.benchmark(SVM_N, SVM_D, algo="pallas")
+    if not out["train_acc"] > SVM_ACC_FLOOR:
+        fail(f"SVM benchmark: train_acc {out['train_acc']}")
+    print(f"SVM benchmark pallas: {out['samples_per_sec']:.6e} samples/s, "
+          f"fit_sec {out['fit_sec']:.6f}, train_acc {out['train_acc']:.4f}; "
+          f"K5 {row['ms']:.4f} ms/call x 1000 calls a fit [{card}]")
+    crow = run_cli("svm", "--algo", "pallas")
+    if not crow["train_acc"] > SVM_ACC_FLOOR:
+        fail(f"SVM CLI: train_acc {crow['train_acc']}")
+    return row, launches
+
+
+def k6_bound_ms(n_loc: int, N: int, dim: int, dsize: int
+                ) -> tuple[float, str]:
+    """K6's least time: δ once, X, Xl and the row mask in, the block out;
+    ~20 f32 operations a pair on the CUDA cores and one sqrt and one
+    division a pair on the special-function units, side by side."""
+    nbytes = n_loc * N * dsize + 4 * (N * dim + 2 * n_loc * dim + n_loc)
+    pairs = n_loc * N
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(20.0 * pairs / PEAK_OPS["f32"], 2.0 * pairs / SFU_OPS_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def mds_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 17-18; returns K6's row of the kernels line and its launches
+    on the WDA-MDS main path (one mds)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import wdamds as WD
+    from harp_tpu_torch.ops import wdamds_kernel as K6
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    # -- 17. K6 against its plain version ----------------------------------
+    row = None
+    for N, ddt in ((MDS_N, torch.float32), (MDS_N, torch.bfloat16),
+                   (MDS_N + 3, torch.float32)):
+        delta = torch.from_numpy(WD.benchmark_delta(N, 0)).to(dev, ddt)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(N)
+        X = torch.randn((N, MDS_DIM), generator=gen, device=dev)
+        rm = torch.ones(N, device=dev)
+        args = (delta, rm, X, X, float(N))
+        a = K6.smacof_bx(*args, eps=1e-9)
+        p = K6.smacof_bx_plain(*args, eps=1e-9)
+        a2 = K6.smacof_bx(*args, eps=1e-9)
+        torch.cuda.synchronize()
+        err = float((a - p).abs().max())
+        if not bool(((a - p).abs() <= 1e-5 + 1e-4 * p.abs()).all()):
+            fail(f"K6 N={N} {ddt}: err {err} above rtol 1e-4 / atol 1e-5")
+        if not torch.equal(a, a2):
+            fail(f"K6 N={N} {ddt}: reruns differ")
+        ms = cuda_ms(lambda: K6.smacof_bx(*args, eps=1e-9), reps=50, warmup=3)
+        plain = cuda_ms(lambda: K6.smacof_bx_plain(*args, eps=1e-9), reps=10,
+                        warmup=2)
+        b_ms, b_by = k6_bound_ms(N, N, MDS_DIM, delta.element_size())
+        name = str(ddt).removeprefix("torch.")
+        print(f"K6 N={N} dim {MDS_DIM} delta {name}: max err {err:.3e}, "
+              f"reruns bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        if (N, ddt) == (MDS_N, torch.float32):  # the main path's shapes
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by}
+        del delta, a, p, a2
+
+    # -- 18. WDA-MDS through the public entry -------------------------------
+    delta = WD.benchmark_delta(MDS_N, 0)
+    cfg = WD.MDSConfig(dim=MDS_DIM, iters=MDS_ITERS, algo="pallas")
+    _, one = WD.mds(delta, WD.MDSConfig(dim=MDS_DIM, iters=1, algo="pallas"))
+    K6.reset_launches()  # the WDA-MDS main path's run starts here
+    t0 = time.perf_counter()
+    X, stress = WD.mds(delta, cfg)
+    wall = time.perf_counter() - t0
+    launches = K6.LAUNCHES["smacof_bx"]  # ... and ends here
+    if launches != MDS_ITERS:
+        fail(f"mds: K6 launches {launches}, expected {MDS_ITERS}")
+    if not (np.isfinite(stress) and np.isfinite(X).all() and stress < one):
+        fail(f"mds: stress {stress} not finite and below one iteration's "
+             f"{one}")
+    print(f"WDA-MDS mds pallas n={MDS_N} dim {MDS_DIM}: stress {stress:.6e} "
+          f"after {MDS_ITERS} iterations ({one:.6e} after one), {wall:.3f} s "
+          f"incl. H2D, K6 launches {launches} [{card}]")
+    profile_run(lambda: WD.mds(delta, cfg), card, "WDA-MDS", "mds")
+    small = WD.benchmark_delta(200, 1)
+    for algo in ("xla", "pallas"):
+        c = WD.MDSConfig(dim=MDS_DIM, iters=MDS_ITERS, algo=algo)
+        sg = WD.mds(small, c)[1]
+        sc = WD.mds(small, c, device="cpu")[1]
+        if not abs(sg - sc) <= 1e-3 * abs(sc):
+            fail(f"mds {algo}: the card's stress {sg} vs the CPU's {sc}")
+    print("WDA-MDS: card and CPU agree on n=200 for xla and pallas (stress "
+          "rtol 1e-3)")
+    out = WD.benchmark(MDS_N, algo="pallas")
+    if not np.isfinite(out["final_stress"]):
+        fail(f"mds benchmark: stress {out['final_stress']}")
+    print(f"WDA-MDS benchmark pallas: {out['iters_per_sec']:.6e} iters/s, "
+          f"sec_total {out['sec_total']:.6f}, final_stress "
+          f"{out['final_stress']:.6e}; K6 {row['ms']:.4f} ms/call x "
+          f"{MDS_ITERS} [{card}]")
+    run_cli("wdamds", "--algo", "pallas")
+    return row, launches
+
+
+def rf_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 19-20; returns K7's row of the kernels line and its launches
+    on the RF main path (one RandomForest.fit)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import rf as RF
+    from harp_tpu_torch.ops import rf_kernel as K7
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    # -- 19. K7 against its plain version, every level of a real fit -------
+    cfg = RF.RFConfig(n_trees=RF_TREES, max_depth=RF_DEPTH,
+                      hist_algo="pallas")
+    x, yh = RF.synthetic_classification(RF_N, RF_F, seed=0)
+    edges = RF.quantile_bins(x, cfg.n_bins)
+    bins = torch.from_numpy(RF.binize_chunked(x, edges).astype(np.uint8)).to(
+        dev)
+    y = torch.from_numpy(yh.astype(np.int64)).to(dev)
+    weights, feat_mask = RF.tree_draws(cfg, RF_N, RF_F, range(RF_TREES), dev)
+    w_i32 = weights.clamp(0, 127).to(torch.int32)
+    nnz = int((w_i32 != 0).sum())
+    node = torch.zeros((RF_TREES, RF_N), dtype=torch.int64, device=dev)
+    C_, B = cfg.n_classes, cfg.n_bins
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+           "ops": 0.0}
+    for level in range(RF_DEPTH):
+        R = 2 ** level * C_
+        rc = (node * C_ + y[None, :]).to(torch.int32)
+        h1 = K7.hist_bins(bins, rc, w_i32, R, B)
+        h2 = K7.hist_bins_plain(bins, rc, w_i32, R, B)
+        torch.cuda.synchronize()
+        if not torch.equal(h1, h2):
+            fail(f"K7 level {level}: differs from the plain version")
+        ms = cuda_ms(lambda: K7.hist_bins(bins, rc, w_i32, R, B), reps=10,
+                     warmup=2)
+        plain = cuda_ms(lambda: K7.hist_bins_plain(bins, rc, w_i32, R, B),
+                        reps=2, warmup=1)
+        # the library yardstick: the same weighted cells in one bincount
+        # over a flat (tree, row code, feature, bin) index built untimed
+        cols = (torch.arange(RF_F, device=dev)[None, :] * B
+                + bins.to(torch.int64))
+        flat = ((torch.arange(RF_TREES, device=dev)[:, None, None] * R
+                 + rc.to(torch.int64)[:, :, None]) * (RF_F * B)
+                + cols[None]).reshape(-1)
+        wf = w_i32.to(torch.float32)[:, :, None].expand(
+            RF_TREES, RF_N, RF_F).reshape(-1)
+        lib_h = torch.bincount(flat, weights=wf,
+                               minlength=RF_TREES * R * RF_F * B)
+        if not torch.equal(lib_h.to(torch.int32).reshape(h1.shape), h1):
+            fail(f"K7 level {level}: torch.bincount gives other counts")
+        lib = cuda_ms(lambda: torch.bincount(
+            flat, weights=wf, minlength=RF_TREES * R * RF_F * B), reps=3,
+            warmup=1)
+        del flat, wf, lib_h
+        nbytes = RF_N * RF_F + 8 * RF_TREES * RF_N + 4 * h1.numel()
+        ops = nnz * RF_F  # one weighted increment a (tree, sample, feature)
+        b_ms, b_by = (max(nbytes / HBM_BYTES_S, ops / SMEM_UPDATES_S) * 1e3,
+                      "bytes" if nbytes / HBM_BYTES_S >= ops / SMEM_UPDATES_S
+                      else "operations")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bytes", nbytes), ("ops", ops)):
+            tot[k] += v
+        print(f"K7 level {level} (R={R}): bit-equal to the plain version; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.bincount "
+              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        if level + 1 < RF_DEPTH:
+            node = RF._grow_level(bins, y, weights, node, level, feat_mask,
+                                  cfg)[2]
+        del h1, h2
+    t_bytes, t_ops = tot["bytes"] / HBM_BYTES_S, tot["ops"] / SMEM_UPDATES_S
+    row = {"max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": tot["library_ms"]}
+    print(f"K7 over levels 0-{RF_DEPTH - 1} (one launch each, {nnz} "
+          f"nonzero (tree, sample) weights): kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, torch.bincount "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}) [{card}]")
+    del bins, y, weights, feat_mask, w_i32, node
+
+    # -- 20. RF through the public entry ------------------------------------
+    K7.reset_launches()  # the RF main path's run starts here
+    t0 = time.perf_counter()
+    model = RF.RandomForest(cfg).fit(x, yh)
+    wall = time.perf_counter() - t0
+    launches = K7.LAUNCHES["hist_bins"]  # ... and ends here
+    if launches != RF_DEPTH:
+        fail(f"RF fit: K7 launches {launches}, expected one per level")
+    dense = RF.RandomForest(RF.RFConfig(n_trees=RF_TREES, max_depth=RF_DEPTH,
+                                        hist_algo="dense")).fit(x, yh)
+    if not all(np.array_equal(a, b) for a, b in zip(model.forest,
+                                                    dense.forest)):
+        fail("RF: the pallas forest differs from the dense arm's")
+    acc = model.accuracy(x[:20_000], yh[:20_000])
+    if not acc > RF_ACC_FLOOR:
+        fail(f"RF fit: train_acc {acc} (floor {RF_ACC_FLOOR})")
+    print(f"RF fit pallas at {RF_N} x {RF_F}, {RF_TREES} trees, depth "
+          f"{RF_DEPTH}: {wall:.3f} s incl. host binning, forest bit-equal "
+          f"to the dense arm's, train_acc {acc:.4f} on 20k rows (floor "
+          f"{RF_ACC_FLOOR}), K7 launches {launches} [{card}]")
+    profile_run(lambda: model.fit(x, yh), card, "RF", "fit")
+    out = RF.benchmark(RF_N, RF_F, RF_TREES, RF_DEPTH, hist_algo="pallas")
+    if not out["train_acc"] > RF_ACC_FLOOR:
+        fail(f"RF benchmark: train_acc {out['train_acc']}")
+    print(f"RF benchmark pallas: {out['trees_per_sec']:.6e} trees/s, fit_sec "
+          f"{out['fit_sec']:.6f}, predict_sec_20k "
+          f"{out['predict_sec_20k']:.6f}, train_acc {out['train_acc']:.4f}; "
+          f"K7 {row['ms']:.4f} ms over the {RF_DEPTH} launches a fit "
+          f"[{card}]")
+    run_cli("rf", "--hist-algo", "pallas")
+    return row, launches
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None
                   ) -> None:
@@ -562,13 +921,19 @@ def profile_epoch(model, card: str, app: str = "MFSGD",
     torch.profiler's CUDA kernel times over the epoch's wall (the epoch ends
     in a readback); ``bare``, the wall of an unprofiled epoch, gives a
     second idle share free of the profiler's own host cost."""
+    profile_run(getattr(model, what), card, app, what, bare)
+
+
+def profile_run(fn, card: str, app: str, what: str,
+                bare: float | None = None) -> None:
+    """:func:`profile_epoch` of any call ``fn()`` that ends in a readback."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        getattr(model, what)()
+        fn()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
@@ -762,16 +1127,9 @@ def main() -> int:
             line += (f"; kernel {r['ms']:.4f} ms/launch, bound "
                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         print(line + f" [{card}]")
-    cli = subprocess.run(
-        [sys.executable, "-m", "harp_tpu_torch", "kmeans", "--bench",
-         "--quantize", "int8"], cwd=REPO, capture_output=True, text=True,
-        timeout=600)
-    if cli.returncode:
-        fail(f"CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
-    row = json.loads(cli.stdout.strip().splitlines()[-1])
-    if row.get("backend") != "cuda" or not np.isfinite(row["inertia"]):
-        fail(f"CLI row is not a finite cuda result: {row}")
-    print(f"CLI: {json.dumps(row)}")
+    row = run_cli("kmeans", "--bench", "--quantize", "int8")
+    if not np.isfinite(row["inertia"]):
+        fail(f"KMeans CLI row is not finite: {row}")
 
     # -- 6-8. MF-SGD ----------------------------------------------------------
     rows["sgd_tile_update"], launches["sgd_tile_update"] = mfsgd_phases(
@@ -781,7 +1139,16 @@ def main() -> int:
     rows["cgs_entry_update"], launches["cgs_entry_update"] = lda_phases(
         dev, card)
 
-    # -- 15. result ----------------------------------------------------------
+    # -- 15-16. SVM -------------------------------------------------------------
+    rows["pegasos_grad"], launches["pegasos_grad"] = svm_phases(dev, card)
+
+    # -- 17-18. WDA-MDS ----------------------------------------------------------
+    rows["smacof_bx"], launches["smacof_bx"] = mds_phases(dev, card)
+
+    # -- 19-20. Random Forest ----------------------------------------------------
+    rows["hist_bins"], launches["hist_bins"] = rf_phases(dev, card)
+
+    # -- 21. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",
@@ -789,10 +1156,16 @@ def main() -> int:
            "sgd_tile_update": ("harp_tpu_torch/csrc/mfsgd_tile_update.cu",
                                "harp_tpu/ops/mfsgd_kernel.py:133"),
            "cgs_entry_update": ("harp_tpu_torch/csrc/lda_cgs_entry.cu",
-                                "harp_tpu/ops/lda_kernel.py:190")}
+                                "harp_tpu/ops/lda_kernel.py:190"),
+           "pegasos_grad": ("harp_tpu_torch/csrc/svm_pegasos_grad.cu",
+                            "harp_tpu/ops/svm_kernel.py:103"),
+           "smacof_bx": ("harp_tpu_torch/csrc/wdamds_smacof_bx.cu",
+                         "harp_tpu/ops/wdamds_kernel.py:114"),
+           "hist_bins": ("harp_tpu_torch/csrc/rf_hist_bins.cu",
+                         "harp_tpu/ops/rf_kernel.py:102")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
-                **rows[name], "library_ms": None} for name in src]
+                "library_ms": None, **rows[name]} for name in src]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -6,6 +6,12 @@
     python -m harp_tpu_torch mfsgd --users 2000 --items 500 --nnz 50000 --device cpu
     python -m harp_tpu_torch lda --algo pallas
     python -m harp_tpu_torch lda --docs 96 --vocab 64 --topics 8 --d-tile 16 --w-tile 16 --entry-cap 64 --algo pallas --device cpu
+    python -m harp_tpu_torch rf --hist-algo pallas
+    python -m harp_tpu_torch rf --n 2000 --features 8 --trees 4 --depth 3 --hist-algo pallas --device cpu
+    python -m harp_tpu_torch svm --algo pallas
+    python -m harp_tpu_torch svm --n 2000 --d 16 --algo pallas --device cpu
+    python -m harp_tpu_torch wdamds --algo pallas
+    python -m harp_tpu_torch wdamds --n 128 --algo pallas --device cpu
     python -m harp_tpu_torch --list
 """
 
@@ -21,6 +27,12 @@ APPS = {
               "MF-SGD with model rotation (rotate)"),
     "lda": ("harp_tpu_torch.models.lda",
             "LDA-CGS with model rotation (rotate + Nk allreduce)"),
+    "rf": ("harp_tpu_torch.models.rf",
+           "Random Forest, level-wise histograms (allgather)"),
+    "svm": ("harp_tpu_torch.models.svm",
+            "linear SVM with a support-vector exchange (reshard)"),
+    "wdamds": ("harp_tpu_torch.models.wdamds",
+               "WDA-MDS by SMACOF (reshard + stress allreduce)"),
 }
 
 

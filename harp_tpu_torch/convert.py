@@ -87,3 +87,48 @@ def lda_state_from_numpy(pack: dict, device) -> dict:
     return {"Ndk": t(Ndk), "Nwk": t(Nwk), "Nk": t(Nk), "z_grid": t(z),
             "tokens": tuple(t(a) for a in tokens),
             "n_tokens": int(pack["n_tokens"])}
+
+
+def svm_state_from_numpy(state: dict, device) -> dict:
+    """The reference's SVM model (``harp_tpu.models.svm.SVM``'s ``w`` [d]
+    and ``b``) → the port's tensors on ``device``, for
+    ``models.svm.SVM(state=...)``."""
+    w = np.asarray(state["w"], dtype=np.float32)
+    if w.ndim != 1:
+        raise ValueError(f"w must be [d], got shape {w.shape}")
+    b = np.asarray(state["b"], dtype=np.float32)
+    if b.size != 1:
+        raise ValueError(f"b must be a scalar, got shape {b.shape}")
+    return {"w": torch.from_numpy(w.copy()).to(device),
+            "b": torch.tensor(float(b.reshape(())), dtype=torch.float32,
+                              device=device)}
+
+
+def mds_state_from_numpy(state: dict, device) -> dict:
+    """The reference's MDS embedding ``"X"`` [n, dim] → the port's tensor on
+    ``device``, for ``models.wdamds.mds(X0=...)``."""
+    X = np.asarray(state["X"], dtype=np.float32)
+    if X.ndim != 2:
+        raise ValueError(f"X must be [n, dim], got shape {X.shape}")
+    return {"X": torch.from_numpy(X.copy()).to(device)}
+
+
+def rf_forest_from_numpy(state: dict, device) -> dict:
+    """The reference's forest (``RandomForest.forest`` = (feats, thresh,
+    leaves) and its bin ``edges``) → the port's tensors on ``device``, for
+    ``models.rf.RandomForest(state=...)``.  ``feats`` and ``thresh`` are
+    [T, 2^depth − 1] in heap order, ``leaves`` [T, 2^depth], ``edges``
+    [f, n_bins − 1]."""
+    out = {k: np.asarray(state[k], dtype=np.int32)
+           for k in ("feats", "thresh", "leaves")}
+    T, nodes = out["feats"].shape
+    if out["thresh"].shape != (T, nodes) or out["leaves"].shape != (
+            T, nodes + 1):
+        raise ValueError(f"feats {out['feats'].shape}, thresh "
+                         f"{out['thresh'].shape} and leaves "
+                         f"{out['leaves'].shape} do not form a forest")
+    out["edges"] = np.asarray(state["edges"], dtype=np.float32)
+    if out["edges"].ndim != 2:
+        raise ValueError(f"edges must be [f, n_bins - 1], got shape "
+                         f"{out['edges'].shape}")
+    return {k: torch.from_numpy(a.copy()).to(device) for k, a in out.items()}

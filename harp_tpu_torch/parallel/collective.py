@@ -29,6 +29,7 @@ any, MULTIPLY and MIN are all), the reference's contract.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Any, Callable
 
@@ -45,7 +46,10 @@ def tree_map(fn: Callable, tree: Any):
     if isinstance(tree, list):
         return [tree_map(fn, x) for x in tree]
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        # leaves are visited in tree_leaves' (sorted-key) order, so ``fn``
+        # may consume per-leaf state made from tree_leaves
+        done = {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
     return fn(tree)
 
 
@@ -311,3 +315,126 @@ def ring_hop(tree: Any, shift: int = 1, wire: str = "exact"):
     if wd is None:
         return tree_map(lambda x: _ring_move(x, shift), tree)
     return _quantized_move(tree, wd, lambda x: _ring_move(x, shift))
+
+
+# ---- reshard: moves between sharding layouts --------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """One leaf's layout over the worker ring.
+
+    ``dim=None``: replicated, every worker holds the whole array.  ``dim=d``:
+    split along ``d`` into ``num_workers`` equal blocks; with ``shift=s``
+    worker ``w`` holds global block ``(w - s) % num_workers``."""
+
+    dim: int | None = 0
+    shift: int = 0
+
+    def __post_init__(self):
+        if self.dim is None and self.shift:
+            raise ValueError("a replicated ShardSpec has no ring shift")
+
+    @classmethod
+    def replicated(cls) -> "ShardSpec":
+        return cls(dim=None)
+
+    @classmethod
+    def blocked(cls, dim: int = 0, shift: int = 0) -> "ShardSpec":
+        return cls(dim=dim, shift=shift)
+
+
+#: reshard wire formats (the ring hop's vocabulary)
+RESHARD_WIRES = tuple(RING_WIRES)
+
+
+def _reshard_plan(src: ShardSpec, dst: ShardSpec, n: int) -> tuple:
+    """(kind, *params) for one leaf, the reference's decision table.  On one
+    worker a blocked → replicated move still plans as "gather"."""
+    s_src = 0 if src.dim is None else src.shift % n
+    s_dst = 0 if dst.dim is None else dst.shift % n
+    if src.dim is None and dst.dim is None:
+        return ("identity",)
+    if src.dim == dst.dim and s_src == s_dst:
+        return ("identity",)
+    if src.dim is None:
+        return ("slice", dst.dim, s_dst)
+    if dst.dim is None:
+        return ("gather", src.dim, s_src)
+    if src.dim == dst.dim:
+        return ("rotate", (s_dst - s_src) % n)
+    if s_src == 0 and s_dst == 0:
+        return ("a2a", src.dim, dst.dim)
+    return ("gather_slice", src.dim, s_src, dst.dim, s_dst)
+
+
+def _spec_leaves(tree: Any, spec) -> list:
+    if isinstance(spec, ShardSpec):
+        return [spec] * len(tree_leaves(tree))
+    return tree_leaves(spec)
+
+
+def _gather_along(x: torch.Tensor, dim: int, shift: int) -> torch.Tensor:
+    """Every worker's block of ``x``, joined along ``dim`` in rank order and
+    rolled back by ``shift`` blocks: the whole array on every worker."""
+    if dim >= x.dim():
+        raise ValueError(f"reshard: src dim {dim} out of range for "
+                         f"rank-{x.dim()} leaf")
+    full = torch.cat(list(_all_gather_stack(x).unbind(0)), dim=dim)
+    if shift:
+        full = torch.roll(full, -shift * x.shape[dim], dims=dim)
+    return full
+
+
+def reshard(tree: Any, src_spec, dst_spec, *, wire: str = "exact"):
+    """Move a tree from one :class:`ShardSpec` layout to another.
+
+    ``src_spec`` / ``dst_spec``: one spec for every leaf, or a matching nest
+    of specs.  Ported lowerings: equal layouts (the identity, no wire) and
+    blocked → replicated (an all-gather along the blocked dim, then a roll
+    for a shifted source).  ``wire`` ("exact" | "bf16" | "int8") narrows
+    every moving floating leaf, labels and masks included, with one rounding
+    per call, on one worker too; the int8 wire quantizes against a |max|
+    shared by the workers (one stacked MAX allreduce for all leaves).  The
+    moving leaves are recorded once under the verb ``reshard`` at the
+    wire's width."""
+    if wire not in RESHARD_WIRES:
+        raise ValueError(f"wire must be one of {RESHARD_WIRES}, got {wire!r}")
+    n = num_workers()
+    leaves = tree_leaves(tree)
+    src_l, dst_l = _spec_leaves(tree, src_spec), _spec_leaves(tree, dst_spec)
+    if not len(leaves) == len(src_l) == len(dst_l):
+        raise ValueError("reshard: spec trees do not match the data tree")
+    plans = [_reshard_plan(s, d, n) for s, d in zip(src_l, dst_l)]
+    for p in plans:
+        if p[0] not in ("identity", "gather"):
+            raise NotImplementedError(
+                f"reshard lowering {p[0]!r}: only the identity and blocked "
+                "-> replicated are ported (ROADMAP.md, Queue 1, item 1)")
+    moving = [x for x, p in zip(leaves, plans) if p[0] == "gather"]
+    if moving:
+        record_comm("reshard", tuple(moving), wire_dtype=RING_WIRES[wire])
+    amaxes = None
+    if wire == "int8":
+        flt = [x for x in moving if x.is_floating_point()]
+        if flt:
+            amax = torch.stack([x.abs().amax().to(torch.float32)
+                                for x in flt])
+            amaxes = iter(Combiner.MAX.reduce(amax).unbind(0))
+
+    plan_of = iter(plans)
+
+    def one(x):
+        plan = next(plan_of)
+        if plan[0] == "identity":
+            return x
+        _, dim, s = plan
+        if wire == "exact" or not x.is_floating_point():
+            return _gather_along(x, dim, s)
+        if wire == "bf16":
+            return _gather_along(x.to(torch.bfloat16), dim, s).to(x.dtype)
+        # the reference divides in f32 whatever the leaf's float type
+        q, scale = quantize_to_int8(x.to(torch.float32), next(amaxes))
+        return (_gather_along(q, dim, s).to(torch.float32)
+                * scale).to(x.dtype)
+
+    return tree_map(one, tree)

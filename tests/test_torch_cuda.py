@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 and K4 against their plain versions on the card.
+"""Kernels K1-K7 against their plain versions on the card.
 
 These need an NVIDIA card with ``nvcc``; elsewhere each test skips (the
 fixture decides, never the import).  On the card, from the repo root:
@@ -16,9 +16,15 @@ import torch
 from harp_tpu_torch.ops import kmeans_kernel as KK
 from harp_tpu_torch.ops import lda_kernel as K4
 from harp_tpu_torch.ops import mfsgd_kernel as K3
+from harp_tpu_torch.ops import rf_kernel as K7
+from harp_tpu_torch.ops import svm_kernel as K5
+from harp_tpu_torch.ops import wdamds_kernel as K6
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
+from harp_tpu_torch.models import rf as RF
+from harp_tpu_torch.models import svm as SV
+from harp_tpu_torch.models import wdamds as WD
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +32,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K4 have no CPU mode)")
+        pytest.skip("needs a CUDA device (kernels K1-K7 have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -255,3 +261,178 @@ def test_lda_pallas_launches_k4_once_per_rotation_step(dev):
     assert m.log_likelihood() > ll0
     Ndk = m.doc_topic_table()
     assert Ndk.sum() == m.n_tokens and (Ndk >= 0).all()
+
+
+# ---- K5: Pegasos hinge gradient ------------------------------------------------
+
+def _k5_inputs(n, d, dtype, dev, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=dev).to(dtype)
+    y = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    sw = (torch.rand(n, generator=g, device=dev) < 0.9).to(torch.float32)
+    w = torch.randn(d, generator=g, device=dev) * (0.5 / d ** 0.5)
+    return w, torch.tensor(0.1, device=dev), x, y, sw
+
+
+# (n, d): ragged tiles, d not a multiple of 32, a tall narrow case, and a d
+# whose w and accumulator do not fit in shared memory (the global arm)
+K5_SHAPES = [(1000, 128), (4099, 13), (700, 3000), (50, 40_000)]
+
+
+@pytest.mark.parametrize("n,d", K5_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain(dev, n, d, dtype):
+    args = _k5_inputs(n, d, dtype, dev)
+    before = K5.LAUNCHES["pegasos_grad"]
+    gw1, gs1 = K5.pegasos_grad(*args)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES["pegasos_grad"] == before + 1
+    gw2, gs2 = K5.pegasos_grad_plain(*args)
+    # 0/1 weights and ±1 labels: gs is a small integer on both sides
+    assert float(gs1) == float(gs2) == round(float(gs2))
+    # gw adds the same products in another f32 order
+    x = args[2].float()
+    bound = 1e-5 * (args[4] @ x.abs()) + 1e-6
+    assert bool(((gw1 - gw2).abs() <= bound).all())
+    gw3, gs3 = K5.pegasos_grad(*args)  # no float atomics: reruns bit-equal
+    assert torch.equal(gw1, gw3) and torch.equal(gs1, gs3)
+
+
+@pytest.mark.parametrize("n,d", [(1000, 128), (4099, 13)])
+def test_k5_bf16_rounds_coef_before_the_gradient(dev, n, d):
+    """Fractional weights make coef's bf16 rounding show in gw."""
+    w, b, x, y, _ = _k5_inputs(n, d, torch.bfloat16, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    sw = torch.rand(n, generator=g, device=dev)
+    gw1, gs1 = K5.pegasos_grad(w, b, x, y, sw)
+    gw2, gs2 = K5.pegasos_grad_plain(w, b, x, y, sw)
+    xf = x.float()
+    bound = 1e-5 * (sw @ xf.abs()) + 1e-6
+    assert bool(((gw1 - gw2).abs() <= bound).all())
+    assert abs(float(gs1) - float(gs2)) <= 1e-5 * float(sw.sum()) + 1e-6
+    # a kernel that skipped the rounding of coef would fall outside the bound
+    wc = w.to(torch.bfloat16).float()
+    coef = torch.where(y * (xf @ wc + b) < 1.0, sw, torch.zeros_like(sw)) * y
+    assert bool(((coef @ xf - gw2).abs() > bound).any())
+
+
+def test_k5_plans_of_two_shapes_do_not_cap_each_other(dev):
+    """Each shape's plan is asked once; a small d's plan may not lower the
+    shared memory a large d's launches take (w and the accumulator in
+    shared memory at d = 20,000: 160 KB)."""
+    for d in (20_000, 13, 20_000):
+        args = _k5_inputs(300, d, torch.float32, dev)
+        gw1, gs1 = K5.pegasos_grad(*args)
+        gw2, gs2 = K5.pegasos_grad_plain(*args)
+        bound = 1e-5 * (args[4] @ args[2].abs()) + 1e-6
+        assert float(gs1) == float(gs2)
+        assert bool(((gw1 - gw2).abs() <= bound).all())
+    idx = torch.device(dev).index or 0
+    assert {(300, 20_000, idx), (300, 13, idx)} <= set(K5._PLANS)
+
+
+def test_svm_fit_launches_k5_once_per_step(dev):
+    x, y = SV.synthetic_data(3000, 16, seed=1)
+    K5.reset_launches()
+    m = SV.SVM(SV.SVMConfig(algo="pallas")).fit(x, y)
+    assert K5.LAUNCHES == {"pegasos_grad": 200 * 5}
+    assert m.accuracy(x, y) > 0.9
+    ref = SV.SVM(SV.SVMConfig(algo="pallas"), device="cpu").fit(x, y)
+    np.testing.assert_allclose(m.w, ref.w, rtol=1e-3, atol=1e-5)
+
+
+# ---- K6: SMACOF row block ----------------------------------------------------------
+
+def _k6_inputs(n_loc, N, dim, dtype, dev, pad=0, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(N, 4)).astype(np.float32)
+    delta = np.sqrt(((pts[:n_loc, None] - pts[None]) ** 2).sum(-1))
+    X = torch.from_numpy(rng.normal(size=(N, dim)).astype(np.float32)).to(dev)
+    rm = torch.ones(n_loc, device=dev)
+    if pad:
+        rm[-pad:] = 0
+    return (torch.from_numpy(delta).to(dev, dtype), rm,
+            X[:n_loc].contiguous(), X)
+
+
+# (n_loc, N, dim, n_real, masked rows): the benchmark's block, ragged N,
+# masked columns, and an N past one shared-memory chunk
+K6_SHAPES = [(512, 4096, 3, 4096, 0), (100, 1000, 2, 990, 3),
+             (37, 20_000, 3, 19_999, 1), (64, 300, 8, 300, 0)]
+
+
+@pytest.mark.parametrize("n_loc,N,dim,n_real,pad", K6_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_matches_plain(dev, n_loc, N, dim, n_real, pad, dtype):
+    args = _k6_inputs(n_loc, N, dim, dtype, dev, pad)
+    before = K6.LAUNCHES["smacof_bx"]
+    a = K6.smacof_bx(*args, float(n_real), eps=1e-9)
+    torch.cuda.synchronize()
+    assert K6.LAUNCHES["smacof_bx"] == before + 1
+    b = K6.smacof_bx_plain(*args, float(n_real), eps=1e-9)
+    # the distance and row sums are added in another f32 order
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert torch.equal(a, K6.smacof_bx(*args, float(n_real), eps=1e-9))
+    if pad:
+        assert bool((a[-pad:] == 0).all())
+
+
+def test_k6_refuses_a_dim_past_its_registers(dev):
+    args = _k6_inputs(16, 64, 9, torch.float32, dev)
+    with pytest.raises(ValueError, match="dim"):
+        K6.smacof_bx(*args, 64.0, eps=1e-9)
+
+
+def test_mds_launches_k6_once_per_iteration(dev):
+    delta = WD.benchmark_delta(300, 1)
+    K6.reset_launches()
+    X, stress = WD.mds(delta, WD.MDSConfig(dim=3, iters=30, algo="pallas"))
+    assert K6.LAUNCHES == {"smacof_bx": 30}
+    _, ref = WD.mds(delta, WD.MDSConfig(dim=3, iters=30), device="cpu")
+    np.testing.assert_allclose(stress, ref, rtol=1e-3)
+
+
+# ---- K7: RF label histograms -------------------------------------------------------
+
+@pytest.mark.parametrize("level", range(6))
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_k7_is_bit_equal_to_plain(dev, level, dtype):
+    g = torch.Generator(device=dev)
+    g.manual_seed(level)
+    T, n, f, B, C_ = 5, 7001, 9, 32, 3
+    R = 2 ** level * C_
+    bins = torch.randint(0, B, (n, f), generator=g, device=dev).to(dtype)
+    rc = torch.randint(0, R + 1, (T, n), generator=g, device=dev,
+                       dtype=torch.int32)  # R: an out-of-range code
+    w = torch.poisson(torch.ones((T, n), device=dev), generator=g).clamp(
+        0, 127).to(torch.int32)
+    before = K7.LAUNCHES["hist_bins"]
+    h1 = K7.hist_bins(bins, rc, w, R, B)
+    torch.cuda.synchronize()
+    assert K7.LAUNCHES["hist_bins"] == before + 1
+    assert torch.equal(h1, K7.hist_bins_plain(bins, rc, w, R, B))
+    assert torch.equal(h1, K7.hist_bins(bins, rc, w, R, B))
+
+
+def test_k7_refuses_a_histogram_past_shared_memory(dev):
+    bins = torch.zeros((100, 2), dtype=torch.uint8, device=dev)
+    rc = torch.zeros((1, 100), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        K7.hist_bins(bins, rc, rc, 2 ** 16, 32)
+
+
+def test_rf_fit_launches_k7_once_per_level_and_equals_dense(dev):
+    x, y = RF.synthetic_classification(5000, 16, seed=2)
+    forests = {}
+    for algo in ("pallas", "dense", "scatter"):
+        K7.reset_launches()
+        m = RF.RandomForest(RF.RFConfig(n_trees=8, max_depth=6,
+                                        hist_algo=algo)).fit(x, y)
+        forests[algo] = m.forest
+        assert K7.LAUNCHES == {"hist_bins": 6 if algo == "pallas" else 0}
+    assert m.accuracy(x, y) > 0.9
+    for algo in ("dense", "scatter"):
+        for a, b in zip(forests["pallas"], forests[algo]):
+            np.testing.assert_array_equal(a, b)

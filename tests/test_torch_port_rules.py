@@ -16,6 +16,9 @@ import torch
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
+from harp_tpu_torch.models import rf as RF
+from harp_tpu_torch.models import svm as SV
+from harp_tpu_torch.models import wdamds as WD
 from harp_tpu_torch.ops import build
 from harp_tpu_torch.parallel import mesh as M
 
@@ -61,7 +64,11 @@ def test_importing_the_whole_port_loads_no_jax():
     assert len(mods) >= 10 and "harp_tpu_torch.ops.kmeans_kernel" in mods
     assert {"harp_tpu_torch.ops.mfsgd_kernel", "harp_tpu_torch.models.mfsgd",
             "harp_tpu_torch.parallel.rotate", "harp_tpu_torch.ops.lda_kernel",
-            "harp_tpu_torch.models.lda"} <= set(mods)
+            "harp_tpu_torch.models.lda", "harp_tpu_torch.ops.svm_kernel",
+            "harp_tpu_torch.models.svm", "harp_tpu_torch.ops.wdamds_kernel",
+            "harp_tpu_torch.models.wdamds", "harp_tpu_torch.ops.rf_kernel",
+            "harp_tpu_torch.models.rf",
+            "harp_tpu_torch.models.stats"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -79,7 +86,10 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
 
 @pytest.mark.parametrize("entry", ["fit", "benchmark", "cli", "mfsgd-MFSGD",
                                    "mfsgd-benchmark", "mfsgd-cli", "lda-LDA",
-                                   "lda-benchmark", "lda-cli"])
+                                   "lda-benchmark", "lda-cli", "rf-fit",
+                                   "rf-benchmark", "rf-cli", "svm-fit",
+                                   "svm-benchmark", "svm-cli", "wdamds-mds",
+                                   "wdamds-benchmark", "wdamds-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -99,6 +109,26 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
         elif entry == "lda-benchmark":
             LD.benchmark(n_docs=16, vocab_size=8, n_topics=4,
                          tokens_per_doc=2, epochs=1, algo="pallas")
+        elif entry == "rf-fit":
+            RF.RandomForest(RF.RFConfig(n_trees=2, max_depth=1)).fit(
+                pts, np.zeros(16, np.int32))
+        elif entry == "rf-benchmark":
+            RF.benchmark(n=16, f=4, n_trees=2, max_depth=1)
+        elif entry == "rf-cli":
+            RF.main(["--n", "16", "--features", "4", "--trees", "2",
+                     "--depth", "1"])
+        elif entry == "svm-fit":
+            SV.SVM().fit(pts, np.ones(16, np.float32))
+        elif entry == "svm-benchmark":
+            SV.benchmark(n=16, d=4)
+        elif entry == "svm-cli":
+            SV.main(["--n", "16", "--d", "4"])
+        elif entry == "wdamds-mds":
+            WD.mds(np.zeros((8, 8), np.float32))
+        elif entry == "wdamds-benchmark":
+            WD.benchmark(n=8)
+        elif entry == "wdamds-cli":
+            WD.main(["--n", "8"])
         elif entry == "lda-cli":
             LD.main(["--docs", "16", "--vocab", "8", "--topics", "4",
                      "--tokens-per-doc", "2", "--epochs", "1"])
@@ -123,7 +153,9 @@ def test_build_needs_nvcc_and_names_it(tmp_path, monkeypatch):
 
 def test_library_names_follow_the_source_hash():
     assert build.sources() == ["kmeans_partials", "kmeans_partials_int8",
-                               "lda_cgs_entry", "mfsgd_tile_update"]
+                               "lda_cgs_entry", "mfsgd_tile_update",
+                               "rf_hist_bins", "svm_pegasos_grad",
+                               "wdamds_smacof_bx"]
     a = build.library_path("kmeans_partials")
     b = build.library_path("kmeans_partials_int8")
     assert a.parent == b.parent == build.BUILD_DIR and a != b

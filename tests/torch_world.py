@@ -403,3 +403,181 @@ def run_lda_cases(rank: int, world: int, noises: dict) -> dict:
             res["ledger"] = telemetry.ledger.summary()["lda.epochs"]
         out[cid] = res
     return out
+
+
+# ---- reshard -----------------------------------------------------------------
+
+RESHARD_WIRES = ("exact", "bf16", "int8")
+
+
+def reshard_inputs(world: int = WORLD) -> dict:
+    """Every worker's leaves for the reshard cases: [world, ...] arrays (f32;
+    the "h" leaf travels as bf16)."""
+    rng = np.random.default_rng(11)
+    return {
+        "x": rng.normal(size=(world, 3, 4)).astype(np.float32),
+        "lab": np.sign(rng.normal(size=(world, 3))).astype(np.float32),
+        "m": (rng.random((world, 3)) < 0.5).astype(np.float32),
+        "ids": rng.integers(-9, 10, size=(world, 3)).astype(np.int32),
+        "h": (10 * rng.normal(size=(world, 2, 3))).astype(np.float32),
+        "col": rng.normal(size=(world, 2, 3)).astype(np.float32),
+    }
+
+
+def reshard_tree(lib, leaves: dict, bf16) -> tuple:
+    """The tree every case moves: (x, lab, m, ids, h as bf16)."""
+    return (leaves["x"], leaves["lab"], leaves["m"], leaves["ids"],
+            lib.asarray(leaves["h"]).astype(bf16) if lib is not None
+            else leaves["h"].to(bf16))
+
+
+def run_reshard_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.utils import telemetry
+
+    inp = {k: torch.from_numpy(a[rank].copy())
+           for k, a in reshard_inputs(world).items()}
+    tree = reshard_tree(None, inp, torch.bfloat16)
+    S = C.ShardSpec
+    out = {}
+
+    def plain(t):
+        return [x.to(torch.float32).numpy() if x.is_floating_point()
+                else x.numpy() for x in t]
+
+    with telemetry.scope():
+        for wire in RESHARD_WIRES:
+            with telemetry.ledger.run(wire):
+                out[wire] = plain(C.reshard(tree, S.blocked(0),
+                                            S.replicated(), wire=wire))
+        with telemetry.ledger.run("shift"):
+            out["shift"] = plain(C.reshard(tree, S.blocked(0, shift=1),
+                                           S.replicated()))
+        with telemetry.ledger.run("dim1"):
+            out["dim1"] = plain(C.reshard(
+                (inp["col"], inp["x"]), (S.blocked(1), S.blocked(0)),
+                S.replicated(), wire="int8"))
+        with telemetry.ledger.run("identity"):
+            same = C.reshard(tree, S.replicated(), S.replicated(),
+                             wire="int8")
+            out["identity"] = all(a is b for a, b in zip(same, tree))
+        out["ledger"] = telemetry.ledger.summary()
+    return out
+
+
+# ---- SVM ---------------------------------------------------------------------
+
+#: (case id, SVMConfig kwargs) run on every worker of the SVM world
+SVM_CASES = [(f"{algo}-{wire}", {"algo": algo, "sv_wire": wire})
+             for algo in ("xla", "pallas") for wire in RESHARD_WIRES] + [
+    ("pallas-xbf16", {"algo": "pallas", "x_dtype": "bf16"})]
+SVM_SHAPE = {"n": 203, "d": 12, "inner_steps": 40, "outer_rounds": 3,
+             "sv_per_worker": 16}
+
+
+def svm_data(seed: int = 4):
+    """A separable-ish task of SVM_SHAPE (203 rows: ragged over 4)."""
+    rng = np.random.default_rng(seed)
+    s = SVM_SHAPE
+    true_w = rng.normal(size=s["d"]).astype(np.float32)
+    x = rng.normal(size=(s["n"], s["d"])).astype(np.float32)
+    y = np.sign(x @ true_w + 0.3 * rng.normal(size=s["n"])).astype(
+        np.float32)
+    y[y == 0] = 1.0
+    return x, y
+
+
+def svm_config_kwargs(kw: dict) -> dict:
+    s = SVM_SHAPE
+    return {"inner_steps": s["inner_steps"], "outer_rounds": s["outer_rounds"],
+            "sv_per_worker": s["sv_per_worker"], **kw}
+
+
+def run_svm_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.models import svm as SV
+    from harp_tpu_torch.ops import svm_kernel
+    from harp_tpu_torch.utils import telemetry
+
+    x, y = svm_data()
+    out = {}
+    for cid, kw in SVM_CASES:
+        with telemetry.scope():
+            m = SV.SVM(SV.SVMConfig(**svm_config_kwargs(kw)), device="cpu")
+            m.fit(x, y)
+            out[cid] = {"w": m.w, "b": m.b, "acc": m.accuracy(x, y),
+                        "ledger": telemetry.ledger.summary()["svm.fit"]}
+    out["launches"] = dict(svm_kernel.LAUNCHES)  # the CPU never launches
+    return out
+
+
+# ---- WDA-MDS -----------------------------------------------------------------
+
+MDS_CASES = [(f"{algo}-{wire}", {"algo": algo, "coord_wire": wire})
+             for algo in ("xla", "pallas") for wire in RESHARD_WIRES] + [
+    ("pallas-deltabf16", {"algo": "pallas", "delta_dtype": "bf16"})]
+MDS_SHAPE = {"n": 50, "dim": 2, "iters": 20}
+
+
+def mds_delta(seed: int = 3) -> np.ndarray:
+    """Distances of 3-D points, embedded in 2-D (50 rows: ragged over 4)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(MDS_SHAPE["n"], 3)).astype(np.float32)
+    return np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1))
+
+
+def run_mds_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.models import wdamds as W
+    from harp_tpu_torch.utils import telemetry
+
+    delta = mds_delta()
+    s = MDS_SHAPE
+    out = {}
+    for cid, kw in MDS_CASES:
+        with telemetry.scope():
+            X, stress = W.mds(delta, W.MDSConfig(dim=s["dim"],
+                                                 iters=s["iters"], **kw),
+                              device="cpu", seed=0)
+            out[cid] = {"X": X, "stress": stress,
+                        "ledger": telemetry.ledger.summary()["wdamds.mds"]}
+    return out
+
+
+# ---- Random Forest -----------------------------------------------------------
+
+RF_ALGOS = ("dense", "scatter", "pallas")
+RF_SHAPE = {"n": 403, "f": 6, "n_bins": 8, "n_trees": 8, "max_depth": 3,
+            "feature_fraction": 0.7, "seed": 5}
+
+
+def rf_data():
+    from harp_tpu_torch.models import rf as RF
+
+    s = RF_SHAPE
+    return RF.synthetic_classification(s["n"], s["f"], seed=1)
+
+
+def rf_config_kwargs() -> dict:
+    s = RF_SHAPE
+    return {k: s[k] for k in ("n_bins", "n_trees", "max_depth",
+                              "feature_fraction", "seed")}
+
+
+def run_rf_cases(rank: int, world: int, draws: list) -> dict:
+    """Every arm's forest on this worker under ``draws[rank]`` (the
+    reference's), and one fit on the port's own generator."""
+    from harp_tpu_torch.models import rf as RF
+
+    x, y = rf_data()
+    out = {}
+    for algo in RF_ALGOS:
+        m = RF.RandomForest(RF.RFConfig(hist_algo=algo, **rf_config_kwargs()),
+                            device="cpu")
+        m._fit(x, y, draws[rank])
+        out[algo] = {"forest": m.forest, "edges": m.edges,
+                     "pred": m.predict(x[:100])}
+    m = RF.RandomForest(RF.RFConfig(hist_algo="pallas", **rf_config_kwargs()),
+                        device="cpu")
+    out["own"] = {"acc": m.fit(x, y).accuracy(x, y), "forest": m.forest}
+    return out
