@@ -76,7 +76,28 @@ fatal when it fails (exit code != 0 and no result line):
    card under the same seed, train_acc on 20k rows above RF_ACC_FLOOR,
    benchmark and the CLI (python -m harp_tpu_torch rf --hist-algo pallas),
    and torch.profiler over one fit;
-21. one JSON line of the kernels, the card's name and power limit, and
+21. K8 (flash_attention) against its plain version at Mistral-7B width,
+   [32, 8192, 128] with K/V made by repeating 8 KV heads x4: bf16 causal,
+   bf16 causal + window 4096, f32 causal and f32 causal + window 4096 (the
+   main path's call), plus f32 non-causal window 512 at N = 2048 and bf16
+   causal at [64, 4096, 64]: f32 within rtol 2e-4 / atol 2e-5; bf16 within
+   2^-6 of each entry's size or its row's RMS (flash_attention.
+   row_scaled_error), and the plain version with a planted fault (a key
+   tile's p.v dropped; the window a tile short) must fail that test;
+   reruns bit-equal; scaled_dot_product_attention on the same tensors
+   timed beside it (library_ms);
+22. the attention schemes at Mistral width on one card, f32, seq 8192 (the
+   K8 main path): ring_attention after apply_rope with window 4096 and GQA
+   32q/8kv, a2a_attention with block_k 512, and K8 on the folded heads,
+   agreeing within rtol 2e-4 / atol 2e-5; K8 launched, peak device memory;
+23. the long-context layer (harp_tpu_torch.examples.longctx_layer) at
+   Mistral width: forwards at seq 8192 (a warm-up, then the median and
+   spread of five) and training steps at seq 4096 (finite loss and update,
+   tokens/s, peak memory), and the card against
+   the CPU at the example's defaults (loss sequence rtol 1e-3);
+24. MoE (moe_ffn on one card: one expert) against the CPU and the host
+   reference on a small input, zero drops at capacity = tokens;
+25. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -127,6 +148,12 @@ RF_N, RF_F, RF_TREES, RF_DEPTH = 200_000, 64, 32, 6
 # models.rf.synthetic_classification(20000, 64) with the default forest:
 # 0.9976), less 0.02
 SVM_ACC_FLOOR, RF_ACC_FLOOR = 0.97, 0.97
+
+# Mistral-7B-v0.1's attention block (its config.json: hidden_size 4096, 32
+# attention heads, 8 KV heads, head dim 128, sliding_window 4096,
+# rope_theta 10000); the sequence length is the depth knob
+MIS_HEADS, MIS_KV, MIS_DIM, MIS_WINDOW = 32, 8, 128, 4096
+MIS_SEQ, MIS_TRAIN_SEQ, MIS_TRAIN_STEPS, MIS_FWD_REPS = 8192, 4096, 3, 5
 
 
 def fail(msg: str) -> None:
@@ -914,6 +941,312 @@ def rf_phases(dev, card: str) -> tuple[dict, int]:
     return row, launches
 
 
+def k8_pairs(n: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps in one folded row of length n."""
+    import numpy as np
+
+    q = np.arange(n, dtype=np.int64)
+    if causal:
+        lo = np.zeros_like(q) if window is None else np.maximum(
+            q - window + 1, 0)
+        return int((q - lo + 1).sum())
+    if window is None:
+        return n * n
+    return int((np.minimum(q + window - 1, n - 1)
+                - np.maximum(q - window + 1, 0) + 1).sum())
+
+
+def k8_bound_ms(bh: int, n: int, d: int, bf16: bool, causal: bool,
+                window: int | None) -> tuple[float, str]:
+    """K8's least time: q, k, v read and o written once; 4·d flops (the two
+    products) for each kept pair, at the tensor-core rate for bf16 and the
+    CUDA cores' f32 rate for f32."""
+    nbytes = 4 * bh * n * d * (2 if bf16 else 4)
+    ops = 4.0 * d * k8_pairs(n, causal, window) * bh
+    return bound_ms(nbytes, ops, "bf16" if bf16 else "f32")
+
+
+def within(a, b, rtol: float, atol: float) -> tuple[bool, float]:
+    """(every |a - b| <= atol + rtol·|b|, max |a - b|), in f32."""
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    return bool((err <= atol + rtol * b.abs()).all()), float(err.max())
+
+
+def k8_faults(q, k, v, kw, ref, tile: int = 64) -> dict:
+    """Row-scaled errors (against ``ref``) of K8's plain version with a
+    fault of the kernel's kind planted: the p·v product of the key tile at
+    N/2 dropped (its V zeroed), and, for a window, the window one tile
+    short.  Both fall on the late rows, whose entries are the smallest."""
+    from harp_tpu_torch.ops import flash_attention as K8
+
+    n = q.shape[1]
+    vz = v.clone()
+    vz[:, n // 2:n // 2 + tile] = 0
+    out = {"V tile dropped": K8.row_scaled_error(
+        K8.flash_attention_plain(q, k, vz, **kw), ref)}
+    if kw["window"] is not None:
+        short = dict(kw, window=kw["window"] - tile)
+        out["window a tile short"] = K8.row_scaled_error(
+            K8.flash_attention_plain(q, k, v, **short), ref)
+    return out
+
+
+def k8_phase(dev, card: str, gen) -> dict:
+    """Phase 21: K8 against its plain version; returns K8's row of the
+    kernels line (the main path's call: f32, causal, window)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from harp_tpu_torch.ops import flash_attention as K8
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    h, g, d, win = MIS_HEADS, MIS_KV, MIS_DIM, MIS_WINDOW
+    n2, w2 = MIS_SEQ // 4, win // 8
+    arms = [  # (name, bh, n, d, dtype, causal, window)
+        ("bf16 causal", h, MIS_SEQ, d, torch.bfloat16, True, None),
+        (f"bf16 causal w{win}", h, MIS_SEQ, d, torch.bfloat16, True, win),
+        ("f32 causal", h, MIS_SEQ, d, torch.float32, True, None),
+        (f"f32 causal w{win}", h, MIS_SEQ, d, torch.float32, True, win),
+        (f"f32 non-causal w{w2}", h, n2, d, torch.float32, False, w2),
+        ("bf16 causal D64", 2 * h, MIS_SEQ // 2, 64, torch.bfloat16, True,
+         None)]
+    row = None
+    for name, bh, n, dd, dtype, causal, window in arms:
+        # q [bh, n, dd] and K/V of bh / group heads repeated x group
+        group = h // g if bh == h else 1
+        q = torch.randn((bh, n, dd), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((bh // group, n, dd), generator=gen, device=dev)
+                .to(dtype).repeat_interleave(group, dim=0) for _ in range(2))
+        kw = {"causal": causal, "window": window}
+        o1 = K8.flash_attention(q, k, v, **kw)
+        o2 = K8.flash_attention_plain(q, k, v, **kw)
+        o3 = K8.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((o1.float() - o2.float()).abs().max())
+        if dtype == torch.float32:
+            # the reference's own gate for its kernel
+            ok, _ = within(o1, o2, 2e-4, 2e-5)
+            limit = "rtol 2e-4 / atol 2e-5"
+        else:
+            # two bf16 steps of each entry's size or of its row's RMS; the
+            # planted faults must fail the same test
+            rel = K8.row_scaled_error(o1, o2)
+            ok = rel <= K8.BF16_ROW_TOL
+            faults = k8_faults(q, k, v, kw, o2)
+            caught = [f for f, e in faults.items() if e > K8.BF16_ROW_TOL]
+            if len(caught) < len(faults):
+                fail(f"K8 {name}: a planted fault passes the check: {faults}")
+            limit = (f"row-scaled err {rel:.4e} <= {K8.BF16_ROW_TOL}; "
+                     "planted faults fail it: " + ", ".join(
+                         f"{f} {e:.4e}" for f, e in faults.items()))
+        if not ok:
+            fail(f"K8 {name}: max err {err}, not within {limit}")
+        if not torch.equal(o1, o3):
+            fail(f"K8 {name}: reruns differ")
+        ms = cuda_ms(lambda: K8.flash_attention(q, k, v, **kw), reps=5,
+                     warmup=1)
+        plain = cuda_ms(lambda: K8.flash_attention_plain(q, k, v, **kw),
+                        reps=2, warmup=1)
+        # the library yardstick: one SDPA call on the same tensors
+        # ([1, heads, n, d]); the window as an explicit boolean mask
+        sq, sk, sv = q[None], k[None], v[None]
+        if window is None:
+            def sdpa():
+                return Fn.scaled_dot_product_attention(sq, sk, sv,
+                                                       is_causal=causal)
+        else:
+            pos = torch.arange(n, device=dev)
+            delta = pos[:, None] - pos[None, :]
+            mask = ((delta >= 0) & (delta < window) if causal
+                    else delta.abs() < window)
+
+            def sdpa():
+                return Fn.scaled_dot_product_attention(sq, sk, sv,
+                                                       attn_mask=mask)
+        lib_err = float((sdpa()[0].float() - o1.float()).abs().max())
+        lib = cuda_ms(sdpa, reps=5, warmup=1)
+        b_ms, b_by = k8_bound_ms(bh, n, dd, dtype == torch.bfloat16, causal,
+                                 window)
+        print(f"K8 {name} [{bh}, {n}, {dd}]: max err {err:.3e} ({limit}), "
+              f"reruns bit-equal, SDPA max diff {lib_err:.3e}; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {k8_pairs(n, causal, window)} pairs "
+              f"a row [{card}]")
+        if name == f"f32 causal w{win}":  # the main path's call
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        del q, k, v, o1, o2, o3, sq, sk, sv
+    torch.cuda.empty_cache()
+    return row
+
+
+def attention_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 21-24; returns K8's row of the kernels line and its launches
+    on the attention main path (phase 22)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.convert import longctx_params_from_numpy, \
+        moe_params_from_numpy
+    from harp_tpu_torch.examples import longctx_layer as L
+    from harp_tpu_torch.ops import flash_attention as K8
+    from harp_tpu_torch.ops.a2a_attention import a2a_attention
+    from harp_tpu_torch.ops.moe import moe_ffn, reference_moe
+    from harp_tpu_torch.ops.ring_attention import ring_attention
+    from harp_tpu_torch.ops.rope import apply_rope
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+
+    h, g, d, win = MIS_HEADS, MIS_KV, MIS_DIM, MIS_WINDOW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    row = k8_phase(dev, card, gen)
+
+    # -- 22. the attention schemes at Mistral width (the K8 main path) -------
+    s = MIS_SEQ
+    q = torch.randn((1, s, h, d), generator=gen, device=dev)
+    k = torch.randn((1, s, g, d), generator=gen, device=dev)
+    v = torch.randn((1, s, g, d), generator=gen, device=dev)
+    outs, walls, peaks = {}, {}, {}
+    K8.reset_launches()  # the attention main path's run starts here
+    with torch.no_grad():
+        qr, kr = apply_rope(q), apply_rope(k)
+
+        def fold(x):
+            return x[0].repeat_interleave(h // x.shape[2], dim=1).permute(
+                1, 0, 2).contiguous()
+
+        schemes = {
+            "ring": lambda: ring_attention(qr, kr, v, causal=True,
+                                           window=win),
+            "a2a": lambda: a2a_attention(qr, kr, v, causal=True, window=win,
+                                         block_k=s // 16),
+            "K8": lambda: K8.flash_attention(
+                fold(qr), fold(kr), fold(v), causal=True,
+                window=win).permute(1, 0, 2)[None]}
+        for name, fn in schemes.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = K8.LAUNCHES["flash_attention"]  # ... and ends here
+    if launches != 1:
+        fail(f"attention main path: K8 launches {launches}, expected 1")
+    for name in ("a2a", "K8"):
+        ok, err = within(outs[name], outs["ring"], 2e-4, 2e-5)
+        if not ok:
+            fail(f"{name} disagrees with ring attention: max err {err}")
+    if not (bool(torch.isfinite(outs["ring"]).all())
+            and outs["K8"].shape == q.shape):
+        fail("attention schemes: non-finite or misshapen output")
+    print(f"attention at Mistral width (1 x {s} x {h}q/{g}kv x {d}, f32, "
+          f"RoPE, causal window {win}): ring, a2a (block_k {s // 16}) and K8 "
+          f"agree "
+          f"within rtol 2e-4 / atol 2e-5; wall " + ", ".join(
+              f"{n_} {walls[n_] * 1e3:.3f} ms (peak {peaks[n_]:.2f} GiB)"
+              for n_ in schemes) + f"; K8 launches {launches} [{card}]")
+    del q, k, v, qr, kr, outs
+    torch.cuda.empty_cache()
+
+    # -- 23. the long-context layer -----------------------------------------
+    shape = {"heads": h, "kv_heads": g, "dim": d, "window": win}
+    mesh = WorkerMesh(dev)
+    params, x, _ = L.init_arrays(MIS_SEQ, h, g, d)
+    p = longctx_params_from_numpy(params, dev)
+    xs = mesh.shard_array(x, 1)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fwds = []
+    with torch.no_grad():
+        for _ in range(MIS_FWD_REPS + 1):  # the first one warms up
+            t0 = time.perf_counter()
+            y = L.layer(p, xs, **shape)
+            torch.cuda.synchronize()
+            fwds.append(time.perf_counter() - t0)
+            if not (bool(torch.isfinite(y).all()) and y.shape == xs.shape):
+                fail("long-context layer: forward not finite at seq 8192")
+            del y
+    fwd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd = float(np.median(fwds[1:]))
+    del xs
+    params, x, teacher = L.init_arrays(MIS_TRAIN_SEQ, h, g, d)
+    p = longctx_params_from_numpy(params, dev)
+    t = longctx_params_from_numpy(teacher, dev)
+    xs = mesh.shard_array(x, 1)
+    with torch.no_grad():
+        target = L.layer(t, xs, **shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(MIS_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        p_new, loss = L.train_step(p, xs, target, **shape)
+        losses.append(float(loss))  # a readback: the step has finished
+        times.append(time.perf_counter() - t0)
+        upd = [p_new[k_] - p[k_] for k_ in p]
+        if not all(bool(torch.isfinite(u).all()) for u in upd):
+            fail("long-context layer: non-finite gradient")
+        p = p_new
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"long-context layer: losses {losses} not finite and falling")
+    profile_run(lambda: L.train_step(p, xs, target, **shape)[1].item(), card,
+                "long-context layer", "training step")
+    step_s = float(np.median(times[1:]))
+    print(f"long-context layer at Mistral width ({h}q/{g}kv x {d}, model "
+          f"{h * d}, window {win}): forward at seq {MIS_SEQ}: median "
+          f"{fwd:.4f} s of {MIS_FWD_REPS} after a warm-up (min "
+          f"{min(fwds[1:]):.4f}, max {max(fwds[1:]):.4f}, warm-up "
+          f"{fwds[0]:.4f}), {MIS_SEQ / fwd:.6e} tokens/s, peak "
+          f"{fwd_peak:.2f} GiB; "
+          f"training at seq {MIS_TRAIN_SEQ}: losses "
+          f"{[round(l_, 6) for l_ in losses]}, steps "
+          f"{[round(t_, 4) for t_ in times]} s (first incl. warm-up), "
+          f"{MIS_TRAIN_SEQ / step_s:.6e} tokens/s, peak {train_peak:.2f} GiB "
+          f"[{card}]")
+    del p, t, xs, target, p_new, upd
+    torch.cuda.empty_cache()
+    lg, _ = L.run(mesh=mesh)
+    lc, _ = L.run(mesh=WorkerMesh("cpu"))
+    if not np.allclose(lg, lc, rtol=1e-3, atol=0):
+        fail(f"long-context layer: the card's losses {lg} vs the CPU's {lc}")
+    print(f"long-context layer: card and CPU agree at the example's defaults "
+          f"(seq 512, 8q/2kv x 16, window 64, 10 steps; loss rtol 1e-3): "
+          f"{lg[0]:.6f} -> {lg[-1]:.6f}")
+
+    # -- 24. MoE on one card ---------------------------------------------------
+    rng = np.random.default_rng(5)
+    md, mh, tokens = 8, 16, 64
+    w = {"gate": rng.normal(size=(md, 1)).astype(np.float32),
+         "w1": rng.normal(size=(1, md, mh)).astype(np.float32) * 0.5,
+         "b1": rng.normal(size=(1, mh)).astype(np.float32) * 0.1,
+         "w2": rng.normal(size=(1, mh, md)).astype(np.float32) * 0.5,
+         "b2": rng.normal(size=(1, md)).astype(np.float32) * 0.1}
+    x = rng.normal(size=(tokens, md)).astype(np.float32)
+    ys = []
+    for where in (dev, torch.device("cpu")):
+        a = moe_params_from_numpy(w, where, expert=0)
+        y, dropped = moe_ffn(torch.from_numpy(x).to(where), a["gate"],
+                             a["w1"], a["b1"], a["w2"], a["b2"],
+                             capacity=tokens)
+        if int(dropped) != 0:
+            fail(f"MoE on {where}: {int(dropped)} drops at capacity = tokens")
+        ys.append(y.cpu().numpy())
+    host = reference_moe(x, w["gate"], w["w1"], w["b1"], w["w2"], w["b2"],
+                         tokens, 1)
+    if not (np.allclose(ys[0], ys[1], rtol=2e-4, atol=2e-5)
+            and np.allclose(ys[0], host, rtol=2e-4, atol=2e-5)):
+        fail("MoE: the card disagrees with the CPU or the host reference")
+    print(f"MoE: card, CPU and host reference agree on {tokens} tokens x "
+          f"{md} (rtol 2e-4 / atol 2e-5), zero drops at capacity {tokens}")
+    return row, launches
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None
                   ) -> None:
@@ -1148,7 +1481,11 @@ def main() -> int:
     # -- 19-20. Random Forest ----------------------------------------------------
     rows["hist_bins"], launches["hist_bins"] = rf_phases(dev, card)
 
-    # -- 21. result ----------------------------------------------------------
+    # -- 21-24. long-context attention -------------------------------------------
+    rows["flash_attention"], launches["flash_attention"] = attention_phases(
+        dev, card)
+
+    # -- 25. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",
@@ -1162,7 +1499,9 @@ def main() -> int:
            "smacof_bx": ("harp_tpu_torch/csrc/wdamds_smacof_bx.cu",
                          "harp_tpu/ops/wdamds_kernel.py:114"),
            "hist_bins": ("harp_tpu_torch/csrc/rf_hist_bins.cu",
-                         "harp_tpu/ops/rf_kernel.py:102")}
+                         "harp_tpu/ops/rf_kernel.py:102"),
+           "flash_attention": ("harp_tpu_torch/csrc/flash_attention.cu",
+                               "harp_tpu/ops/flash_attention.py:100")}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 "library_ms": None, **rows[name]} for name in src]

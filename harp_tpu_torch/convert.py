@@ -132,3 +132,46 @@ def rf_forest_from_numpy(state: dict, device) -> dict:
         raise ValueError(f"edges must be [f, n_bins - 1], got shape "
                          f"{out['edges'].shape}")
     return {k: torch.from_numpy(a.copy()).to(device) for k, a in out.items()}
+
+
+def longctx_params_from_numpy(state: dict, device) -> dict:
+    """The reference long-context layer's weights (``wq`` [model_d, h·d],
+    ``wk`` and ``wv`` [model_d, g·d], ``wo`` [h·d, model_d]) → f32 tensors
+    on ``device``, for ``examples.longctx_layer``."""
+    out = {}
+    for key in ("wq", "wk", "wv", "wo"):
+        a = np.asarray(state[key], dtype=np.float32)
+        if a.ndim != 2:
+            raise ValueError(f"{key} must be 2-D, got shape {a.shape}")
+        out[key] = torch.from_numpy(a.copy()).to(device)
+    model_d, hd = out["wq"].shape
+    if out["wo"].shape != (hd, model_d) or out["wk"].shape != out[
+            "wv"].shape or out["wk"].shape[0] != model_d:
+        raise ValueError(f"wq {tuple(out['wq'].shape)}, wk "
+                         f"{tuple(out['wk'].shape)}, wv "
+                         f"{tuple(out['wv'].shape)} and wo "
+                         f"{tuple(out['wo'].shape)} do not form a layer")
+    return out
+
+
+def moe_params_from_numpy(state: dict, device, expert: int | None = None
+                          ) -> dict:
+    """The reference MoE's weights → f32 tensors on ``device``: ``gate``
+    [d, E], and ``w1`` [E, d, h], ``b1`` [E, h], ``w2`` [E, h, d], ``b2``
+    [E, d] stacked over the experts.  With ``expert=e`` the four expert
+    tensors are expert ``e``'s alone (``ops.moe.moe_ffn``'s per-worker
+    arguments)."""
+    a = {k: np.asarray(state[k], dtype=np.float32)
+         for k in ("gate", "w1", "b1", "w2", "b2")}
+    d, E = a["gate"].shape
+    h = a["w1"].shape[-1]
+    want = {"w1": (E, d, h), "b1": (E, h), "w2": (E, h, d), "b2": (E, d)}
+    for k, shape in want.items():
+        if a[k].shape != shape:
+            raise ValueError(f"{k} must be {shape} for gate {(d, E)}, got "
+                             f"{a[k].shape}")
+    if expert is not None:
+        for k in want:
+            a[k] = a[k][expert]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in a.items()}

@@ -18,6 +18,9 @@ push            ``reduce_scatter_tensor`` (ADD/AVG); MAX/MIN reduce,
 pull            ``all_gather_into_tensor`` along ``concat_dim``
 rotate          ``batch_isend_irecv``: one send to worker
                 ``(i + shift) % n``, one receive from ``(i - shift) % n``
+regroup         ``all_to_all_single`` on a contiguous staging buffer:
+                block *j* of ``split_dim`` to worker *j*, the received
+                blocks joined along ``concat_dim`` in source order
 barrier         ``barrier``
 ==============  =======================================================
 
@@ -25,6 +28,11 @@ On a one-worker group each verb is the identity (up to the combiner's
 dtype rules), and still records its bytes on the CommLedger.  Inputs are
 never modified.  bool tensors reduce as int32 and come back bool (ADD is
 any, MULTIPLY and MIN are all), the reference's contract.
+
+``rotate`` and ``regroup`` carry autograd, as the reference's ``ppermute``
+and ``all_to_all`` do: the backward of a rotate by ``s`` is a rotate by
+``-s``, that of a regroup the regroup with ``split_dim`` and
+``concat_dim`` swapped.  The backward moves are not recorded again.
 """
 
 from __future__ import annotations
@@ -246,12 +254,74 @@ def _ring_move(x: torch.Tensor, shift: int) -> torch.Tensor:
     return recv.to(x.dtype)
 
 
+class _RingMoveFn(torch.autograd.Function):
+    """:func:`_ring_move` with its adjoint: the gradient travels back."""
+
+    @staticmethod
+    def forward(ctx, x, shift):
+        ctx.shift = shift
+        return _ring_move(x, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_move(g, -ctx.shift), None
+
+
 def rotate(tree: Any, shift: int = 1):
     """Ring-shift partitions: worker *i*'s data goes to worker
     *(i + shift) % n* — Harp ``rotate``, the model-rotation primitive.
-    Exact: the bytes move unchanged."""
+    Exact: the bytes move unchanged; a gradient moves back by ``-shift``."""
     record_comm("rotate", tree)
-    return tree_map(lambda x: _ring_move(x, shift), tree)
+    return tree_map(lambda x: _RingMoveFn.apply(x, shift), tree)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int
+                ) -> torch.Tensor:
+    """The tiled all-to-all of one tensor: block *j* of ``split_dim`` goes
+    to worker *j*; the blocks received are joined along ``concat_dim`` in
+    source order.  One worker: a copy."""
+    nw = num_workers()
+    size = x.shape[split_dim]
+    if size % nw:
+        raise ValueError(
+            f"regroup: split dimension {split_dim} of size {size} must be "
+            f"divisible by the worker count {nw}")
+    if nw == 1:
+        return x.clone()
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+    # stage [nw, *block]: block j, contiguous, at index j
+    stage = torch.stack(wire.chunk(nw, dim=split_dim)).contiguous()
+    recv = torch.empty_like(stage)
+    dist.all_to_all_single(recv, stage)
+    return torch.cat(list(recv.unbind(0)), dim=concat_dim).to(x.dtype)
+
+
+class _AllToAllFn(torch.autograd.Function):
+    """:func:`_all_to_all` with its adjoint, the swapped regroup."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim):
+        ctx.dims = (split_dim, concat_dim)
+        return _all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim), None, None
+
+
+def regroup(tree: Any, *, split_dim: int = 0, concat_dim: int | None = None):
+    """Repartition by owner — Harp ``regroup`` (the shuffle equivalent).
+
+    Each leaf's ``split_dim`` axis is laid out in destination order: block
+    *j* goes to worker *j* (Harp's default ``Partitioner``,
+    ``partition_id % num_workers``).  The blocks a worker receives are
+    concatenated along ``concat_dim`` (default ``split_dim``) in source
+    order: the reference's tiled ``all_to_all``.  ``split_dim`` must divide
+    evenly over the workers.  A gradient returns by the swapped regroup."""
+    cd = split_dim if concat_dim is None else concat_dim
+    record_comm("regroup", tree)
+    return tree_map(lambda x: _AllToAllFn.apply(x, split_dim, cd), tree)
 
 
 _WIRE_DTYPES = (torch.bfloat16, torch.int8)

@@ -1,4 +1,4 @@
-"""Kernels K1-K7 against their plain versions on the card.
+"""Kernels K1-K8 against their plain versions on the card.
 
 These need an NVIDIA card with ``nvcc``; elsewhere each test skips (the
 fixture decides, never the import).  On the card, from the repo root:
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from harp_tpu_torch.ops import flash_attention as K8
 from harp_tpu_torch.ops import kmeans_kernel as KK
 from harp_tpu_torch.ops import lda_kernel as K4
 from harp_tpu_torch.ops import mfsgd_kernel as K3
@@ -32,7 +33,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K7 have no CPU mode)")
+        pytest.skip("needs a CUDA device (kernels K1-K8 have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -436,3 +437,64 @@ def test_rf_fit_launches_k7_once_per_level_and_equals_dense(dev):
     for algo in ("dense", "scatter"):
         for a, b in zip(forests["pallas"], forests[algo]):
             np.testing.assert_array_equal(a, b)
+
+
+# ---- K8: flash attention -------------------------------------------------------
+
+# (causal, window) on N = 256 and the ragged N = 200 (a partial 64-row
+# tile); bf16 at D = 16, 64, 128 takes the tensor-core path, bf16 at D = 24
+# and every f32 case the CUDA-core one
+# f32 within the reference's own gate; bf16 within two bf16 steps of each
+# entry's size or its row's RMS (flash_attention.row_scaled_error)
+K8_MASKS = [(False, None), (True, None), (True, 40), (False, 40)]
+
+
+def _k8_inputs(bh, n, d, dtype, dev, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn((bh, n, d), generator=g, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal,window", K8_MASKS)
+@pytest.mark.parametrize("n", [256, 200])
+@pytest.mark.parametrize("d", [16, 24, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_matches_plain(dev, causal, window, n, d, dtype):
+    q, k, v = _k8_inputs(3, n, d, dtype, dev, seed=d + n)
+    kw = {"causal": causal, "window": window, "block_q": 64, "block_k": 64}
+    if n % 64:
+        kw.update(block_q=n, block_k=n)
+    before = K8.LAUNCHES["flash_attention"]
+    o1 = K8.flash_attention(q, k, v, **kw)
+    o2 = K8.flash_attention_plain(q, k, v, **kw)
+    o3 = K8.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES["flash_attention"] == before + 2
+    assert o1.dtype == dtype and o1.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(o1, o2, rtol=2e-4, atol=2e-5)
+    else:
+        assert K8.row_scaled_error(o1, o2) <= K8.BF16_ROW_TOL
+    assert torch.equal(o1, o3)
+
+
+def test_k8_matches_dense_attention_at_d256(dev):
+    q, k, v = _k8_inputs(2, 128, 256, torch.float32, dev, seed=3)
+    o = K8.flash_attention(q, k, v, causal=True, scale=0.05)
+    ref = K8.reference_attention(q, k, v, causal=True, scale=0.05)
+    torch.testing.assert_close(o, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_k8_refuses_bad_head_dims_and_layouts(dev):
+    for d in (12, 264):
+        q = torch.zeros((1, 64, d), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            K8.flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 32), device=dev)
+    t = torch.zeros((1, 32, 64), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.flash_attention(t, q, q)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(64 * 32 + 1, device=dev)
+        K8.flash_attention(flat[1:].view(1, 64, 32), q, q)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
@@ -68,7 +69,12 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.models.svm", "harp_tpu_torch.ops.wdamds_kernel",
             "harp_tpu_torch.models.wdamds", "harp_tpu_torch.ops.rf_kernel",
             "harp_tpu_torch.models.rf",
-            "harp_tpu_torch.models.stats"} <= set(mods)
+            "harp_tpu_torch.models.stats", "harp_tpu_torch.parallel.dispatch",
+            "harp_tpu_torch.ops.flash_attention",
+            "harp_tpu_torch.ops.ring_attention",
+            "harp_tpu_torch.ops.a2a_attention", "harp_tpu_torch.ops.rope",
+            "harp_tpu_torch.ops.moe",
+            "harp_tpu_torch.examples.longctx_layer"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -89,7 +95,8 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
                                    "lda-benchmark", "lda-cli", "rf-fit",
                                    "rf-benchmark", "rf-cli", "svm-fit",
                                    "svm-benchmark", "svm-cli", "wdamds-mds",
-                                   "wdamds-benchmark", "wdamds-cli"])
+                                   "wdamds-benchmark", "wdamds-cli",
+                                   "longctx-main"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -129,6 +136,8 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
             WD.benchmark(n=8)
         elif entry == "wdamds-cli":
             WD.main(["--n", "8"])
+        elif entry == "longctx-main":
+            LC.main(["--seq", "16", "--steps", "1"])
         elif entry == "lda-cli":
             LD.main(["--docs", "16", "--vocab", "8", "--topics", "4",
                      "--tokens-per-doc", "2", "--epochs", "1"])
@@ -152,8 +161,9 @@ def test_build_needs_nvcc_and_names_it(tmp_path, monkeypatch):
 
 
 def test_library_names_follow_the_source_hash():
-    assert build.sources() == ["kmeans_partials", "kmeans_partials_int8",
-                               "lda_cgs_entry", "mfsgd_tile_update",
+    assert build.sources() == ["flash_attention", "kmeans_partials",
+                               "kmeans_partials_int8", "lda_cgs_entry",
+                               "mfsgd_tile_update",
                                "rf_hist_bins", "svm_pegasos_grad",
                                "wdamds_smacof_bx"]
     a = build.library_path("kmeans_partials")

@@ -581,3 +581,216 @@ def run_rf_cases(rank: int, world: int, draws: list) -> dict:
                         device="cpu")
     out["own"] = {"acc": m.fit(x, y).accuracy(x, y), "forest": m.forest}
     return out
+
+
+# ---- long-context attention ----------------------------------------------------
+
+#: (case id, scheme, kwargs, (b, n, h, g, d), seed), run on every worker of
+#: the attention world: n = 64 is 16 positions a worker
+ATTN_CASES = (
+    [(f"ring-c{int(c)}", "ring", {"causal": c}, (2, 64, 4, 4, 16), 0)
+     for c in (False, True)]
+    + [(f"ring-gqa{g}-c{int(c)}", "ring", {"causal": c}, (2, 64, 4, g, 16), 4)
+       for g in (1, 2) for c in (False, True)]
+    + [(f"a2a-c{int(c)}-bk{bk}", "a2a", {"causal": c, "block_k": bk},
+        (2, 64, 8, 8, 16), 2) for c in (False, True) for bk in (None, 16)]
+    + [(f"a2a-gqa-c{int(c)}", "a2a", {"causal": c}, (2, 64, 16, 4, 8), 5)
+       for c in (False, True)]
+    # window 12 crosses the 16-position shards
+    + [(f"window-{s}-c{int(c)}", s, {"causal": c, "window": 12},
+        (1, 64, 8, 8, 8), 8) for s in ("ring", "a2a") for c in (False, True)]
+    + [(f"window-a2a-bk-c{int(c)}", "a2a",
+        {"causal": c, "window": 10, "block_k": 16}, (1, 64, 8, 8, 8), 9)
+       for c in (False, True)]
+    # windowed MQA with RoPE on the ring
+    + [("rope-mqa-window", "ring-rope", {"causal": True, "window": 24},
+        (1, 64, 4, 1, 8), 7)])
+#: (scheme, window) of the gradient cases: loss = sum(attn(q, k, v)^2)
+GRAD_CASES = [(s, w) for s in ("ring", "a2a") for w in (None, 12)]
+GRAD_SHAPE = (1, 64, 8, 8, 8)
+ROPE_SHAPE = (2, 64, 4, 16)
+
+
+def attention_inputs(shape: tuple, seed: int) -> tuple:
+    """Whole q [b, n, h, d], k and v [b, n, g, d] as f32 numpy."""
+    b, n, h, g, d = shape
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, n, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, n, g, d)).astype(np.float32)
+    v = rng.normal(size=(b, n, g, d)).astype(np.float32)
+    return q, k, v
+
+
+def rope_input(seed: int = 11) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=ROPE_SHAPE).astype(
+        np.float32)
+
+
+def _error_of(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def run_attention_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.ops import rope as RO
+    from harp_tpu_torch.ops.a2a_attention import a2a_attention, \
+        make_a2a_attention_fn
+    from harp_tpu_torch.ops.ring_attention import make_ring_attention_fn, \
+        ring_attention
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+    from harp_tpu_torch.utils import telemetry
+
+    def shard(a):
+        nl = a.shape[1] // world
+        return torch.from_numpy(a[:, rank * nl:(rank + 1) * nl].copy())
+
+    schemes = {"ring": ring_attention, "a2a": a2a_attention}
+    out = {}
+    for cid, scheme, kw, shape, seed in ATTN_CASES:
+        q, k, v = (shard(a) for a in attention_inputs(shape, seed))
+        if scheme == "ring-rope":
+            o = ring_attention(RO.apply_rope(q), RO.apply_rope(k), v, **kw)
+        else:
+            o = schemes[scheme](q, k, v, **kw)
+        out[cid] = o.numpy()
+    for scheme, window in GRAD_CASES:
+        q, k, v = (shard(a).requires_grad_()
+                   for a in attention_inputs(GRAD_SHAPE, 7))
+        (schemes[scheme](q, k, v, causal=True, window=window) ** 2
+         ).sum().backward()
+        out[f"grad-{scheme}-{window}"] = [t.grad.numpy() for t in (q, k, v)]
+    out["rope"] = RO.apply_rope(shard(rope_input())).numpy()
+    mesh = WorkerMesh("cpu")
+    whole = attention_inputs((2, 64, 8, 8, 16), 2)
+    out["host-ring"] = make_ring_attention_fn(mesh, causal=True)(
+        *whole).numpy()
+    out["host-a2a"] = make_a2a_attention_fn(mesh, causal=True, block_k=16)(
+        *whole).numpy()
+    out["host-rope"] = RO.make_rope_fn(mesh)(rope_input()).numpy()
+    q6 = torch.zeros((1, 16, 6, 8))
+    q4, k3 = torch.zeros((1, 16, 4, 8)), torch.zeros((1, 16, 3, 8))
+    q16, k2 = torch.zeros((1, 16, 16, 8)), torch.zeros((1, 16, 2, 8))
+    out["reject-a2a-heads"] = _error_of(lambda: a2a_attention(q6, q6, q6))
+    out["reject-ring-group"] = _error_of(lambda: ring_attention(q4, k3, k3))
+    out["reject-a2a-gqa"] = _error_of(lambda: a2a_attention(q16, k2, k2))
+    out["reject-ring-window0"] = _error_of(
+        lambda: ring_attention(q4, q4, q4, window=0))
+    out["reject-a2a-window0"] = _error_of(
+        lambda: a2a_attention(q4, q4, q4, window=0))
+    q, k, v = (shard(a) for a in attention_inputs((1, 64, 8, 4, 8), 3))
+    with telemetry.scope():
+        with telemetry.ledger.run("ring"):
+            ring_attention(q, k, v, causal=True)
+        with telemetry.ledger.run("ring-window"):
+            ring_attention(q, k, v, causal=True, window=12)
+        with telemetry.ledger.run("a2a"):
+            a2a_attention(q, k, v, causal=True)
+        out["ledger"] = telemetry.ledger.summary()
+    return out
+
+
+# ---- regroup, dispatch and MoE -------------------------------------------------
+
+MOE_D, MOE_H, MOE_TOKENS = 8, 16, 16  # tokens a worker
+
+
+def moe_weights(seed: int, n_experts: int = WORLD) -> dict:
+    """The reference test's weights for ``n_experts`` experts."""
+    rng = np.random.default_rng(seed)
+    d, h, e = MOE_D, MOE_H, n_experts
+    return {
+        "gate": rng.normal(size=(d, e)).astype(np.float32),
+        "w1": rng.normal(size=(e, d, h)).astype(np.float32) * 0.5,
+        "b1": rng.normal(size=(e, h)).astype(np.float32) * 0.1,
+        "w2": rng.normal(size=(e, h, d)).astype(np.float32) * 0.5,
+        "b2": rng.normal(size=(e, d)).astype(np.float32) * 0.1,
+        "x": rng.normal(size=(e * MOE_TOKENS, d)).astype(np.float32),
+    }
+
+
+def forced_moe_weights(seed: int = 1) -> dict:
+    """Every token routed to expert 0 (a positive dot with gate column 0)."""
+    w = moe_weights(seed)
+    w["gate"] = np.zeros_like(w["gate"])
+    w["gate"][:, 0] = 1.0
+    w["x"] = np.abs(w["x"])
+    return w
+
+
+#: (case id, weights maker, capacity)
+MOE_CASES = [("cap16", lambda: moe_weights(0), 16),
+             ("cap4", lambda: moe_weights(0), 4),
+             ("forced-cap4", forced_moe_weights, 4)]
+#: (case id, split_dim, concat_dim, dtype) of the regroup cases, on per-
+#: worker [4, 8, 3]-shaped inputs
+REGROUP_CASES = [(f"regroup-{s}-{c}-{dt}", s, c, dt)
+                 for s, c in ((0, 0), (0, 1), (1, 0), (1, 2))
+                 for dt in ("float32", "int32", "bool")]
+
+
+def regroup_inputs(world: int = WORLD) -> dict:
+    rng = np.random.default_rng(21)
+    shape = (world, 4, 8, 3)
+    return {"float32": rng.normal(size=shape).astype(np.float32),
+            "int32": rng.integers(-9, 10, size=shape).astype(np.int32),
+            "bool": rng.random(shape) < 0.5,
+            "cot": rng.normal(size=(world, 1, 32, 3)).astype(np.float32)}
+
+
+def run_moe_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.convert import moe_params_from_numpy
+    from harp_tpu_torch.ops.moe import moe_ffn
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.utils import telemetry
+
+    inp = {k: torch.from_numpy(a[rank].copy())
+           for k, a in regroup_inputs(world).items()}
+    out = {}
+    for cid, s, c, dt in REGROUP_CASES:
+        out[cid] = C.regroup(inp[dt], split_dim=s, concat_dim=c).numpy()
+    # gradients: regroup [4, 8, 3] -> [1, 32, 3] (split 0, concat 1), and a
+    # rotate by 1, each under a weighted sum
+    x = inp["float32"].clone().requires_grad_()
+    (C.regroup(x, split_dim=0, concat_dim=1) * inp["cot"]).sum().backward()
+    out["grad-regroup"] = x.grad.numpy()
+    x = inp["float32"].clone().requires_grad_()
+    (C.rotate(x, 1) * inp["float32"]).sum().backward()
+    out["grad-rotate"] = x.grad.numpy()
+    with telemetry.scope():
+        with telemetry.ledger.run("regroup"):
+            C.regroup((inp["float32"], inp["int32"][0]), split_dim=0)
+            C.regroup(inp["float32"], split_dim=1, concat_dim=2)
+        out["ledger"] = telemetry.ledger.summary()["regroup"]
+    for cid, make, cap in MOE_CASES:
+        w = make()
+        p = moe_params_from_numpy(w, "cpu", expert=rank)
+        xs = torch.from_numpy(
+            w["x"][rank * MOE_TOKENS:(rank + 1) * MOE_TOKENS].copy())
+        y, dropped = moe_ffn(xs, p["gate"], p["w1"], p["b1"], p["w2"],
+                             p["b2"], capacity=cap)
+        out[cid] = {"y": y.numpy(), "dropped": int(dropped)}
+    return out
+
+
+# ---- long-context layer --------------------------------------------------------
+
+LONGCTX_SHAPE = {"seq": 64, "heads": 4, "kv_heads": 2, "dim": 8,
+                 "window": 12, "steps": 3}
+
+
+def run_longctx_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.examples import longctx_layer as L
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+
+    s = LONGCTX_SHAPE
+    losses, params = L.run(s["seq"], s["heads"], s["kv_heads"], s["dim"],
+                           s["window"], s["steps"], mesh=WorkerMesh("cpu"))
+    return {"losses": losses, "params": {k: v.numpy()
+                                         for k, v in params.items()}}
