@@ -37,8 +37,10 @@ fatal when it fails (exit code != 0 and no result line):
    its plain version at the LDA benchmark width (100k docs x 50k words,
    1000 topics, 100 tokens a doc; 512 x 512 tiles, C = 768, cc from
    chunk_width): the first 256 entries of one rotation step with injected
-   uniforms for f32 and int16 Ndk, then the whole step on the Philox arm;
-   tables, topics and dNk bit-equal;
+   uniforms for f32 and int16 Ndk, then the whole step on the Philox arm
+   for f32 and int16 Ndk; tables, topics and dNk bit-equal; launches a
+   step (one), microseconds a chunk, and torch.profiler's split of the
+   step into kernel time and the gaps between launches;
 10. K4's Philox arm on a flat tile: topic frequencies match the posterior;
 11. models.lda.LDA on synthetic_corpus(96, 64, 4, 50) for pallas and dense,
    four seeds, twelve sweeps: chain invariants, rising likelihood, and the
@@ -84,8 +86,9 @@ fatal when it fails (exit code != 0 and no result line):
    2^-6 of each entry's size or its row's RMS (flash_attention.
    row_scaled_error), and the plain version with a planted fault (a key
    tile's p.v dropped; the window a tile short) must fail that test;
-   reruns bit-equal; scaled_dot_product_attention on the same tensors
-   timed beside it (library_ms);
+   reruns bit-equal; the path each arm ran (wgmma or simt);
+   scaled_dot_product_attention on the same tensors timed beside it
+   (library_ms);
 22. the attention schemes at Mistral width on one card, f32, seq 8192 (the
    K8 main path): ring_attention after apply_rope with window 4096 and GQA
    32q/8kv, a2a_attention with block_k 512, and K8 on the folded heads,
@@ -396,17 +399,67 @@ def k4_bound_ms(work, ndk_bytes, nwk_bytes, K) -> tuple[float, str]:
                                        else "operations")
 
 
-def lda_phases(dev, card: str) -> tuple[dict, int]:
-    """Phases 9-14; returns K4's row of the kernels line and its launches
-    on the LDA main path (phase 12's benchmark)."""
-    import numpy as np
+def traced_launches(prof, name: str, launched: int, wall: float
+                    ) -> tuple[list, str | None]:
+    """The device events of the kernel ``name`` in the torch.profiler trace
+    ``prof``, and None when they are all ``launched`` launches; else what
+    the trace holds (the profiler can drop device records), with where the
+    held ones lie in the window of ``wall`` seconds."""
+    import torch
+
+    ev = [e for e in prof.events()
+          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    if len(ev) == launched:
+        return ev, None
+    where = (f", the held ones from {min(e.time_range.start for e in ev):.1f}"
+             f" to {max(e.time_range.end for e in ev):.1f} us" if ev else "")
+    return ev, (f"the trace holds {len(ev)} of the {launched} {name} "
+                f"launches{where} of a {wall * 1e6:.1f} us window")
+
+
+def k4_split(step, card: str) -> None:
+    """Where one call of ``step`` (a K4 rotation step) spends its time on
+    the card, from torch.profiler's device events: K4's launches, their
+    summed kernel time, and the span from the first kernel's start to the
+    last one's end; span - kernel time is the time between launches.  The
+    split is printed only when the trace holds every launch that K4's
+    count saw, since the profiler can drop device records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from harp_tpu_torch.ops import lda_kernel as K4
+
+    torch.cuda.synchronize()
+    before = K4.LAUNCHES["cgs_entry_update"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev, missed = traced_launches(
+        prof, "step_kernel", K4.LAUNCHES["cgs_entry_update"] - before, wall)
+    if missed:
+        print(f"K4 trace of one step: {missed}; split not measured")
+        return
+    busy = sum(e.time_range.end - e.time_range.start for e in ev) / 1e3
+    span = (max(e.time_range.end for e in ev)
+            - min(e.time_range.start for e in ev)) / 1e3
+    print(f"K4 trace of one step: {len(ev)} kernel launch(es), kernel time "
+          f"{busy:.4f} ms, span {span:.4f} ms, profiled wall "
+          f"{wall * 1e3:.4f} ms [{card}]")
+
+
+def k4_phase(dev, card: str) -> dict:
+    """Phase 9: K4 against its plain version for one rotation step at the
+    LDA benchmark width; returns K4's row of the kernels line."""
     import torch
 
     from harp_tpu_torch.models import lda as LD
     from harp_tpu_torch.ops import lda_kernel as K4
     from harp_tpu_torch.utils.timing import cuda_ms
 
-    # -- 9. K4 against its plain version, one rotation step ------------------
     t0 = time.perf_counter()
     cfg = LD.LDAConfig(n_topics=LDA_TOPICS, algo="pallas")
     model = LD.LDA(LDA_DOCS, LDA_VOCAB, cfg, seed=0)
@@ -418,10 +471,11 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     wrows = model.Nwk.shape[0] // 2
     Ndk, Nwk, Nk = model.Ndk.clone(), model.Nwk[:wrows].clone(), model.Nk
     work = k4_work(ed.cpu().numpy(), cfg.d_tile)
+    chunks = plan.chunks
     print(f"K4 prep: {time.perf_counter() - t0:.1f} s; one step: {ne} "
           f"entries x {c} slots, {work['tokens']} tokens, cc {cc} (count "
-          f"bounds {model._count_bounds}), {plan.launches} CUDA launches a "
-          f"step, Ndk {tuple(Ndk.shape)}, word chunk {tuple(Nwk.shape)}")
+          f"bounds {model._count_bounds}), {chunks} chunks, Ndk "
+          f"{tuple(Ndk.shape)}, word chunk {tuple(Nwk.shape)}")
     del model
     kw = dict(alpha=cfg.alpha, beta=cfg.beta, vbeta=LDA_VOCAB * cfg.beta,
               d_tile=cfg.d_tile, w_tile=cfg.w_tile, cc=cc)
@@ -465,34 +519,65 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     full = (ed, ew, od, ow)
     ka = [Ndk.clone(), Nwk.clone(), z0.clone()]
     pa = [Ndk.clone(), Nwk.clone(), z0.clone()]
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     d1 = K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full, seeds=seeds, plan=plan,
                      **kw)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    d2 = K4.cgs_step_plain(pa[0], pa[1], Nk, pa[2], *full, seeds=seeds, **kw)
+    d2 = K4.cgs_step_plain(pa[0], pa[1], Nk, pa[2], *full, seeds=seeds,
+                           **kw)
     end.record()
     end.synchronize()
     plain = start.elapsed_time(end)
     for a, b in zip(ka + [d1], pa + [d2]):
         err = max(err, float((a.float() - b.float()).abs().max()))
         if not torch.equal(a, b):
-            fail("K4 (Philox arm) differs from its plain version on a whole "
-                 "rotation step")
-    del pa
-    ms = cuda_ms(lambda: K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full,
-                                     seeds=seeds, plan=plan, **kw),
-                 reps=3, warmup=1)
+            fail("K4 (Philox arm) differs from its plain version on a "
+                 "whole rotation step")
+    # int16 Ndk over the whole step as well: its CAS atomics under the
+    # grid barriers
+    ki = [Ndk.to(torch.int16), Nwk.clone(), z0.clone()]
+    d3 = K4.cgs_step(ki[0], ki[1], Nk, ki[2], *full, seeds=seeds,
+                     plan=plan, **kw)
+    for a, b in zip(ki + [d3], pa + [d2]):
+        if not torch.equal(a.float(), b.float()):
+            fail("K4 (Philox arm, int16 Ndk) differs from its plain "
+                 "version on a whole rotation step")
+    del pa, ki
+
+    def step():
+        return K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full, seeds=seeds,
+                           plan=plan, **kw)
+
+    before = K4.LAUNCHES["cgs_entry_update"]
+    ms = cuda_ms(step, reps=3, warmup=1)
+    per_step = (K4.LAUNCHES["cgs_entry_update"] - before) / 4
+    k4_split(step, card)
     b_ms, b_by = k4_bound_ms(work, Ndk.numel() * 4, Nwk.numel() * 4,
                              LDA_TOPICS)
-    print(f"K4 whole step, Philox arm: bit-equal to the plain version; "
-          f"kernel {ms:.4f} ms/step ({plan.launches} CUDA launches, "
-          f"{ms * 1e3 / plan.launches:.3f} us a launch), plain {plain:.4f} "
-          f"ms/step, bound {b_ms:.4f} ms ({b_by}); first {n_sub} entries "
-          f"with injected uniforms: kernel {ms_sub:.4f} ms, plain "
-          f"{plain_sub:.4f} ms [{card}]")
-    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-           "bound_by": b_by}
-    del ka, Ndk, Nwk, full, seeds
+    print(f"K4 whole step, Philox arm: against the plain version bit-equal, "
+          f"f32 and int16 Ndk; plain {plain:.4f} ms/step; kernel {ms:.4f} "
+          f"ms/step ({per_step:g} K4 launches a step over 4 steps; "
+          f"{chunks} chunks, {ms * 1e3 / chunks:.3f} us a "
+          f"chunk), bound "
+          f"{b_ms:.4f} ms ({b_by}); first {n_sub} entries with injected "
+          f"uniforms: kernel {ms_sub:.4f} ms, plain {plain_sub:.4f} ms "
+          f"[{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def lda_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 9-14; returns K4's row of the kernels line and its launches
+    on the LDA main path (phase 12's benchmark)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import lda as LD
+    from harp_tpu_torch.ops import lda_kernel as K4
+
+    # -- 9. K4 against its plain version, one rotation step ------------------
+    row = k4_phase(dev, card)
+    cfg = LD.LDAConfig(n_topics=LDA_TOPICS, algo="pallas")
 
     # -- 10. the Philox arm draws from the posterior --------------------------
     Kf, C_ = 8, 256
@@ -569,8 +654,8 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     print(f"LDA benchmark pallas: {out['tokens_per_sec_per_chip']:.6e} "
           f"tokens/s per card, {out['sec_per_epoch']:.6f} s/epoch, "
           f"log-likelihood {out['log_likelihood']:.6f}, prep "
-          f"{out['prep_sec']:.1f} s; K4 {ms:.4f} ms/step x 2 steps an epoch, "
-          f"{launches} calls [{card}]")
+          f"{out['prep_sec']:.1f} s; K4 {row['ms']:.4f} ms/step x 2 steps an "
+          f"epoch, {launches} calls [{card}]")
     crow = run_cli("lda", "--algo", "pallas")
     if not np.isfinite(crow["log_likelihood"]):
         fail(f"LDA CLI row is not finite: {crow}")
@@ -582,7 +667,8 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     t0 = time.perf_counter()
     model.sample_epoch()
     bare = time.perf_counter() - t0
-    profile_epoch(model, card, "LDA", "sample_epoch", bare)
+    profile_epoch(model, card, "LDA", "sample_epoch", bare,
+                  (K4.LAUNCHES, "cgs_entry_update", "step_kernel"))
     del model
 
     # -- 14. enwiki-1M on this card -------------------------------------------
@@ -708,7 +794,8 @@ def svm_phases(dev, card: str) -> tuple[dict, int]:
     print(f"SVM fit pallas at {SVM_N} x {SVM_D}: {wall:.3f} s incl. H2D, "
           f"train_acc {acc:.4f} on 50k rows (floor {SVM_ACC_FLOOR}), K5 "
           f"launches {launches} [{card}]")
-    profile_run(lambda: model.fit(x, yh), card, "SVM", "fit")
+    profile_run(lambda: model.fit(x, yh), card, "SVM", "fit",
+                count=(K5.LAUNCHES, "pegasos_grad", "grad_kernel"))
     xs, ys = SV.synthetic_data(2000, 16, seed=3)
     for algo in ("xla", "pallas"):
         for wire in ("exact", "bf16", "int8"):
@@ -806,7 +893,8 @@ def mds_phases(dev, card: str) -> tuple[dict, int]:
     print(f"WDA-MDS mds pallas n={MDS_N} dim {MDS_DIM}: stress {stress:.6e} "
           f"after {MDS_ITERS} iterations ({one:.6e} after one), {wall:.3f} s "
           f"incl. H2D, K6 launches {launches} [{card}]")
-    profile_run(lambda: WD.mds(delta, cfg), card, "WDA-MDS", "mds")
+    profile_run(lambda: WD.mds(delta, cfg), card, "WDA-MDS", "mds",
+                count=(K6.LAUNCHES, "smacof_bx", "bx_kernel"))
     small = WD.benchmark_delta(200, 1)
     for algo in ("xla", "pallas"):
         c = WD.MDSConfig(dim=MDS_DIM, iters=MDS_ITERS, algo=algo)
@@ -928,7 +1016,8 @@ def rf_phases(dev, card: str) -> tuple[dict, int]:
           f"{RF_DEPTH}: {wall:.3f} s incl. host binning, forest bit-equal "
           f"to the dense arm's, train_acc {acc:.4f} on 20k rows (floor "
           f"{RF_ACC_FLOOR}), K7 launches {launches} [{card}]")
-    profile_run(lambda: model.fit(x, yh), card, "RF", "fit")
+    profile_run(lambda: model.fit(x, yh), card, "RF", "fit",
+                count=(K7.LAUNCHES, "hist_bins", "hist_kernel"))
     out = RF.benchmark(RF_N, RF_F, RF_TREES, RF_DEPTH, hist_algo="pallas")
     if not out["train_acc"] > RF_ACC_FLOOR:
         fail(f"RF benchmark: train_acc {out['train_acc']}")
@@ -1019,7 +1108,10 @@ def k8_phase(dev, card: str, gen) -> dict:
         k, v = (torch.randn((bh // group, n, dd), generator=gen, device=dev)
                 .to(dtype).repeat_interleave(group, dim=0) for _ in range(2))
         kw = {"causal": causal, "window": window}
+        before = dict(K8.PATH_LAUNCHES)
         o1 = K8.flash_attention(q, k, v, **kw)
+        path = ",".join(p for p, n in K8.PATH_LAUNCHES.items()
+                        if n > before[p])
         o2 = K8.flash_attention_plain(q, k, v, **kw)
         o3 = K8.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -1068,7 +1160,8 @@ def k8_phase(dev, card: str, gen) -> dict:
         lib = cuda_ms(sdpa, reps=5, warmup=1)
         b_ms, b_by = k8_bound_ms(bh, n, dd, dtype == torch.bfloat16, causal,
                                  window)
-        print(f"K8 {name} [{bh}, {n}, {dd}]: max err {err:.3e} ({limit}), "
+        print(f"K8 {name} [{bh}, {n}, {dd}], path {path}: max err "
+              f"{err:.3e} ({limit}), "
               f"reruns bit-equal, SDPA max diff {lib_err:.3e}; kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), {k8_pairs(n, causal, window)} pairs "
@@ -1248,26 +1341,37 @@ def attention_phases(dev, card: str) -> tuple[dict, int]:
 
 
 def profile_epoch(model, card: str, app: str = "MFSGD",
-                  what: str = "train_epoch", bare: float | None = None
-                  ) -> None:
+                  what: str = "train_epoch", bare: float | None = None,
+                  count: tuple[dict, str, str] | None = None) -> None:
     """Device busy share of one epoch (``what``: its method), from
     torch.profiler's CUDA kernel times over the epoch's wall (the epoch ends
     in a readback); ``bare``, the wall of an unprofiled epoch, gives a
     second idle share free of the profiler's own host cost."""
-    profile_run(getattr(model, what), card, app, what, bare)
+    profile_run(getattr(model, what), card, app, what, bare, count)
 
 
 def profile_run(fn, card: str, app: str, what: str,
-                bare: float | None = None) -> None:
-    """:func:`profile_epoch` of any call ``fn()`` that ends in a readback."""
+                bare: float | None = None,
+                count: tuple[dict, str, str] | None = None) -> None:
+    """:func:`profile_epoch` of any call ``fn()`` that ends in a readback.
+    ``count`` = (a wrapper's LAUNCHES, its key, its kernel's name): the
+    share is printed only when the trace holds every launch that the count
+    saw, since the profiler can drop device records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    before = count[0][count[1]] if count else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall = time.perf_counter() - t0
+    missed = count and traced_launches(prof, count[2],
+                                       count[0][count[1]] - before, wall)[1]
+    if missed:
+        print(f"{app} profile of one {what}: {missed}; idle share not "
+              "measured")
+        return
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6

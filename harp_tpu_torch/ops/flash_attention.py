@@ -16,7 +16,13 @@ tensors it launches K8 on the current stream or raises.  :data:`LAUNCHES`
 counts the launches.  ``window`` follows the ring/a2a mask contract: the
 last ``window`` keys when causal, ``window - 1`` either side when not.
 ``block_q`` and ``block_k`` set the divisibility contract (and the plain
-version's blocking); the kernel tiles by its own 64 x 64.
+version's blocking); the kernel tiles by its own query and key tiles.
+
+On the card K8 takes one of two paths by dtype and head dim
+(:func:`kernel_path`, which asks the library's own dispatch): bf16 at
+D 64 and 128 ``"wgmma"`` (warpgroup MMA fed by TMA), and f32 or bf16 at
+any other D ``"simt"`` (f32 FMAs on the CUDA cores).  :data:`PATH_LAUNCHES`
+counts the launches of each.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from harp_tpu_torch.ops.a2a_attention import _local_attention
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"flash_attention": 0}
+#: the same launches by the path they took (:func:`kernel_path`)
+PATH_LAUNCHES = {"wgmma": 0, "simt": 0}
+_PATHS = ("simt", "wgmma")
 #: the head dims K8 takes: multiples of 8 up to MAX_D
 MAX_D = 256
 #: the bound on :func:`row_scaled_error` that a bf16 output is held to
@@ -40,6 +49,7 @@ BF16_ROW_TOL = 2.0 ** -6
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_plan": [],
+    "flash_attention_path": [_I, _I],
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
@@ -49,12 +59,22 @@ _PLANNED: set[int] = set()
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+    for name in PATH_LAUNCHES:
+        PATH_LAUNCHES[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
     if "lib" not in _BOUND:
         _BOUND["lib"] = build.bind("flash_attention", _SIGNATURES)
     return _BOUND["lib"]
+
+
+def kernel_path(dtype, d: int) -> str:
+    """The path K8 takes on the card for this dtype and head dim:
+    ``"wgmma"`` or ``"simt"``, from the library's own dispatch (so it
+    builds the library)."""
+    return _PATHS[_lib().flash_attention_path(int(d),
+                                              int(dtype == torch.bfloat16))]
 
 
 def _check_args(q, window, block_q, block_k):
@@ -145,6 +165,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
             torch.cuda.current_stream(dev).cuda_stream),
             "flash_attention_fwd launch")
     LAUNCHES["flash_attention"] += 1
+    PATH_LAUNCHES[kernel_path(q.dtype, d)] += 1
     return o
 
 

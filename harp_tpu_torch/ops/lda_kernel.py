@@ -41,9 +41,10 @@ The tables stay row-major ``[rows, K]`` (the reference's transposes are TPU
 layout devices).  :func:`cgs_step` updates Ndk, the word chunk and ``z`` in
 place (the port's choice: no copy of the tables per step).  The wrappers run
 the plain version only for tensors on the CPU; for CUDA tensors they launch
-K4 or raise.  :data:`LAUNCHES` counts wrapper calls that launched K4 (one
-per rotation step on the model's path; each call issues one CUDA launch per
-chunk it runs).
+K4 or raise.  On the card a step is one cooperative launch that walks every
+chunk of every entry itself, with a grid barrier on each side of each
+chunk's deltas.  :data:`LAUNCHES` counts those launches (one per rotation
+step on the model's path).
 """
 
 from __future__ import annotations
@@ -64,9 +65,11 @@ _VMEM_BUDGET = 14 << 20
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "cgs_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "cgs_step": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
 }
+#: cudaErrorCooperativeLaunchTooLarge: the cc blocks cannot all be resident
+_TOO_LARGE = 720
 _BOUND: list[ctypes.CDLL] = []
 
 
@@ -236,17 +239,35 @@ class EntryPlan:
     """Host facts of one block row's entries that K4 trusts: ``n_chunks``
     (int32 [NE]) is the number of ``cc``-chunks each entry runs, through
     its last real slot (trailing all-pad chunks change nothing and are not
-    launched; an entry without a token runs none)."""
+    run; an entry without a token runs none).  The kernel reads them as
+    :attr:`chunk_offsets`, copied to the card once per device."""
 
     n_chunks: np.ndarray
     cc: int
     d_rows: int  # the tables the offsets were checked against
     w_rows: int
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
 
     @property
-    def launches(self) -> int:
-        """CUDA launches of one :func:`cgs_step` call: one per chunk."""
+    def chunks(self) -> int:
+        """Chunks one :func:`cgs_step` call runs, in order, on the card."""
         return int(self.n_chunks.sum())
+
+    @property
+    def chunk_offsets(self) -> np.ndarray:
+        """int32 [NE + 1]: entry ``e`` runs the step's chunks
+        ``chunk_offsets[e]`` to ``chunk_offsets[e + 1]``."""
+        return np.concatenate([[0], np.cumsum(self.n_chunks, dtype=np.int64)]
+                              ).astype(np.int32)
+
+    def offsets_on(self, device) -> torch.Tensor:
+        """:attr:`chunk_offsets` on ``device``, copied there once."""
+        key = str(device)
+        if key not in self._on_device:
+            self._on_device[key] = torch.from_numpy(self.chunk_offsets).to(
+                device)
+        return self._on_device[key]
 
     @classmethod
     def build(cls, cd, cw, od, ow, d_tile: int, w_tile: int, d_rows: int,
@@ -337,8 +358,9 @@ def cgs_step(Ndk, Nwk, nk, z, cd, cw, od, ow, *, alpha, beta, vbeta, d_tile,
     K]`` or from the kernel's Philox under ``seeds [NE, 2]`` int32.  Entry
     ``e`` samples against ``nk`` plus the deltas of entries ``< e``.
     ``plan`` from :meth:`EntryPlan.build` on the same entries (built here,
-    with a readback, when None).  On CUDA one ``ctypes`` call issues one
-    launch per chunk, in order, on the current stream."""
+    with a readback, when None).  On CUDA this is one cooperative launch on
+    the current stream, which runs the plan's chunks in order; it raises if
+    the card cannot hold all ``cc`` blocks at once."""
     _check_step_args(Ndk, Nwk, nk, z, cd, cw, od, ow, u, seeds)
     kw = dict(alpha=alpha, beta=beta, vbeta=vbeta, d_tile=d_tile,
               w_tile=w_tile, cc=cc, exact_gathers=exact_gathers)
@@ -359,21 +381,24 @@ def cgs_step(Ndk, Nwk, nk, z, cd, cw, od, ow, *, alpha, beta, vbeta, d_tile,
     NE, C = cd.shape
     K = Ndk.shape[1]
     lib = _lib()
-    n_chunks = np.ascontiguousarray(plan.n_chunks, np.int32)
     with torch.cuda.device(dev):
+        offsets = plan.offsets_on(dev)
         nk_run = nk.clone()
-        z_new = torch.empty(cc, dtype=torch.int32, device=dev)
-        done = torch.zeros(1, dtype=torch.int32, device=dev)
-        build.check(lib.cgs_step(
+        bar = torch.zeros(1, dtype=torch.int64, device=dev)
+        err = lib.cgs_step(
             Ndk.data_ptr(), int(Ndk.dtype == torch.int16), Nwk.data_ptr(),
             nk_run.data_ptr(), z.data_ptr(), cd.data_ptr(), cw.data_ptr(),
             od.data_ptr(), ow.data_ptr(),
             u.data_ptr() if u is not None else None,
             seeds.data_ptr() if seeds is not None else None,
-            n_chunks.ctypes.data, z_new.data_ptr(), done.data_ptr(),
-            NE, C, K, cc, d_tile, w_tile, float(alpha), float(beta),
-            float(vbeta), int(bool(exact_gathers)),
-            torch.cuda.current_stream(dev).cuda_stream), "cgs_step launch")
+            offsets.data_ptr(), bar.data_ptr(), NE, C, K, cc, d_tile, w_tile,
+            float(alpha), float(beta), float(vbeta),
+            int(bool(exact_gathers)),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err == _TOO_LARGE:
+            raise RuntimeError(f"cgs_step: the card cannot hold cc={cc} "
+                               "blocks at once for one cooperative launch")
+        build.check(err, "cgs_step launch")
     LAUNCHES["cgs_entry_update"] += 1
     return nk_run - nk
 

@@ -249,6 +249,52 @@ def test_k4_entry_wrapper_and_reruns(dev):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("cc", [128, 256])
+@pytest.mark.parametrize("arm", ["injected", "philox"])
+def test_k4_many_chunks_per_entry_in_one_launch(dev, cc, arm):
+    """C = 2048: 8 or 16 chunks an entry, across five entries (one of them
+    cut short by trailing pads, one without a token), int16 doc counts:
+    the one cooperative launch walks them all and equals the plain version
+    bit for bit."""
+    Ndk, Nwk, nk, z, cd, cw, od, ow = _k4_step(dev, 100, torch.int16, NE=5,
+                                               C=2048, seed=cc)
+    cd[1, :1000], cd[1, 1000:] = cd[0, :1000], 32
+    NE, C = cd.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(cc)
+    drawn = ({"u": torch.rand((NE, C, 100), generator=g, device=dev)
+              .clamp_min(2.0 ** -25)} if arm == "injected" else
+             {"seeds": torch.randint(-2 ** 31, 2 ** 31 - 1, (NE, 2),
+                                     dtype=torch.int32, generator=g,
+                                     device=dev)})
+    kw = dict(alpha=0.1, beta=0.01, vbeta=0.5, d_tile=32, w_tile=32, cc=cc,
+              **drawn)
+    plan = K4.EntryPlan.build(cd, cw, od, ow, 32, 32, Ndk.shape[0],
+                              Nwk.shape[0], cc)
+    assert plan.chunks == 3 * (C // cc) + -(-1000 // cc)
+    a = [t.clone() for t in (Ndk, Nwk, z)]
+    b = [t.clone() for t in (Ndk, Nwk, z)]
+    before = K4.LAUNCHES["cgs_entry_update"]
+    d1 = K4.cgs_step(a[0], a[1], nk, a[2], cd, cw, od, ow, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["cgs_entry_update"] == before + 1
+    d2 = K4.cgs_step_plain(b[0], b[1], nk, b[2], cd, cw, od, ow, **kw)
+    for x, y in zip(a + [d1], b + [d2]):
+        assert torch.equal(x, y)
+    assert int((a[2] != z).sum()) > C  # many topics moved
+
+
+def test_k4_refuses_a_grid_the_card_cannot_hold(dev):
+    """cc blocks must all be resident for the step's grid barriers: a chunk
+    of 8192 slots cannot be, and the wrapper raises (no other path)."""
+    Ndk, Nwk, nk, z, cd, cw, od, ow = _k4_step(dev, 8, torch.float32, NE=3,
+                                               C=8192)
+    seeds = torch.zeros((3, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="cannot hold"):
+        K4.cgs_step(Ndk, Nwk, nk, z, cd, cw, od, ow, alpha=0.1, beta=0.01,
+                    vbeta=0.5, d_tile=32, w_tile=32, cc=8192, seeds=seeds)
+
+
 def test_lda_pallas_launches_k4_once_per_rotation_step(dev):
     d, w = LD.synthetic_corpus(96, 64, 4, 50, seed=0)
     cfg = LD.LDAConfig(n_topics=8, algo="pallas", d_tile=16, w_tile=16,
@@ -477,6 +523,53 @@ def test_k8_matches_plain(dev, causal, window, n, d, dtype):
     else:
         assert K8.row_scaled_error(o1, o2) <= K8.BF16_ROW_TOL
     assert torch.equal(o1, o3)
+
+
+# the redesigned paths (wgmma for bf16, the register-tiled SIMT kernel for
+# f32) at ragged N, N under one 128-query tile, and windows smaller and
+# larger than a 64-key tile
+K8_NEW_MASKS = [(True, None), (True, 40), (True, 300), (False, None),
+                (False, 300)]
+
+
+@pytest.mark.parametrize("causal,window", K8_NEW_MASKS)
+@pytest.mark.parametrize("n", [100, 1000, 4099])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_new_paths_match_plain_at_ragged_n(dev, causal, window, n, d,
+                                              dtype):
+    q, k, v = _k8_inputs(2, n, d, dtype, dev, seed=n + d)
+    kw = {"causal": causal, "window": window, "block_q": n, "block_k": n}
+    path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = K8.PATH_LAUNCHES[path]
+    o1 = K8.flash_attention(q, k, v, **kw)
+    o3 = K8.flash_attention(q, k, v, **kw)
+    o2 = K8.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K8.PATH_LAUNCHES[path] == before + 2
+    assert o1.dtype == dtype and o1.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(o1, o2, rtol=2e-4, atol=2e-5)
+    else:
+        assert K8.row_scaled_error(o1, o2) <= K8.BF16_ROW_TOL
+    assert torch.equal(o1, o3)
+
+
+def test_k8_paths_by_dtype_and_head_dim(dev):
+    """bf16 at D 64 and 128 runs wgmma, and f32 or bf16 at any other D the
+    SIMT kernel; a launch counts on its own path only."""
+    expect = {(torch.bfloat16, 128): "wgmma", (torch.bfloat16, 64): "wgmma",
+              (torch.bfloat16, 32): "simt",
+              (torch.bfloat16, 16): "simt", (torch.bfloat16, 24): "simt",
+              (torch.float32, 128): "simt", (torch.float32, 64): "simt"}
+    for (dtype, d), path in expect.items():
+        assert K8.kernel_path(dtype, d) == path
+        q, k, v = _k8_inputs(1, 128, d, dtype, dev)
+        before = dict(K8.PATH_LAUNCHES)
+        K8.flash_attention(q, k, v, causal=True)
+        after = dict(K8.PATH_LAUNCHES)
+        assert {p: after[p] - before[p] for p in after} == {
+            p: int(p == path) for p in after}
 
 
 def test_k8_matches_dense_attention_at_d256(dev):

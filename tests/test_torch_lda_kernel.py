@@ -251,7 +251,43 @@ def test_step_walks_entries_in_order_against_running_totals():
     assert torch.equal(z1, z) and torch.equal(dNk, nk_run - nk)
     plan = K.EntryPlan.build(cd, cw, od, ow, DR, WR, 48, 32, 128)
     assert plan.n_chunks.tolist() == [4, 2, 4, 0, 4]
-    assert plan.launches == 14
+    assert plan.chunks == 14
+
+
+@pytest.mark.parametrize("n_chunks", [[4, 2, 4, 0, 4], [0], [0, 0, 3],
+                                      [16] * 7 + [0, 1]])
+def test_chunk_offsets_are_the_prefix_sums_of_n_chunks(n_chunks):
+    """The schedule the kernel walks on the card: entry e runs chunks
+    offsets[e] to offsets[e + 1], one after another, every entry in
+    order, and nothing else."""
+    plan = K.EntryPlan(np.asarray(n_chunks, np.int32), 128, 64, 64)
+    off = plan.chunk_offsets
+    assert off.dtype == np.int32 and off.shape == (len(n_chunks) + 1,)
+    assert off[0] == 0 and off[-1] == plan.chunks == sum(n_chunks)
+    assert np.diff(off).tolist() == n_chunks
+    walked = [(e, j) for e in range(len(n_chunks))
+              for j in range(off[e + 1] - off[e])]
+    assert walked == [(e, j) for e, n in enumerate(n_chunks)
+                      for j in range(n)]
+    dev = plan.offsets_on(torch.device("cpu"))
+    assert dev.dtype == torch.int32 and dev.tolist() == off.tolist()
+    assert plan.offsets_on(torch.device("cpu")) is dev  # copied once
+
+
+def test_entry_plan_offsets_count_chunks_through_the_last_real_slot():
+    """Built from entries: an entry's chunks end at its last real slot,
+    whatever pads sit between real slots; the offsets follow."""
+    C, cc, DR = 512, 128, 8
+    cd = np.full((4, C), DR, np.int32)
+    cd[0, 0] = 0                 # one chunk
+    cd[1, 300] = 1               # pads before it: chunks 0-2
+    cd[2, C - 1] = 2             # the last slot: all four
+    zero = np.zeros(4, np.int32)
+    plan = K.EntryPlan.build(cd, np.zeros_like(cd), zero, zero, DR, 8, DR,
+                             8, cc)
+    assert plan.n_chunks.tolist() == [1, 3, 4, 0]
+    assert plan.chunk_offsets.tolist() == [0, 1, 4, 8, 8]
+    assert plan.chunks == 8
 
 
 def test_entry_plan_refuses_what_the_kernel_trusts():
