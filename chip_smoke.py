@@ -26,7 +26,11 @@ fatal when it fails (exit code != 0 and no result line):
    MovieLens-20M width (138,493 x 26,744, 20M ratings, rank 64, one worker,
    two H chunks, 256 x 256 tiles), compute dtype bf16 and f32: W and H
    within rtol 1e-4 / atol 1e-5 and se within rtol 1e-5 (the gradient sums
-   are added in another f32 order), cnt equal;
+   are added in another f32 order), cnt equal; the CUDA launches of one
+   call (counted in a captured CUDA graph), the entry count, the critical
+   path and the microseconds a critical-path entry; then a deep chain (593
+   entries on one tile pair) and a wide step (two levels of 2000 entries)
+   against the plain version, with microseconds an entry (k3_phase);
 7. models.mfsgd.MFSGD at that width with algo="pallas": train_epoch, then
    train_epochs(3), K3 launched once per rotation step (2 per epoch),
    finite RMSEs falling below the first epoch's, and the card agreeing with
@@ -56,7 +60,8 @@ fatal when it fails (exit code != 0 and no result line):
 15. K5 (pegasos_grad) against its plain version at 500,256 x 128 (500k
    rows + 256 support-vector rows), f32 and bf16 x: gs equal (0/1 weights,
    +-1 labels: small integers), gw within 1e-5 * sum_i sw_i |x_i| (f32
-   summation order), reruns bit-equal;
+   summation order), reruns bit-equal, and the CUDA launches of one call
+   (counted in a captured CUDA graph) (k5_phase);
 16. models.svm at 500k x 128 with algo="pallas": SVM.fit with K5 launched
    1000 times (200 steps x 5 rounds), train_acc on the first 50k rows above
    SVM_ACC_FLOOR, the card and the CPU agreeing on a small input for both
@@ -111,9 +116,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -238,17 +246,91 @@ def k3_bound_ms(work, u_bound, h_rows, rank) -> tuple[float, str]:
     return bound_ms(nbytes, ops, "f32")
 
 
-def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
-    """Phases 6-8; returns K3's row of the kernels line and its launches on
-    the MF-SGD main path."""
+def kernel_launches(fn) -> int:
+    """The kernels of our own sources that one call of ``fn`` launches,
+    counted from the CUDA graph that a second call captures on a side
+    stream (torch.profiler can drop device records): graph nodes whose
+    kernel name is not one of PyTorch's.  The first call runs on that
+    stream, so that nothing is planned or created during the capture."""
+    import torch
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)  # kept for debug_dump
+    with torch.cuda.graph(g, stream=side):
+        fn()
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # debug_dump warns that it dumps
+        path = os.path.join(d, "graph.dot")
+        g.debug_dump(path)
+        with open(path) as f:
+            nodes = re.split(r'(?="graph_\d+_node_\d+"\s*\[)', f.read())[1:]
+    return sum("kernel" in n and "at6native" not in n
+               and "at::native" not in n for n in nodes)
+
+
+def k3_entries(dev, pairs, n_real: int, tile: int, C: int, seed: int):
+    """Entries made by hand on the tile pairs ``pairs`` ([(tu, ti)], in
+    entry order), each with ``n_real`` ratings uniform in its tile then
+    pads, and f32 factors covering the tiles: ``(W, H, [eu, ei, ev, ou,
+    oi])`` on the card."""
     import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ne = len(pairs)
+    tu, ti = (np.array(p, np.int32) for p in zip(*pairs))
+    eu = np.full((ne, C), tile, np.int32)
+    ei = np.full((ne, C), tile, np.int32)
+    ev = np.zeros((ne, C), np.float32)
+    eu[:, :n_real] = rng.integers(0, tile, (ne, n_real))
+    ei[:, :n_real] = rng.integers(0, tile, (ne, n_real))
+    ev[:, :n_real] = rng.normal(size=(ne, n_real))
+    scale = 1.0 / ML_RANK ** 0.5
+    W = rng.uniform(0, scale, ((tu.max() + 1) * tile, ML_RANK))
+    H = rng.uniform(0, scale, ((ti.max() + 1) * tile, ML_RANK))
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (T(W.astype(np.float32)), T(H.astype(np.float32)),
+            [T(a) for a in (eu, ei, ev, tu * tile, ti * tile)])
+
+
+def k3_check(K3, W, H, ent, kw, what: str) -> float:
+    """K3 against its plain version on one call: W and H within rtol 1e-4
+    / atol 1e-5, se within rtol 1e-5, cnt equal; the largest factor
+    error."""
+    import torch
+
+    W1, H1, se1, c1 = K3.sgd_tile_update(W, H, *ent, **kw)
+    W2, H2, se2, c2 = K3.sgd_tile_update_plain(W, H, *ent, **kw)
+    torch.cuda.synchronize()
+    werr = float((W1 - W2).abs().max())
+    herr = float((H1 - H2).abs().max())
+    serr = abs(float(se1) - float(se2)) / float(se2)
+    ok_w = bool(((W1 - W2).abs() <= 1e-5 + 1e-4 * W2.abs()).all())
+    ok_h = bool(((H1 - H2).abs() <= 1e-5 + 1e-4 * H2.abs()).all())
+    real = float((ent[0] < kw["u_tile"]).sum())
+    if not (ok_w and ok_h and serr <= 1e-5
+            and float(c1) == float(c2) == real):
+        fail(f"K3 {what} disagrees with its plain version: W err {werr}, "
+             f"H err {herr}, se rel err {serr}, cnt {float(c1)} vs "
+             f"{float(c2)}")
+    if torch.equal(W1, W):
+        fail(f"K3 {what} left W unchanged")
+    return max(werr, herr)
+
+
+def k3_phase(dev, card: str) -> dict:
+    """Phase 6: K3 against its plain version for one rotation step at
+    MovieLens-20M width, and on a deep chain and a wide step; returns K3's
+    row of the kernels line."""
     import torch
 
     from harp_tpu_torch.models import mfsgd as MF
     from harp_tpu_torch.ops import mfsgd_kernel as K3
     from harp_tpu_torch.utils.timing import cuda_ms
 
-    # -- 6. K3 against its plain version, one rotation step ------------------
     t0 = time.perf_counter()
     u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
     ut = it = 256
@@ -259,11 +341,12 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
     ent = [torch.from_numpy(a[0].copy()).to(dev) for a in (eu, ei, ev, ou, oi)]
     work = k3_work(eu[0], ei[0], ut, it)
     ne, c = eu.shape[1:]
+    n_sched, path = sched.order.numel(), sched.n_levels
     print(f"K3 prep: {time.perf_counter() - t0:.1f} s; one step: {ne} "
-          f"entries x {c} slots, {work['ratings']} ratings, {work['rows']} "
-          f"distinct tile rows over the entries, W [{ub}, {ML_RANK}], H "
-          f"chunk [{ibc}, {ML_RANK}], {sched.n_levels} levels, at most "
-          f"{sched.max_width} entries wide")
+          f"entries x {c} slots ({n_sched} with a rating), {work['ratings']} "
+          f"ratings, {work['rows']} distinct tile rows over the entries, W "
+          f"[{ub}, {ML_RANK}], H chunk [{ibc}, {ML_RANK}]; critical path "
+          f"{path} entries, at most {sched.max_width} entries a level")
     del u, i, v, eu, ei, ev, ou, oi
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -274,36 +357,62 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
     for cd in (torch.bfloat16, torch.float32):
         kw = dict(lr=0.01, reg=0.05, u_tile=ut, i_tile=it, compute_dtype=cd,
                   schedule=sched)
-        W1, H1, se1, c1 = K3.sgd_tile_update(W, H, *ent, **kw)
-        W2, H2, se2, c2 = K3.sgd_tile_update_plain(W, H, *ent, **kw)
-        torch.cuda.synchronize()
-        werr = float((W1 - W2).abs().max())
-        herr = float((H1 - H2).abs().max())
-        serr = abs(float(se1) - float(se2)) / float(se2)
-        ok_w = bool(((W1 - W2).abs() <= 1e-5 + 1e-4 * W2.abs()).all())
-        ok_h = bool(((H1 - H2).abs() <= 1e-5 + 1e-4 * H2.abs()).all())
-        if not (ok_w and ok_h and serr <= 1e-5
-                and float(c1) == float(c2) == work["ratings"]):
-            fail(f"K3 {cd} disagrees with its plain version: W err {werr}, "
-                 f"H err {herr}, se rel err {serr}, cnt {float(c1)} vs "
-                 f"{float(c2)}")
-        if torch.equal(W1, W):
-            fail("K3 left W unchanged")
+        err = k3_check(K3, W, H, ent, kw, str(cd))
         ms = cuda_ms(lambda: K3.sgd_tile_update(W, H, *ent, **kw), reps=10,
                      warmup=1)
         plain = cuda_ms(lambda: K3.sgd_tile_update_plain(W, H, *ent, **kw),
                         reps=2, warmup=1)
+        n_cuda = kernel_launches(
+            lambda: K3.sgd_tile_update(W, H, *ent, **kw))
         b_ms, b_by = k3_bound_ms(work, ub, ibc, ML_RANK)
-        print(f"K3 {str(cd).removeprefix('torch.')}: W err {werr:.3e}, H err "
-              f"{herr:.3e}, se rel err {serr:.2e}, cnt {int(c1)} equal; "
-              f"kernel {ms:.4f} ms/call ({sched.n_levels} CUDA launches a "
-              f"call), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
-              f"[{card}]")
+        print(f"K3 {str(cd).removeprefix('torch.')}: within tolerance of the "
+              f"plain version (max factor err {err:.3e}), cnt "
+              f"{work['ratings']} equal; kernel {ms:.4f} ms/call ({n_cuda} "
+              f"CUDA launch(es) a call, counted in a CUDA graph; "
+              f"{n_sched} entries, critical path {path} entries, "
+              f"{ms * 1e3 / path:.3f} us a critical-path entry), plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
         if cd == torch.bfloat16:  # the main path's compute dtype
-            row = {"max_abs_err": max(werr, herr), "ms": ms,
-                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
-        del W1, H1, W2, H2
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by}
     del ent, W, H
+
+    # a deep chain (every entry on one tile pair: width 1) and a wide step
+    # (two levels of 2000 ready entries, more than the grid has clusters),
+    # 349 ratings an entry as at MovieLens-20M width
+    n_real, C = work["ratings"] // n_sched, c
+    for arm, pairs in (("deep chain", [(0, 0)] * path),
+                       ("wide step", [(k, k) for k in range(2000)]
+                        + [(k, (k + 1) % 2000) for k in range(2000)])):
+        W, H, ent = k3_entries(dev, pairs, n_real, ut, C, seed=len(pairs))
+        kw = dict(lr=0.01, reg=0.05, u_tile=ut, i_tile=it,
+                  compute_dtype=torch.bfloat16)
+        kw["schedule"] = K3.LevelSchedule.build(
+            *ent[:2], *ent[3:], ut, it, W.shape[0], H.shape[0], dev)
+        err = k3_check(K3, W, H, ent, kw, arm)
+        ms = cuda_ms(lambda: K3.sgd_tile_update(W, H, *ent, **kw), reps=5,
+                     warmup=1)
+        s = kw["schedule"]
+        print(f"K3 {arm}, bf16: {len(pairs)} entries of {n_real} ratings, "
+              f"critical path {s.n_levels}, at most {s.max_width} a level: "
+              f"within tolerance (max factor err {err:.3e}); kernel "
+              f"{ms:.4f} ms/call, {ms * 1e3 / len(pairs):.3f} us an entry "
+              f"[{card}]")
+        del W, H, ent
+    return row
+
+
+def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 6-8; returns K3's row of the kernels line and its launches on
+    the MF-SGD main path."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.ops import mfsgd_kernel as K3
+
+    # -- 6. K3 against its plain version ----------------------------------------
+    row = k3_phase(dev, card)
 
     # -- 7. MF-SGD through the public entry -----------------------------------
     cfg = MF.MFSGDConfig(rank=ML_RANK, algo="pallas")
@@ -709,17 +818,14 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     return row, launches
 
 
-def svm_phases(dev, card: str) -> tuple[dict, int]:
-    """Phases 15-16; returns K5's row of the kernels line and its launches
-    on the SVM main path (one SVM.fit)."""
-    import numpy as np
+def k5_phase(dev, card: str) -> dict:
+    """Phase 15: K5 against its plain version at 500,256 x 128, f32 and
+    bf16 x; returns K5's row of the kernels line (f32, the main path's)."""
     import torch
 
-    from harp_tpu_torch.models import svm as SV
     from harp_tpu_torch.ops import svm_kernel as K5
     from harp_tpu_torch.utils.timing import cuda_ms
 
-    # -- 15. K5 against its plain version ----------------------------------
     n, d = SVM_N + SVM_K, SVM_D  # a round's rows: the shard + the SV rows
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -745,7 +851,7 @@ def svm_phases(dev, card: str) -> tuple[dict, int]:
     if not (bool(torch.equal(w_off.to(torch.bfloat16).float(), w))
             and int((w_off != w).sum()) > d // 2):
         fail("K5 bf16: the off-grid w does not round back to the grid")
-    row = None
+    row, done = None, []
     for xdt in (torch.float32, torch.bfloat16):
         x = x32.to(xdt)
         args = (w if xdt == torch.float32 else w_off, b, x, y, sw)
@@ -767,16 +873,34 @@ def svm_phases(dev, card: str) -> tuple[dict, int]:
         # x once, y and sw, w and b in; gw and gs out; 4 f32 op a element
         nbytes = n * d * x.element_size() + 8 * n + 8 * d + 8
         b_ms, b_by = bound_ms(nbytes, 4.0 * n * d, "f32")
-        name = str(xdt).removeprefix("torch.")
-        print(f"K5 {name} at {n} x {d}: gs {float(gs1):.0f} equal, gw max "
-              f"err {err:.3e} (tol >= {float(tol.min()):.3e}), reruns "
-              f"bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) [{card}]")
+        done.append((xdt, args, float(gs1), err, float(tol.min()), ms, plain,
+                     b_ms, b_by))
         if xdt == torch.float32:  # the main path's x
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "bound_ms": b_ms, "bound_by": b_by}
-        del x, gw1, gw2, gw3
-    del x32
+        del gw1, gw2, gw3
+    # the launches of one call, traced after both arms are timed
+    for xdt, args, gs, err, tol, ms, plain, b_ms, b_by in done:
+        n_cuda = kernel_launches(lambda: K5.pegasos_grad(*args))
+        print(f"K5 {str(xdt).removeprefix('torch.')} at {n} x {d}: gs "
+              f"{gs:.0f} equal, gw max err {err:.3e} (tol >= {tol:.3e}), "
+              f"reruns bit-equal; kernel {ms:.4f} ms ({n_cuda} CUDA "
+              f"launch(es) a call, counted in a CUDA graph), plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    del x32, done
+    return row
+
+
+def svm_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 15-16; returns K5's row of the kernels line and its launches
+    on the SVM main path (one SVM.fit)."""
+    import numpy as np
+
+    from harp_tpu_torch.models import svm as SV
+    from harp_tpu_torch.ops import svm_kernel as K5
+
+    # -- 15. K5 against its plain version ----------------------------------
+    row = k5_phase(dev, card)
 
     # -- 16. SVM through the public entry ----------------------------------
     x, yh = SV.synthetic_data(SVM_N, SVM_D, seed=0)
@@ -795,7 +919,7 @@ def svm_phases(dev, card: str) -> tuple[dict, int]:
           f"train_acc {acc:.4f} on 50k rows (floor {SVM_ACC_FLOOR}), K5 "
           f"launches {launches} [{card}]")
     profile_run(lambda: model.fit(x, yh), card, "SVM", "fit",
-                count=(K5.LAUNCHES, "pegasos_grad", "grad_kernel"))
+                count=(K5.LAUNCHES, "pegasos_grad", "rows_kernel"))
     xs, ys = SV.synthetic_data(2000, 16, seed=3)
     for algo in ("xla", "pallas"):
         for wire in ("exact", "bf16", "int8"):

@@ -10,8 +10,8 @@ once an epoch.  Harp's Hogwild threads become deterministic mini-batched
 SGD, as in the reference.  Three update algos (``MFSGDConfig.algo``):
 
 - ``"pallas"`` (the config's default): kernel K3
-  (:func:`harp_tpu_torch.ops.mfsgd_kernel.sgd_tile_update`), one launch
-  sequence per rotation step, over the dense tile entries of
+  (:func:`harp_tpu_torch.ops.mfsgd_kernel.sgd_tile_update`), one CUDA
+  launch per rotation step, over the dense tile entries of
   :func:`partition_ratings_tiles`;
 - ``"dense"``: the same entries through K3's plain version (row gathers
   and ``index_add_`` in place of the reference's one-hot matmuls, with the

@@ -9,12 +9,12 @@ head note gives its bound and design.  :func:`pegasos_grad_plain` is its
 plain PyTorch version.
 
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches K5 on the current stream or raises.  :data:`LAUNCHES`
-counts the launches.  ``x`` stays row-major [n, d] and unpadded: the
-transposed, 128-lane-padded layout of the TPU kernel is Mosaic's need, not
-the card's.  Two arms, as in the reference: f32 ``x``, and bf16 ``x``, for
-which ``w`` is rounded to bf16 before the margin dot and ``coef`` before
-the gradient dot, with f32 accumulation.
+tensors it launches K5 on the current stream (one CUDA launch a call) or
+raises.  :data:`LAUNCHES` counts the launches.  ``x`` stays row-major [n,
+d] and unpadded: the transposed, 128-lane-padded layout of the TPU kernel
+is Mosaic's need, not the card's.  Two arms, as in the reference: f32
+``x``, and bf16 ``x``, for which ``w`` is rounded to bf16 before the
+margin dot and ``coef`` before the gradient dot, with f32 accumulation.
 """
 
 from __future__ import annotations
@@ -29,14 +29,18 @@ from harp_tpu_torch.ops import build
 LAUNCHES = {"pegasos_grad": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PI = ctypes.POINTER(_I)
 _SIGNATURES = {
-    "svm_pegasos_grad_plan": [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    "svm_pegasos_grad": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I,
-                         _I, _P],
+    "svm_pegasos_grad_plan": [_I, _I, _I, _I, _PI, _PI, _PI],
+    "svm_pegasos_grad": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                         _P, _P, _P, _P, _P],
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
-#: per (n, d, card index): K5's (grid, w and accumulator in shared memory)
-_PLANS: dict[tuple, tuple[int, int]] = {}
+#: per (n, d, card index), per (bf16, vec): K5's (grid, arm, lanes a row)
+_PLANS: dict[tuple, dict[tuple[int, int], tuple[int, int, int]]] = {}
+#: per (card index, stream): the blocks' ticket counter, which every call
+#: leaves at zero
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -49,19 +53,19 @@ def _lib() -> ctypes.CDLL:
     return _BOUND["lib"]
 
 
-def _plan(lib: ctypes.CDLL, n: int, d: int,
-          dev: torch.device) -> tuple[int, int]:
-    """K5's launch plan for (n, d) on this card, asked once (a fit launches
-    1000 times at one shape); the ask also sets its shared-memory limit."""
-    key = (n, d, dev.index if dev.index is not None
-           else torch.cuda.current_device())
-    if key not in _PLANS:
-        grid, in_smem = _I(), _I()
-        build.check(lib.svm_pegasos_grad_plan(n, d, ctypes.byref(grid),
-                                              ctypes.byref(in_smem)),
-                    "svm_pegasos_grad_plan")
-        _PLANS[key] = (grid.value, in_smem.value)
-    return _PLANS[key]
+def _plan(lib: ctypes.CDLL, n: int, d: int, bf16: int, vec: int,
+          idx: int) -> tuple[int, int, int]:
+    """K5's launch plan for this shape and layout on card ``idx``, asked
+    once (a fit launches 1000 times at one shape); the ask also sets the
+    arm's shared-memory limit."""
+    plans = _PLANS.setdefault((n, d, idx), {})
+    if (bf16, vec) not in plans:
+        grid, arm, lanes = _I(), _I(), _I()
+        build.check(lib.svm_pegasos_grad_plan(
+            n, d, bf16, vec, ctypes.byref(grid), ctypes.byref(arm),
+            ctypes.byref(lanes)), "svm_pegasos_grad_plan")
+        plans[bf16, vec] = (grid.value, arm.value, lanes.value)
+    return plans[bf16, vec]
 
 
 def pegasos_grad_plain(w, b, x, y, sw):
@@ -94,18 +98,23 @@ def pegasos_grad(w, b, x, y, sw):
     if dev.type != "cuda":
         raise ValueError(f"pegasos_grad runs on cuda or cpu, not {dev}")
     lib = _lib()
+    bf16 = int(x.dtype == torch.bfloat16)
+    vec = int(x.data_ptr() % 16 == 0 and (d * x.element_size()) % 16 == 0)
     with torch.cuda.device(dev):
-        grid, in_smem = _plan(lib, n, d, dev)
+        idx = torch.cuda.current_device()
+        stream = torch.cuda.current_stream(dev)
+        grid, arm, lanes = _plan(lib, n, d, bf16, vec, idx)
+        key = (idx, stream.cuda_stream)
+        if key not in _COUNTERS:
+            _COUNTERS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
         gw_part = torch.empty((grid, d), dtype=torch.float32, device=dev)
         gs_part = torch.empty((grid,), dtype=torch.float32, device=dev)
         gw = torch.empty((d,), dtype=torch.float32, device=dev)
         gs = torch.empty((), dtype=torch.float32, device=dev)
         build.check(lib.svm_pegasos_grad(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-            b.data_ptr(), y.data_ptr(), sw.data_ptr(), n, d,
-            gw_part.data_ptr(), gs_part.data_ptr(), gw.data_ptr(),
-            gs.data_ptr(), grid, in_smem,
-            torch.cuda.current_stream(dev).cuda_stream),
-            "svm_pegasos_grad launch")
+            x.data_ptr(), bf16, w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            sw.data_ptr(), n, d, vec, grid, arm, lanes, gw_part.data_ptr(),
+            gs_part.data_ptr(), _COUNTERS[key].data_ptr(), gw.data_ptr(),
+            gs.data_ptr(), stream.cuda_stream), "svm_pegasos_grad launch")
     LAUNCHES["pegasos_grad"] += 1
     return gw, gs

@@ -9,6 +9,11 @@ fixture decides, never the import).  On the card, from the repo root:
 machine does not have; this file imports only torch and the port.)
 """
 
+import os
+import re
+import tempfile
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -143,8 +148,9 @@ def test_k3_matches_plain(dev, rank, tile, cap, dtype):
     torch.cuda.synchronize()
     assert K3.LAUNCHES["sgd_tile_update"] == before + 1
     W2, H2, se2, c2 = K3.sgd_tile_update_plain(W, H, *ent, **kw)
-    # the gradient sums are added in another f32 order (shared-memory
-    # atomics): the reference's tolerance for dense vs pallas
+    # the gradient sums are added in another f32 order (the plain
+    # version's index_add_ is unordered): the reference's tolerance for
+    # dense vs pallas
     torch.testing.assert_close(W1, W2, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(H1, H2, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(se1, se2, rtol=1e-5, atol=0)
@@ -153,10 +159,120 @@ def test_k3_matches_plain(dev, rank, tile, cap, dtype):
 
 
 def test_k3_refuses_accumulators_beyond_shared_memory(dev):
-    W, H, ent = _k3_entries(512, 16, 64, dev)  # 2 x 128 KB of accumulators
+    """The accumulators are split over a cluster's blocks: tiles of 512 x
+    cluster rows need 2 x 128 KB a block at rank 64, past any block's
+    shared memory."""
+    tile = 512 * K3.CLUSTER
+    W, H, ent = _k3_entries(tile, 16, 64, dev)
     with pytest.raises(ValueError, match="shared memory"):
-        K3.sgd_tile_update(W, H, *ent, lr=0.1, reg=0.0, u_tile=512,
-                           i_tile=512)
+        K3.sgd_tile_update(W, H, *ent, lr=0.1, reg=0.0, u_tile=tile,
+                           i_tile=tile)
+
+
+def _graph_nodes(fn):
+    """The nodes (their DOT text) of the CUDA graph that one call of ``fn``
+    captures on a side stream: the CUDA launches the call makes, counted
+    without torch.profiler, which can drop device records.  ``fn`` must
+    have run once on that stream first (``_side``), so that nothing is
+    planned or created while the graph is captured."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)  # kept for debug_dump
+    with torch.cuda.graph(g, stream=_side()):
+        fn()
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # debug_dump warns that it dumps
+        path = os.path.join(d, "graph.dot")
+        g.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    nodes = re.split(r'(?="graph_\d+_node_\d+"\s*\[)', text)[1:]
+    assert nodes, text[:2000]
+    return nodes
+
+
+_SIDE = []
+
+
+def _side():
+    """One side stream for the graph captures (and their warm-up calls)."""
+    if not _SIDE:
+        _SIDE.append(torch.cuda.Stream())
+    return _SIDE[0]
+
+
+def _k3_chain_entries(dev, rank, shape, seed=0):
+    """Entries built by hand.  ``deep``: 40 entries on one tile pair (8 x
+    8 tiles, C = 32, some entries cut short by pads), a chain of width 1.
+    ``wide``: 300 entries on the diagonal tile pairs (k, k), then 300 on
+    (k, k + 1): two levels of 300 ready entries, more than the grid has
+    clusters."""
+    rng = np.random.default_rng(seed)
+    tile, C = 8, 32
+    if shape == "deep":
+        NE, nt = 40, 1
+        ou = oi = np.zeros(NE, np.int32)
+    else:
+        NE, nt = 600, 300
+        k = np.arange(nt)
+        ou = np.concatenate([k, k]).astype(np.int32) * tile
+        oi = np.concatenate([k, (k + 1) % nt]).astype(np.int32) * tile
+    eu = rng.integers(0, tile, (NE, C)).astype(np.int32)
+    ei = rng.integers(0, tile, (NE, C)).astype(np.int32)
+    ev = rng.normal(size=(NE, C)).astype(np.float32)
+    cut = rng.integers(1, C + 1, NE)
+    pad = np.arange(C)[None, :] >= cut[:, None]
+    eu[pad], ei[pad], ev[pad] = tile, tile, 0.0
+    W = rng.uniform(0, 0.25, (nt * tile, rank)).astype(np.float32)
+    H = rng.uniform(0, 0.25, (nt * tile, rank)).astype(np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return T(W), T(H), [T(a) for a in (eu, ei, ev, ou, oi)], tile
+
+
+@pytest.mark.parametrize("shape", ["deep", "wide"])
+@pytest.mark.parametrize("rank", [13, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_dataflow_order_matches_plain(dev, shape, rank, dtype):
+    """A chain of width 1 (every entry waits for the one before) and a
+    step wider than the grid, rank 13 (4-byte chunks) and 64 (128-bit
+    chunks): one CUDA launch a call, the plain version's results."""
+    W, H, ent, tile = _k3_chain_entries(dev, rank, shape)
+    kw = dict(lr=0.05, reg=0.02, u_tile=tile, i_tile=tile,
+              compute_dtype=dtype)
+    sched = K3.LevelSchedule.build(*ent[:2], *ent[3:], tile, tile,
+                                   W.shape[0], H.shape[0], dev)
+    assert (sched.n_levels, sched.max_width) == (
+        (40, 1) if shape == "deep" else (2, 300))
+    before = K3.LAUNCHES["sgd_tile_update"]
+    W1, H1, se1, c1 = K3.sgd_tile_update(W, H, *ent, schedule=sched, **kw)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES["sgd_tile_update"] == before + 1
+    with torch.cuda.stream(_side()):
+        K3.sgd_tile_update(W, H, *ent, schedule=sched, **kw)
+    torch.cuda.synchronize()
+    nodes = _graph_nodes(
+        lambda: K3.sgd_tile_update(W, H, *ent, schedule=sched, **kw))
+    assert sum("sgd_step_kernel" in n for n in nodes) == 1  # one launch
+    W2, H2, se2, c2 = K3.sgd_tile_update_plain(W, H, *ent, schedule=sched,
+                                               **kw)
+    torch.testing.assert_close(W1, W2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(H1, H2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(se1, se2, rtol=1e-5, atol=0)
+    assert float(c1) == float(c2) == float((ent[0] < tile).sum())
+    W3, H3, _, _ = K3.sgd_tile_update(W, H, *ent, schedule=sched, **kw)
+    torch.testing.assert_close(W3, W1, rtol=1e-5, atol=1e-6)  # reruns
+    torch.testing.assert_close(H3, H1, rtol=1e-5, atol=1e-6)
+
+
+def test_k3_runs_tiles_past_one_blocks_shared_memory(dev):
+    """512 x 512 tiles at rank 64 (256 KB of accumulators, more than one
+    block's shared memory) run on a cluster and match the plain version."""
+    W, H, ent = _k3_entries(512, 64, 64, dev, nu=1100, ni=600, nnz=3000)
+    kw = dict(lr=0.05, reg=0.02, u_tile=512, i_tile=512,
+              compute_dtype=torch.float32)
+    W1, H1, se1, _ = K3.sgd_tile_update(W, H, *ent, **kw)
+    W2, H2, se2, _ = K3.sgd_tile_update_plain(W, H, *ent, **kw)
+    torch.testing.assert_close(W1, W2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(H1, H2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(se1, se2, rtol=1e-5, atol=0)
 
 
 def test_mfsgd_pallas_launches_k3_once_per_rotation_step(dev):
@@ -378,6 +494,48 @@ def test_k5_plans_of_two_shapes_do_not_cap_each_other(dev):
         assert bool(((gw1 - gw2).abs() <= bound).all())
     idx = torch.device(dev).index or 0
     assert {(300, 20_000, idx), (300, 13, idx)} <= set(K5._PLANS)
+
+
+def _k5_unaligned(n, d, dtype, dev, seed=0):
+    """The inputs of :func:`_k5_inputs` with x a contiguous [n, d] view
+    that starts one element into its storage: not 16-byte aligned."""
+    w, b, x, y, sw = _k5_inputs(n, d, dtype, dev, seed)
+    flat = torch.empty(n * d + 1, dtype=dtype, device=dev)
+    flat[1:] = x.reshape(-1)
+    xu = flat[1:].view(n, d)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    return w, b, xu, y, sw
+
+
+@pytest.mark.parametrize("n,d,layout", [(4099, 13, "unaligned"),
+                                        (4099, 128, "unaligned"),
+                                        (3001, 127, "aligned"),
+                                        (3001, 129, "aligned"),
+                                        (500_256, 128, "aligned")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_one_launch_at_every_layout(dev, n, d, layout, dtype):
+    """An x that is not 16-byte aligned (d = 13 and 128), d = 127 / 129
+    (no 16-byte chunks) and the main path's shape: gs equal, gw within
+    the f32-order bound, reruns bit-equal, and one CUDA launch a call (no
+    second reduction kernel)."""
+    make = _k5_unaligned if layout == "unaligned" else _k5_inputs
+    args = make(n, d, dtype, dev)
+    before = K5.LAUNCHES["pegasos_grad"]
+    gw1, gs1 = K5.pegasos_grad(*args)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES["pegasos_grad"] == before + 1
+    with torch.cuda.stream(_side()):  # makes the stream's ticket counter
+        K5.pegasos_grad(*args)
+    torch.cuda.synchronize()
+    nodes = _graph_nodes(lambda: K5.pegasos_grad(*args))
+    assert len(nodes) == 1 and ("rows_kernel" in nodes[0]
+                                or "tile_kernel" in nodes[0]), nodes
+    gw2, gs2 = K5.pegasos_grad_plain(*args)
+    assert float(gs1) == float(gs2) == round(float(gs2))
+    bound = 1e-5 * (args[4] @ args[2].float().abs()) + 1e-6
+    assert bool(((gw1 - gw2).abs() <= bound).all())
+    gw3, gs3 = K5.pegasos_grad(*args)
+    assert torch.equal(gw1, gw3) and torch.equal(gs1, gs3)
 
 
 def test_svm_fit_launches_k5_once_per_step(dev):

@@ -219,3 +219,119 @@ def test_level_schedule_properties(nnz, n_users, n_items, u_tile, entry_cap,
         for val in np.unique(key[real]):
             same = real[key[real] == val]  # in entry order
             assert (np.diff(level[same]) > 0).all()
+
+
+def _random_topological_order(pred: np.ndarray, rng) -> list[int]:
+    """A random order of the positions 0..n-1 in which every position
+    comes after both of its predecessors (Kahn's algorithm, drawing the
+    next position at random from those ready)."""
+    n = len(pred)
+    waiting = [int((p >= 0).sum()) for p in pred]
+    succ: list[list[int]] = [[] for _ in range(n)]
+    for p, qs in enumerate(pred):
+        for q in qs:
+            if q >= 0:
+                succ[int(q)].append(p)
+    ready = [p for p in range(n) if waiting[p] == 0]
+    out = []
+    while ready:
+        p = ready.pop(int(rng.integers(len(ready))))
+        out.append(p)
+        for s in succ[p]:
+            waiting[s] -= 1
+            if waiting[s] == 0:
+                ready.append(s)
+    assert len(out) == n  # pred has no cycle
+    return out
+
+
+@_property_case
+def test_pred_orders_the_entries_as_the_levels_do(nnz, n_users, n_items,
+                                                  u_tile, entry_cap, shuffle,
+                                                  seed):
+    """``pred`` (the kernel's dataflow order): each position's two
+    predecessors are the previous entries with its ou and with its oi, its
+    level is ``1 + max(level of pred)``, and running the entries one at a
+    time with the plain per-entry math in ANY random order that honours
+    ``pred`` gives W, H, se and cnt bit-equal (f32, CPU) to the level
+    order."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, nnz).astype(np.int32)
+    i = rng.integers(0, n_items, nnz).astype(np.int32)
+    v = rng.normal(size=nnz).astype(np.float32)
+    eu, ei, ev, ou, oi, *_, ub, ib = MF.partition_ratings_tiles(
+        u, i, v, n_users, n_items, 1, u_tile, u_tile, entry_cap, n_slices=1)
+    eu, ei, ev, ou, oi = eu[0], ei[0], ev[0], ou[0], oi[0]
+    if shuffle:
+        p = rng.permutation(len(ou))
+        eu, ei, ev, ou, oi = eu[p], ei[p], ev[p], ou[p], oi[p]
+    s = K.LevelSchedule.build(eu, ei, ou, oi, u_tile, u_tile, ub, ib, "cpu")
+    order, pred = s.order.numpy(), s.pred.numpy()
+    assert pred.shape == (len(order), 2) and s.pred.dtype == torch.int32
+    level = np.repeat(np.arange(s.n_levels), np.diff(s.offsets))
+    for p, e in enumerate(order.tolist()):
+        for q, key in zip(pred[p], (ou, oi)):
+            earlier = [f for f in order.tolist()
+                       if f < e and key[f] == key[e]]
+            assert q == (order.tolist().index(max(earlier)) if earlier
+                         else -1)
+            assert q < p  # a topological order: predecessors come first
+        assert level[p] == 1 + max(level[q] if q >= 0 else -1
+                                   for q in pred[p])
+    T = torch.from_numpy
+    ent = [T(np.ascontiguousarray(a)) for a in (eu, ei, ev, ou, oi)]
+    W0 = T(rng.uniform(0, 0.3, (ub, 8)).astype(np.float32))
+    H0 = T(rng.uniform(0, 0.3, (ib, 8)).astype(np.float32))
+
+    def run(positions):
+        W, H = W0.clone(), H0.clone()
+        se = torch.zeros(len(order))
+        cnt = torch.zeros(len(order))
+        for p in positions:
+            err, cm = K.entries_update_plain(
+                W, H, torch.tensor([int(order[p])]), *ent, lr=0.05, reg=0.02,
+                u_tile=u_tile, i_tile=u_tile, compute_dtype=torch.float32)
+            se[p], cnt[p] = (err * err).sum(), cm.sum()
+        return W, H, se.sum(), cnt.sum()  # se summed in one fixed order
+
+    in_levels = run(range(len(order)))
+    shuffled = run(_random_topological_order(pred, rng))
+    for a, b in zip(in_levels, shuffled):
+        assert torch.equal(a, b)
+    assert float(in_levels[3]) == float((eu < u_tile).sum())
+
+
+@_property_case
+def test_entry_sorts_order_each_entry_by_row(nnz, n_users, n_items, u_tile,
+                                            entry_cap, shuffle, seed):
+    """``LevelSchedule.sort`` (the kernel's split of an entry by row): for
+    each scheduled entry, its real slots stably sorted by W row and by H
+    row, each sorted position's run start, and each H-sorted slot's place
+    in the W order; ``n_real`` counts the real slots."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, nnz).astype(np.int32)
+    i = rng.integers(0, n_items, nnz).astype(np.int32)
+    v = rng.normal(size=nnz).astype(np.float32)
+    eu, ei, ev, ou, oi, *_, ub, ib = MF.partition_ratings_tiles(
+        u, i, v, n_users, n_items, 1, u_tile, u_tile, entry_cap, n_slices=1)
+    eu, ei, ou, oi = eu[0], ei[0], ou[0], oi[0]
+    if shuffle:  # real slots need not come first
+        eu, ei = eu[:, ::-1].copy(), ei[:, ::-1].copy()
+    s = K.LevelSchedule.build(eu, ei, ou, oi, u_tile, u_tile, ub, ib, "cpu")
+    sort, n_real = s.sort.numpy(), s.n_real.numpy()
+    assert sort.shape == (len(s.order), 5, eu.shape[1])
+    for p, e in enumerate(s.order.tolist()):
+        real = np.flatnonzero(eu[e] < u_tile)
+        n = int(n_real[p])
+        assert n == len(real)
+        for q, ids in ((0, eu[e]), (2, ei[e])):
+            by = sort[p, q, :n]
+            want = real[np.argsort(ids[real], kind="stable")]
+            assert by.tolist() == want.tolist()
+            keys = ids[by]
+            for j in range(n):  # the start of j's run of one row
+                st = sort[p, q + 1, j]
+                assert keys[st] == keys[j] and (st == 0
+                                                or keys[st - 1] != keys[j])
+        w_order = sort[p, 0, :n].tolist()
+        assert [w_order[k] for k in sort[p, 4, :n]] == sort[p, 2, :n].tolist()
