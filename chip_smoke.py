@@ -11,16 +11,22 @@ fatal when it fails (exit code != 0 and no result line):
    (one nvcc per source, all started together);
 2. K1 (kmeans_partials_int8) against its plain PyTorch version at
    1M x 300 k=100, at a ragged n and at k=1000: sums and counts equal,
-   best_sum within rtol 1e-5 (f32 summation order);
+   best_sum within rtol 1e-5 (f32 summation order), reruns bit-equal, and
+   the CUDA launches of one call (counted in a captured CUDA graph)
+   (k1_phase);
 3. K2 (kmeans_partials) against its plain version at the same shapes on
    separated blobs: counts equal, sums within 1e-5 * max|x| * max count and
-   inertia within 1e-5 * sum|x|^2 (f32 summation order), reruns bit-equal;
+   inertia within 1e-5 * sum|x|^2 (f32 summation order), reruns bit-equal,
+   CUDA launches a call, and the port's default f32 path _partials_block
+   timed beside it at k=100 and k=1000 (k2_phase);
 4. models.kmeans.fit at 1M x 300 k=100, 10 iterations, for int8 (K1 runs
    once per iteration), f32 + use_pallas (K2 likewise) and the default f32
    matmul path (neither kernel): launch counts, finite inertia no worse
    than after one iteration, and agreement with the CPU run on a small
    input;
-5. models.kmeans.benchmark at 1M x 300 k=100 for the three paths, and the
+5. models.kmeans.benchmark at 1M x 300 k=100 for the three paths and at
+   k=1000 for int8 and f32 + use_pallas, torch.profiler over the int8
+   benchmark's window (device busy and idle share, top kernels), and the
    CLI (python -m harp_tpu_torch kmeans --bench --quantize int8);
 6. K3 (sgd_tile_update) against its plain version for one rotation step at
    MovieLens-20M width (138,493 x 26,744, 20M ratings, rank 64, one worker,
@@ -400,6 +406,176 @@ def k3_phase(dev, card: str) -> dict:
               f"[{card}]")
         del W, H, ent
     return row
+
+
+def k12_bound_ms(n: int, d: int, k: int, point_bytes: int, int8: bool
+                 ) -> tuple[float, str]:
+    """K1's or K2's least time at (n, d, k): the points once (``point_bytes``
+    each element), the centroids and their per-row scalars in, the [k, d]
+    sums, the counts and the best-score sum out (4 bytes each); 2 n k d
+    tensor-core operations (int8 or bf16)."""
+    nbytes = (point_bytes * n * d + point_bytes * k * d + 4 * (2 * k + d)
+              + 4 * (k * d + k + 1))
+    return bound_ms(nbytes, 2.0 * n * k * d, "int8" if int8 else "bf16")
+
+
+def k1_phase(dev, card: str, gen) -> dict:
+    """Phase 2: K1 (kmeans_partials_int8) against its plain version at
+    SHAPES on separated blobs drawn from ``gen``: sums and counts equal,
+    best_sum within rtol 1e-5 (f32 summation order), all three outputs of a
+    rerun bit-equal; the CUDA launches of one call (counted in a captured
+    CUDA graph).  Returns K1's row of the kernels line: the main path's
+    (N, D, K), with the k = 1000 time, plain time and bound beside it."""
+    import torch
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    row: dict = {}
+    for n, d, k in SHAPES:
+        x, centers = blobs(n, d, k, gen, dev)
+        q, scale = C.quantize_to_int8(x, x.abs().amax(0))
+        del x
+        args = (q, *KM._quantize_centroids(centers, scale), scale)
+        s1, n1, b1 = KK.kmeans_partials_int8(*args)
+        s2, n2, b2 = KK.kmeans_partials_int8_plain(*args)
+        s3, n3, b3 = KK.kmeans_partials_int8(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(s1, s2) and torch.equal(n1, n2)):
+            fail(f"K1 sums/counts differ from the plain version at "
+                 f"n={n} d={d} k={k}")
+        rel = abs(float(b1) - float(b2)) / max(abs(float(b2)), 1e-30)
+        if rel > 1e-5:
+            fail(f"K1 best_sum rel err {rel} > 1e-5 at n={n} d={d} k={k}")
+        if not (torch.equal(s1, s3) and torch.equal(n1, n3)
+                and torch.equal(b1, b3)):
+            fail(f"K1 reruns differ at n={n} d={d} k={k}")
+        err = float((s1 - s2).abs().max())
+        ms = cuda_ms(lambda: KK.kmeans_partials_int8(*args), reps=20)
+        plain = cuda_ms(lambda: KK.kmeans_partials_int8_plain(*args),
+                        reps=3, warmup=1)
+        n_cuda = kernel_launches(lambda: KK.kmeans_partials_int8(*args))
+        b_ms, b_by = k12_bound_ms(n, d, k, 1, True)
+        p = KK.plan("kmeans_partials_int8", dev, n, d, k)
+        print(f"K1 n={n} d={d} k={k}: equal sums/counts, best_sum rel err "
+              f"{rel:.2e}, reruns bit-equal; kernel {ms:.4f} ms "
+              f"({n_cuda} CUDA launch(es) a call, counted in a CUDA graph; "
+              f"{'fused' if p.fused else 'two-pass'}, {p.tile_rows}-point "
+              f"tiles), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"[{card}]")
+        if (n, d, k) == (N, D, K):
+            row.update({"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "cuda_launches": n_cuda})
+        elif (n, d) == (N, D):
+            row.update({f"ms_k{k}": ms, f"plain_ms_k{k}": plain,
+                        f"bound_ms_k{k}": b_ms, f"cuda_launches_k{k}": n_cuda})
+        del q, args, s1, s2, s3
+    return row
+
+
+def k2_phase(dev, card: str, gen) -> dict:
+    """Phase 3: K2 (kmeans_partials) against its plain version at SHAPES on
+    separated blobs drawn from ``gen``: counts equal, sums within 1e-5 *
+    max|x| * max count and inertia within 1e-5 * sum|x|^2 (f32 summation
+    order), reruns bit-equal; the CUDA launches of one call (counted in a
+    captured CUDA graph) and, at 1M x 300, the port's default f32 path
+    models.kmeans._partials_block (torch.matmul) timed beside it.  Returns
+    K2's row of the kernels line: the main path's (N, D, K), with the k =
+    1000 numbers and both yardstick times beside it."""
+    import torch
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    row: dict = {}
+    for n, d, k in SHAPES:
+        x, centers = blobs(n, d, k, gen, dev)
+        s1, n1, i1 = KK.kmeans_partials(x, centers)
+        s2, n2, i2 = KK.kmeans_partials_plain(x, centers)
+        s3, _, i3 = KK.kmeans_partials(x, centers)
+        torch.cuda.synchronize()
+        if not torch.equal(n1, n2):
+            fail(f"K2 counts differ at n={n} d={d} k={k}")
+        err = float((s1 - s2).abs().max())
+        tol = 1e-5 * float(x.abs().max()) * float(n1.max())
+        x2 = float((x.double() ** 2).sum())
+        ierr = abs(float(i1) - float(i2))
+        if err > tol or ierr > 1e-5 * x2:
+            fail(f"K2 sums err {err} (tol {tol}) or inertia err {ierr} "
+                 f"(tol {1e-5 * x2}) at n={n} d={d} k={k}")
+        if not (torch.equal(s1, s3) and torch.equal(i1, i3)):
+            fail(f"K2 reruns differ at n={n} d={d} k={k}")
+        ms = cuda_ms(lambda: KK.kmeans_partials(x, centers), reps=20)
+        plain = cuda_ms(lambda: KK.kmeans_partials_plain(x, centers),
+                        reps=3, warmup=1)
+        n_cuda = kernel_launches(lambda: KK.kmeans_partials(x, centers))
+        b_ms, b_by = k12_bound_ms(n, d, k, 4, False)
+        p = KK.plan("kmeans_partials", dev, n, d, k)
+        line = (f"K2 n={n} d={d} k={k}: equal counts, sums max err "
+                f"{err:.3e} (tol {tol:.3e}), inertia err {ierr:.3e} (tol "
+                f"{1e-5 * x2:.3e}), reruns bit-equal; kernel {ms:.4f} ms "
+                f"({n_cuda} CUDA launch(es) a call, counted in a CUDA graph; "
+                f"{'fused' if p.fused else 'two-pass'}, {p.tile_rows}-point "
+                f"tiles), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by})")
+        if n == N:
+            c2 = (centers ** 2).sum(-1)
+            yard = cuda_ms(lambda: KM._partials_block(x, centers, c2),
+                           reps=5, warmup=1)
+            line += (f"; yardstick: the port's default f32 path "
+                     f"_partials_block (torch.matmul; not one library "
+                     f"call) {yard:.4f} ms")
+        print(line + f" [{card}]")
+        if (n, d, k) == (N, D, K):
+            row.update({"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "cuda_launches": n_cuda, "yardstick_ms": yard})
+        elif (n, d) == (N, D):
+            row.update({f"ms_k{k}": ms, f"plain_ms_k{k}": plain,
+                        f"bound_ms_k{k}": b_ms, f"cuda_launches_k{k}": n_cuda,
+                        f"yardstick_ms_k{k}": yard})
+        del x, s1, s2, s3
+    return row
+
+
+def kmeans_profile(dev, card: str) -> None:
+    """torch.profiler over the int8 benchmark's timed window (ITERS Lloyd
+    iterations of kmeans_step at N x D, k = K, one readback at the end):
+    the device's busy and idle share and the top kernels, printed only
+    when the trace holds every K1 launch that its count saw."""
+    import torch
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.utils.timing import device_sync
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    pts = torch.randn((N, D), generator=gen, device=dev)
+    q = C.quantize_to_int8(pts, pts.abs().amax(0))
+    del pts
+    x2 = KM._hoisted_x2(q)
+    cfg = KM.KMeansConfig(k=K, iters=1, quantize="int8")
+    c0 = torch.randn((K, D), generator=gen, device=dev)
+
+    def window():
+        c, inertia = c0, None
+        for _ in range(ITERS):
+            c, inertia = KM.kmeans_step(q, c, cfg, x2=x2)
+        device_sync(inertia)
+
+    window()
+    t0 = time.perf_counter()
+    window()
+    bare = time.perf_counter() - t0
+    profile_run(window, card, "KMeans int8", f"benchmark window ({ITERS} "
+                f"iterations at {N} x {D}, k={K})", bare,
+                count=(KK.LAUNCHES, "kmeans_partials_int8", "main_kernel"))
 
 
 def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
@@ -1523,8 +1699,6 @@ def main() -> int:
     from harp_tpu_torch.models import kmeans as KM
     from harp_tpu_torch.ops import build
     from harp_tpu_torch.ops import kmeans_kernel as KK
-    from harp_tpu_torch.parallel import collective as C
-    from harp_tpu_torch.utils.timing import cuda_ms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1550,73 +1724,9 @@ def main() -> int:
     gen.manual_seed(0)
     rows: dict[str, dict] = {}
 
-    # -- 2. K1 against its plain version ------------------------------------
-    for n, d, k in SHAPES:
-        x, centers = blobs(n, d, k, gen, dev)
-        q, scale = C.quantize_to_int8(x, x.abs().amax(0))
-        args = (q, *KM._quantize_centroids(centers, scale), scale)
-        s1, n1, b1 = KK.kmeans_partials_int8(*args)
-        s2, n2, b2 = KK.kmeans_partials_int8_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(s1, s2) and torch.equal(n1, n2)):
-            fail(f"K1 sums/counts differ from the plain version at "
-                 f"n={n} d={d} k={k}")
-        rel = abs(float(b1) - float(b2)) / max(abs(float(b2)), 1e-30)
-        if rel > 1e-5:
-            fail(f"K1 best_sum rel err {rel} > 1e-5 at n={n} d={d} k={k}")
-        err = float((s1 - s2).abs().max())
-        ms = cuda_ms(lambda: KK.kmeans_partials_int8(*args), reps=20)
-        plain = cuda_ms(lambda: KK.kmeans_partials_int8_plain(*args),
-                        reps=3, warmup=1)
-        nbytes = n * d + k * d + 4 * (2 * k + d) + 4 * (k * d + k + 1)
-        b_ms, b_by = bound_ms(nbytes, 2.0 * n * k * d, "int8")
-        print(f"K1 n={n} d={d} k={k}: equal sums/counts, best_sum rel err "
-              f"{rel:.2e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) [{card}]")
-        if (n, d, k) == (N, D, K):
-            rows["kmeans_partials_int8"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by}
-        del x, q, args, s1, s2
-
-    # -- 3. K2 against its plain version ------------------------------------
-    for n, d, k in SHAPES:
-        x, centers = blobs(n, d, k, gen, dev)
-        s1, n1, i1 = KK.kmeans_partials(x, centers)
-        s2, n2, i2 = KK.kmeans_partials_plain(x, centers)
-        s3, _, i3 = KK.kmeans_partials(x, centers)
-        torch.cuda.synchronize()
-        if not torch.equal(n1, n2):
-            fail(f"K2 counts differ at n={n} d={d} k={k}")
-        err = float((s1 - s2).abs().max())
-        tol = 1e-5 * float(x.abs().max()) * float(n1.max())
-        x2 = float((x.double() ** 2).sum())
-        ierr = abs(float(i1) - float(i2))
-        if err > tol or ierr > 1e-5 * x2:
-            fail(f"K2 sums err {err} (tol {tol}) or inertia err {ierr} "
-                 f"(tol {1e-5 * x2}) at n={n} d={d} k={k}")
-        if not (torch.equal(s1, s3) and torch.equal(i1, i3)):
-            fail(f"K2 reruns differ at n={n} d={d} k={k}")
-        ms = cuda_ms(lambda: KK.kmeans_partials(x, centers), reps=20)
-        plain = cuda_ms(lambda: KK.kmeans_partials_plain(x, centers),
-                        reps=3, warmup=1)
-        nbytes = 4 * n * d + 4 * k * d + 4 * (k * d + k + 1)
-        b_ms, b_by = bound_ms(nbytes, 2.0 * n * k * d, "bf16")
-        print(f"K2 n={n} d={d} k={k}: equal counts, sums max err {err:.3e} "
-              f"(tol {tol:.3e}), inertia err {ierr:.3e} (tol "
-              f"{1e-5 * x2:.3e}), reruns bit-equal; kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
-        if (n, d, k) == (N, D, K):
-            rows["kmeans_partials"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by}
-            c2 = (centers ** 2).sum(-1)
-            yard = cuda_ms(lambda: KM._partials_block(x, centers, c2),
-                           reps=5, warmup=1)
-            print(f"yardstick: the port's default f32 path _partials_block "
-                  f"(torch.matmul; not one library call) at n={n} d={d} "
-                  f"k={k}: {yard:.4f} ms [{card}]")
-        del x, s1, s2, s3
+    # -- 2-3. K1 and K2 against their plain versions -----------------------
+    rows["kmeans_partials_int8"] = k1_phase(dev, card, gen)
+    rows["kmeans_partials"] = k2_phase(dev, card, gen)
 
     # -- 4. fit through the public entry ------------------------------------
     import numpy as np
@@ -1678,16 +1788,19 @@ def main() -> int:
     kernel_of = {"int8 (K1)": "kmeans_partials_int8",
                  "f32 use_pallas (K2)": "kmeans_partials"}
     for p, kw in paths.items():
-        out = KM.benchmark(n=N, d=D, k=K, iters=ITERS, **kw)
-        if not np.isfinite(out["inertia"]):
-            fail(f"benchmark {p}: non-finite inertia")
-        line = (f"benchmark {p}: {out['iters_per_sec']:.2f} iter/s, "
-                f"{out['sec_per_iter'] * 1e3:.4f} ms/iter")
-        if p in kernel_of:
-            r = rows[kernel_of[p]]
-            line += (f"; kernel {r['ms']:.4f} ms/launch, bound "
-                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-        print(line + f" [{card}]")
+        for k in ((K, 1000) if p in kernel_of else (K,)):
+            out = KM.benchmark(n=N, d=D, k=k, iters=ITERS, **kw)
+            if not np.isfinite(out["inertia"]):
+                fail(f"benchmark {p} k={k}: non-finite inertia")
+            line = (f"benchmark {p} k={k}: {out['iters_per_sec']:.2f} "
+                    f"iter/s, {out['sec_per_iter'] * 1e3:.4f} ms/iter")
+            if p in kernel_of:
+                r = rows[kernel_of[p]]
+                sfx = "" if k == K else f"_k{k}"
+                line += (f"; kernel {r['ms' + sfx]:.4f} ms/launch, bound "
+                         f"{r['bound_ms' + sfx]:.4f} ms")
+            print(line + f" [{card}]")
+    kmeans_profile(dev, card)
     row = run_cli("kmeans", "--bench", "--quantize", "int8")
     if not np.isfinite(row["inertia"]):
         fail(f"KMeans CLI row is not finite: {row}")

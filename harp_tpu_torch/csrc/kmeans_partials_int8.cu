@@ -1,4 +1,5 @@
-// K1: fused int8 KMeans partials for Hopper (sm_90a).
+// K1: fused int8 KMeans partials for Hopper (sm_90a), on the int8 tensor
+// cores.
 //
 // Replaces harp_tpu/ops/kmeans_kernel.py::kmeans_partials_int8 (Pallas body
 // _kernel_int8).  One pass over int8 points [n, d]: score every point against
@@ -10,271 +11,155 @@
 //
 // Bound on this card: memory.  At 1M x 300, k = 100 the kernel must read
 // 300 MB of int8 points (about 90 us at 3.35 TB/s); the 2*n*k*d = 6e10 int8
-// operations take about 30 us at the int8 tensor-core rate.
+// operations take about 30 us at the int8 tensor-core rate (1,979 TOP/s).
+// At k = 1000, 6e11 operations: about 0.3 ms, over the 0.09 ms of bytes.
 //
-// Design, simple and right first (making it fast is later work):
-//  - A block owns tiles of kTileN points (grid-stride over tiles, the grid
-//    sized to fill the card once).  Its 256 threads are kTileN points x
-//    kGroups centroid groups; each thread keeps 8 exact s8 x s8 -> s32 dot
-//    products (__dp4a, four bytes at a time) against one tile of kTileK
-//    centroids, and the centroid tiles loop over any k.  The point rows sit
-//    in shared memory with an odd word stride, so a warp reading 32 rows at
-//    once hits 32 banks; the centroid tile is stored [word][centroid] and
-//    read as int4 broadcasts.
-//  - Each thread keeps a running (best, index) and replaces it only on a
-//    strictly smaller score; the groups are then merged with index order on
-//    ties, so the lowest index wins across tiles and groups, as argmin does.
-//  - Rounding: the score is c2 - 2 * round(float(dot) * c_scale), computed
-//    with __fmul_rn / __fsub_rn so nvcc cannot contract it into an FMA;
-//    a fused multiply-add would round once and could flip near-ties against
-//    the plain version.  float(dot) is exact (|dot| <= 127^2 * d < 2^24 for
-//    d <= 1040).
-//  - While the tile is still in shared memory, each thread owns columns of
-//    d and adds the tile's rows into the block's int32 accumulator: in shared
-//    memory when k*d fits beside the tiles (k = 100 at d = 300), else
-//    straight into the global sums with int32 atomics.  Integer sums are
-//    exact and independent of order.  At the end a block adds its shared
-//    accumulator and its counts into the global outputs with int32 atomics
-//    and writes its partial sum of best scores (summed over its tiles in a
-//    fixed order); the wrapper sums those partials in a fixed order.
-//  - Any n: the ragged last tile is masked.  Any k: centroid tiles loop.
+// What held the first design back: its dots ran on the CUDA cores (__dp4a),
+// one block of 8 warps filled an SM (the [k, d] accumulator took 120 KB) and
+// loaded each tile synchronously, thread 0 alone added a tile's best
+// scores, its one-hot sums walked the tile's rows one after another, and at
+// k = 1000 they fell back to one global atomic per (point, feature), 3e8 a
+// call.
+//
+// Design (kmeans_tiles.cuh holds the shared body):
+//  - Scores on the tensor cores: mma.sync m16n8k32 s8 x s8 -> s32, both
+//    operands K-major in shared memory and loaded with ldmatrix.  Integer
+//    accumulation is exact, so the dots equal __dp4a's bit for bit, and the
+//    score keeps its rounding: __fmul_rn((float)dot, c_scale), then
+//    __fsub_rn(c2, 2 * prod), never contracted into an FMA ((float)dot
+//    rounds an exact int32 as the plain version's .to(float32) does; it is
+//    exact for d <= 1040).  Sums and counts stay bit-equal to the plain
+//    version's.
+//  - A persistent grid of one block a SM.  Each tile's points (64 rows: 300
+//    * 64 contiguous bytes, from any base alignment) arrive by one bulk copy
+//    into a staging buffer while the previous tile is scored, and are
+//    re-strided into the tile.  A warp scores two M-tiles against its
+//    centroid pairs; the argmin runs on the accumulator fragments.
+//  - k * d * 4 bytes fit in shared memory beside the resident centroids (k =
+//    100 at d = 300: 120 KB): one launch does everything.  The one-hot sums
+//    are int32 adds in shared memory, each thread owning a column pair of
+//    the accumulator (exact, no atomics, no transpose of the int8 tile);
+//    each block adds its accumulator into the output with int32 atomics
+//    once at the end (k * d a block).
+//  - Else (k = 1000): a pack kernel lays the centroids out at the tile's
+//    row stride (zero-padded to whole k-steps and to 64 centroids); the main
+//    kernel takes 128-row tiles, streams the centroids in chunks of 128
+//    through a double-buffered cp.async ring and writes each point's
+//    assignment (workspace: n * 4 bytes); range_kernel then gives each
+//    block (two a SM) one centroid range whose accumulator fits in shared
+//    memory and one stripe of points, fetches the rows assigned into its
+//    range by one bulk copy each and adds them as above.  The points are
+//    read twice (0.09 ms a read) and no global atomic is taken per point.
+//  - Any n (the ragged tile is masked), any k (centroid pairs and chunks
+//    loop), any d that one row tile fits.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kmeans_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileN = 64;                  // points per tile
-constexpr int kGroups = kThreads / kTileN;  // centroid groups per point
-constexpr int kPerThread = 8;               // centroids per thread per tile
-constexpr int kTileK = kGroups * kPerThread;
+using Tr = km::Int8Traits;
 
-struct Layout {
-  int dw;      // 32-bit words per row: ceil(d / 4)
-  int ds;      // shared row stride in words: dw rounded up to odd
-  size_t off_cen, off_cscale, off_c2, off_best, off_bidx, off_assign,
-      off_bestv, off_counts, off_acc, bytes_no_acc, bytes_acc;
-};
-
-__host__ __device__ Layout make_layout(int d, int k) {
-  Layout L;
-  L.dw = (d + 3) / 4;
-  L.ds = L.dw | 1;
-  size_t o = (size_t)kTileN * L.ds * 4;  // multiple of 16 bytes
-  L.off_cen = o;     o += (size_t)L.dw * kTileK * 4;
-  L.off_cscale = o;  o += kTileK * 4;
-  L.off_c2 = o;      o += kTileK * 4;
-  L.off_best = o;    o += kGroups * kTileN * 4;
-  L.off_bidx = o;    o += kGroups * kTileN * 4;
-  L.off_assign = o;  o += kTileN * 4;
-  L.off_bestv = o;   o += kTileN * 4;
-  L.off_counts = o;  o += (size_t)k * 4;
-  L.off_acc = o;
-  L.bytes_no_acc = o;
-  L.bytes_acc = o + (size_t)k * d * 4;
-  return L;
-}
-
-// Word w (bytes 4w..4w+3) of an int8 row of length d, zero past the end.
-__device__ __forceinline__ int load_word(const int8_t* row, int w, int d,
-                                         bool aligned) {
-  if (aligned) return reinterpret_cast<const int*>(row)[w];
-  unsigned v = 0;
-  for (int b = 0; b < 4; ++b) {
-    int j = 4 * w + b;
-    unsigned byte = j < d ? (unsigned)(uint8_t)row[j] : 0u;
-    v |= byte << (8 * b);
+// centroids [k, d] int8 -> [k_pad, sb] bytes, zero-padded; c2 and c_scale
+// -> [k_pad], zero-padded
+__global__ void pack_kernel(const int8_t* __restrict__ c,
+                            const float* __restrict__ c2,
+                            const float* __restrict__ cs, int k, int d,
+                            int k_pad, int sb, uint8_t* __restrict__ cen,
+                            float* __restrict__ c2p, float* __restrict__ csp) {
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (long)k_pad * sb; i += stride) {
+    const int row = (int)(i / sb), col = (int)(i % sb);
+    cen[i] = (row < k && col < d) ? (uint8_t)c[(long)row * d + col] : 0;
   }
-  return (int)v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-partials_int8_kernel(const int8_t* __restrict__ pts, const int8_t* __restrict__ cq,
-                     const float* __restrict__ cscale, const float* __restrict__ c2,
-                     int n, int d, int k, bool aligned, bool acc_in_smem,
-                     int* __restrict__ sums, int* __restrict__ counts,
-                     float* __restrict__ best_partial) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(d, k);
-  int* pts_s = reinterpret_cast<int*>(smem);
-  int* cen_s = reinterpret_cast<int*>(smem + L.off_cen);
-  float* cscale_s = reinterpret_cast<float*>(smem + L.off_cscale);
-  float* c2_s = reinterpret_cast<float*>(smem + L.off_c2);
-  float* best_s = reinterpret_cast<float*>(smem + L.off_best);
-  int* bidx_s = reinterpret_cast<int*>(smem + L.off_bidx);
-  int* assign_s = reinterpret_cast<int*>(smem + L.off_assign);
-  float* bestv_s = reinterpret_cast<float*>(smem + L.off_bestv);
-  int* counts_s = reinterpret_cast<int*>(smem + L.off_counts);
-  int* acc_s = acc_in_smem ? reinterpret_cast<int*>(smem + L.off_acc) : nullptr;
-
-  const int t = threadIdx.x;
-  const int p = t % kTileN;
-  const int g = t / kTileN;
-  for (int i = t; i < k; i += kThreads) counts_s[i] = 0;
-  if (acc_s)
-    for (long i = t; i < (long)k * d; i += kThreads) acc_s[i] = 0;
-
-  float blk_best = 0.f;  // only thread 0's copy is used
-  const int ntiles = (n + kTileN - 1) / kTileN;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long row0 = (long)tile * kTileN;
-    const int rows = (int)min((long)kTileN, (long)n - row0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = t; i < kTileN * L.dw; i += kThreads) {
-      int r = i / L.dw, w = i % L.dw;
-      pts_s[r * L.ds + w] =
-          r < rows ? load_word(pts + (row0 + r) * d, w, d, aligned) : 0;
-    }
-
-    float best = __int_as_float(0x7f800000);  // +inf
-    int bi = -1;  // no centroid seen yet: the first one is taken even at +inf
-    for (int c0 = 0; c0 < k; c0 += kTileK) {
-      __syncthreads();  // the previous centroid tile's readers are done
-      for (int i = t; i < kTileK * L.dw; i += kThreads) {
-        int c = i / L.dw, w = i % L.dw;
-        cen_s[w * kTileK + c] =
-            c0 + c < k ? load_word(cq + (long)(c0 + c) * d, w, d, aligned) : 0;
-      }
-      if (t < kTileK) {
-        cscale_s[t] = c0 + t < k ? cscale[c0 + t] : 0.f;
-        c2_s[t] = c0 + t < k ? c2[c0 + t] : 0.f;
-      }
-      __syncthreads();
-
-      int acc[kPerThread];
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) acc[j] = 0;
-      const int* prow = pts_s + p * L.ds;
-      const int4* cvec = reinterpret_cast<const int4*>(cen_s) + g * 2;
-      for (int w = 0; w < L.dw; ++w) {
-        const int a = prow[w];
-        const int4 lo = cvec[w * (kTileK / 4)];
-        const int4 hi = cvec[w * (kTileK / 4) + 1];
-        acc[0] = __dp4a(a, lo.x, acc[0]);
-        acc[1] = __dp4a(a, lo.y, acc[1]);
-        acc[2] = __dp4a(a, lo.z, acc[2]);
-        acc[3] = __dp4a(a, lo.w, acc[3]);
-        acc[4] = __dp4a(a, hi.x, acc[4]);
-        acc[5] = __dp4a(a, hi.y, acc[5]);
-        acc[6] = __dp4a(a, hi.z, acc[6]);
-        acc[7] = __dp4a(a, hi.w, acc[7]);
-      }
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int cl = g * kPerThread + j;
-        if (c0 + cl < k) {
-          const float prod = __fmul_rn((float)acc[j], cscale_s[cl]);
-          const float s = __fsub_rn(c2_s[cl], 2.f * prod);
-          if (s < best || bi < 0) {
-            best = s;
-            bi = c0 + cl;
-          }
-        }
-      }
-    }
-    best_s[g * kTileN + p] = best;
-    bidx_s[g * kTileN + p] = bi;
-    __syncthreads();
-    if (t < kTileN) {
-      float b = best_s[t];
-      int bidx = bidx_s[t];
-      for (int gg = 1; gg < kGroups; ++gg) {
-        const float s = best_s[gg * kTileN + t];
-        const int i = bidx_s[gg * kTileN + t];
-        // a group with no centroid below k holds i = -1 and is skipped;
-        // group 0 always holds centroid 0
-        if (i >= 0 && (s < b || (s == b && i < bidx))) {
-          b = s;
-          bidx = i;
-        }
-      }
-      const bool valid = t < rows;
-      assign_s[t] = valid ? bidx : -1;
-      bestv_s[t] = valid ? b : 0.f;
-      if (valid) atomicAdd(&counts_s[bidx], 1);
-    }
-    __syncthreads();
-    if (t == 0)
-      for (int r = 0; r < rows; ++r) blk_best += bestv_s[r];
-    for (int j = t; j < d; j += kThreads) {
-      for (int r = 0; r < rows; ++r) {
-        const int a = assign_s[r];
-        const int v = reinterpret_cast<const int8_t*>(pts_s + r * L.ds)[j];
-        if (acc_s)
-          acc_s[(long)a * d + j] += v;  // column j is this thread's alone
-        else
-          atomicAdd(&sums[(long)a * d + j], v);
-      }
-    }
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < k_pad;
+       i += stride) {
+    c2p[i] = i < k ? c2[i] : 0.f;
+    csp[i] = i < k ? cs[i] : 0.f;
   }
-  __syncthreads();
-  if (acc_s)
-    for (long i = t; i < (long)k * d; i += kThreads)
-      if (acc_s[i]) atomicAdd(&sums[i], acc_s[i]);
-  for (int i = t; i < k; i += kThreads)
-    if (counts_s[i]) atomicAdd(&counts[i], counts_s[i]);
-  if (t == 0) best_partial[blockIdx.x] = blk_best;
-}
-
-// Shared-memory bytes and whether the [k, d] accumulator lives there.
-cudaError_t plan(int d, int k, size_t* smem, bool* acc_in_smem) {
-  int dev, optin;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  const Layout L = make_layout(d, k);
-  *acc_in_smem = L.bytes_acc <= (size_t)optin;
-  *smem = *acc_in_smem ? L.bytes_acc : L.bytes_no_acc;
-  if (*smem > (size_t)optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(partials_int8_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of blocks the kernel launches for (n, d, k): enough to fill the
-// card once, at most one per tile.  The caller sizes best_partial with it.
-int kmeans_partials_int8_grid(int n, int d, int k, int* grid) {
-  size_t smem;
-  bool acc_in_smem;
-  cudaError_t err = plan(d, k, &smem, &acc_in_smem);
+// The launch plan for (n, d, k): out[0] fused (1: one main launch; 0: pack,
+// main and range launches), out[1] the main grid (the caller sizes best_partial
+// with it), out[2] k_pad, out[3] sb (the packed centroid row stride in
+// bytes), out[4] tile rows, out[5] centroid ranges, out[6] point stripes.
+int kmeans_partials_int8_plan(int n, int d, int k, int* out) {
+  km::Plan P;
+  const cudaError_t err = km::make_plan<Tr>(n, d, k, &P);
   if (err != cudaSuccess) return (int)err;
-  int dev, sms, per_sm;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, partials_int8_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int ntiles = (n + kTileN - 1) / kTileN;
-  *grid = ntiles < sms * per_sm ? ntiles : sms * per_sm;
-  if (*grid < 1) *grid = 1;
+  out[0] = P.fused;
+  out[1] = P.grid;
+  out[2] = P.k_pad;
+  out[3] = P.sb;
+  out[4] = 16 * P.mt;
+  out[5] = P.ranges;
+  out[6] = P.stripes;
   return 0;
 }
 
-// sums [k, d] and counts [k] int32 must be zeroed by the caller;
-// best_partial holds `grid` floats.  Returns cudaGetLastError() after the
-// launch (0 on success).
-int kmeans_partials_int8(const void* pts_q, const void* c_q, const void* c_scale,
-                         const void* c2, int n, int d, int k, void* sums,
-                         void* counts, void* best_partial, int grid,
-                         void* stream) {
-  size_t smem;
-  bool acc_in_smem;
-  cudaError_t err = plan(d, k, &smem, &acc_in_smem);
+// pts_q [n, d] int8 (any base alignment); c_q [k, d] int8, c_scale and c2
+// [k] f32.  Workspace: cen_pack k_pad * sb bytes, c2_pack and cs_pack k_pad
+// floats, assign n int32 (unused when fused).  sums [k, d] and counts [k]
+// int32 must be zeroed; best_partial holds `grid` floats.  Returns
+// cudaGetLastError() after the launches (0 on success).  The fused path
+// reads the centroids as they are and leaves the pack buffers untouched.
+int kmeans_partials_int8(const void* pts_q, const void* c_q,
+                         const void* c_scale, const void* c2, int n, int d,
+                         int k, void* cen_pack, void* c2_pack, void* cs_pack,
+                         void* assign, void* sums, void* counts,
+                         void* best_partial, void* stream) {
+  km::Plan P;
+  cudaError_t err = km::make_plan<Tr>(n, d, k, &P);
   if (err != cudaSuccess) return (int)err;
-  const bool aligned = (d % 4 == 0) && ((uintptr_t)pts_q % 4 == 0) &&
-                       ((uintptr_t)c_q % 4 == 0);
-  partials_int8_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)pts_q, (const int8_t*)c_q, (const float*)c_scale,
-      (const float*)c2, n, d, k, aligned, acc_in_smem, (int*)sums,
-      (int*)counts, (float*)best_partial);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!P.fused) {
+    pack_kernel<<<128, 256, 0, s>>>(
+        (const int8_t*)c_q, (const float*)c2, (const float*)c_scale, k, d,
+        P.k_pad, P.sb, (uint8_t*)cen_pack, (float*)c2_pack,
+        (float*)cs_pack);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  km::MainArgs M;
+  km::RangeArgs R;
+  km::fill_args(P, n, d, k, &M, &R);
+  M.pts = pts_q;
+  M.cen_raw = c_q;
+  M.c2_raw = (const float*)c2;
+  M.cs_raw = (const float*)c_scale;
+  M.cen = (const unsigned char*)cen_pack;
+  M.c2 = (const float*)c2_pack;
+  M.cs = (const float*)cs_pack;
+  M.sums = sums;
+  M.counts = (int*)counts;
+  M.assign = (int*)assign;
+  M.partial = (float*)best_partial;
+  km::launch_main<Tr>(P, M, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || P.fused) return (int)err;
+  R.pts = pts_q;
+  R.assign = (const int*)assign;
+  R.sums = sums;
+  R.counts = (int*)counts;
+  km::range_kernel<Tr><<<dim3(P.stripes, P.ranges), km::kThreads,
+                         P.smem_range, s>>>(R);
   return (int)cudaGetLastError();
 }
+
+#ifdef KM_PHASES
+// the phase clocks of the last launch (kmeans_tiles.cuh), one row a block
+int kmeans_phases(unsigned long long* main_clk, unsigned long long* range_clk) {
+  cudaError_t err = cudaMemcpyFromSymbol(main_clk, km::km_main_clk,
+                                         sizeof(km::km_main_clk));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(range_clk, km::km_range_clk,
+                               sizeof(km::km_range_clk));
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 """Build the CUDA kernels under ``harp_tpu_torch/csrc`` at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The
-library lands in ``harp_tpu_torch/_build/`` (git ignores it) under a name
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  :func:`build` compiles several sources at
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``; shared
+device code lives in ``csrc/*.cuh`` headers.  The library lands in
+``harp_tpu_torch/_build/`` (git ignores it) under a name keyed by a hash of
+the source, the headers and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  :func:`build` compiles several sources at
 once, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -40,6 +41,7 @@ def sources() -> list[str]:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

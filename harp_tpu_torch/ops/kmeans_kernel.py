@@ -14,11 +14,15 @@ K2    :func:`kmeans_partials`         ``csrc/kmeans_partials.cu``;
                                       ``kmeans_partials``
 ====  ==============================  ====================================
 
-Each source's head note gives the kernel's bound on the card and what its
-design does about it.  A wrapper runs the plain version only for tensors on
-the CPU; for CUDA tensors it launches its kernel (on the current stream) or
-raises — there is no fallback.  :data:`LAUNCHES` counts kernel launches per
-wrapper, so a run can show that its main path went through the kernels.
+Both share ``csrc/kmeans_tiles.cuh``.  Each source's head note gives the
+kernel's bound on the card and what its design does about it.  The library
+plans a launch per shape and card (:func:`plan`): fused (the [k, d] sums in
+shared memory, k = 100 at d = 300) or two-pass (assignments, then sums by
+centroid range, k = 1000); :func:`workspace` sizes the buffers the wrapper
+allocates for it.  A wrapper runs the plain version only for tensors on the
+CPU; for CUDA tensors it launches its kernel (on the current stream) or
+raises — there is no fallback.  :data:`LAUNCHES` counts wrapper calls that
+launched, so a run can show that its main path went through the kernels.
 
 Unlike the TPU kernels, these take any ``n`` (the ragged tile is masked),
 any ``k`` (centroid tiles loop) and any ``d``; the TPU-only gates (VMEM
@@ -28,6 +32,7 @@ budget, tile divides n) have no counterpart.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -39,17 +44,51 @@ LAUNCHES = {"kmeans_partials_int8": 0, "kmeans_partials": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kmeans_partials_int8": {
-        "kmeans_partials_int8_grid": [_I, _I, _I, ctypes.POINTER(_I)],
-        "kmeans_partials_int8": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                                 _I, _P],
+        "kmeans_partials_int8_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+        "kmeans_partials_int8": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P, _P, _P],
     },
     "kmeans_partials": {
-        "kmeans_partials_grid": [_I, _I, _I, ctypes.POINTER(_I)],
-        "kmeans_partials": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I,
-                            _P],
+        "kmeans_partials_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+        "kmeans_partials": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P],
     },
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
+_PLANS: dict[tuple, "Plan"] = {}
+
+
+class Plan(NamedTuple):
+    """A kernel's launch plan for one (n, d, k) on one card, as its
+    ``*_plan`` entry point gives it."""
+
+    fused: bool     # one main launch (sums in shared memory), else main +
+                    # range launches (assignments, then sums by range)
+    grid: int       # main-kernel blocks: one partial of the best sum each
+    k_pad: int      # centroids in the packed layout (a multiple of 64)
+    sb: int         # packed centroid row stride in bytes
+    tile_rows: int  # points a main-kernel tile
+    ranges: int     # centroid ranges of the range launch (two-pass only)
+    stripes: int    # point stripes of the range launch (two-pass only)
+
+
+def workspace(plan: Plan, n: int, d: int, k: int, f32_sums: bool) -> dict:
+    """The buffers one launch takes besides its outputs, name -> (shape,
+    dtype): the packed centroids and the per-point assignments (two-pass
+    only; one element each when fused), the per-block partials of the best sum and, for K2
+    (``f32_sums``), the [slabs, k, d] f32 sums that reduce_kernel adds in
+    order (one slab per main block when fused, per stripe otherwise)."""
+    two = not plan.fused
+    ws = {"cen_pack": ((plan.k_pad * plan.sb if two else 1,), torch.uint8),
+          "c2_pack": ((plan.k_pad if two else 1,), torch.float32),
+          "assign": ((n if two else 1,), torch.int32),
+          "partial": ((plan.grid,), torch.float32)}
+    if f32_sums:
+        ws["slabs"] = ((plan.grid if plan.fused else plan.stripes, k, d),
+                       torch.float32)
+    else:
+        ws["cs_pack"] = ((plan.k_pad if two else 1,), torch.float32)
+    return ws
 
 
 def reset_launches() -> None:
@@ -63,10 +102,27 @@ def _lib(name: str) -> ctypes.CDLL:
     return _BOUND[name]
 
 
-def _grid(lib, fn: str, n: int, d: int, k: int) -> int:
-    grid = _I()
-    build.check(getattr(lib, fn)(n, d, k, ctypes.byref(grid)), fn)
-    return grid.value
+def plan(name: str, dev: torch.device, n: int, d: int, k: int,
+         pts_bf16: bool = False) -> Plan:
+    """The card's launch plan for kernel ``name`` at (n, d, k), asked of
+    the library once per shape and card."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (name, index, n, d, k, pts_bf16)
+    if key not in _PLANS:
+        lib = _lib(name)
+        out = (_I * 7)()
+        with torch.cuda.device(dev):
+            args = (n, d, k, int(pts_bf16)) if name == "kmeans_partials" \
+                else (n, d, k)
+            build.check(getattr(lib, f"{name}_plan")(*args, out),
+                        f"{name}_plan")
+        _PLANS[key] = Plan(bool(out[0]), *out[1:])
+    return _PLANS[key]
+
+
+def _buffers(p: Plan, n, d, k, f32_sums, dev) -> dict:
+    return {name: torch.empty(shape, dtype=dt, device=dev)
+            for name, (shape, dt) in workspace(p, n, d, k, f32_sums).items()}
 
 
 def exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -115,19 +171,22 @@ def kmeans_partials_int8(pts_q, c_q, c_scale, c2, col_scale):
     if dev.type != "cuda":
         raise ValueError(f"kmeans_partials_int8 runs on cuda or cpu, not {dev}")
     lib = _lib("kmeans_partials_int8")
+    p = plan("kmeans_partials_int8", dev, n, d, k)
     with torch.cuda.device(dev):
-        grid = _grid(lib, "kmeans_partials_int8_grid", n, d, k)
+        ws = _buffers(p, n, d, k, False, dev)
         sums_i = torch.zeros((k, d), dtype=torch.int32, device=dev)
         counts_i = torch.zeros((k,), dtype=torch.int32, device=dev)
-        best = torch.empty((grid,), dtype=torch.float32, device=dev)
         build.check(lib.kmeans_partials_int8(
             pts_q.data_ptr(), c_q.data_ptr(), c_scale.data_ptr(),
-            c2.data_ptr(), n, d, k, sums_i.data_ptr(), counts_i.data_ptr(),
-            best.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream),
+            c2.data_ptr(), n, d, k, ws["cen_pack"].data_ptr(),
+            ws["c2_pack"].data_ptr(), ws["cs_pack"].data_ptr(),
+            ws["assign"].data_ptr(), sums_i.data_ptr(), counts_i.data_ptr(),
+            ws["partial"].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream),
             "kmeans_partials_int8 launch")
     LAUNCHES["kmeans_partials_int8"] += 1
     return (sums_i.to(torch.float32) * col_scale[None, :],
-            counts_i.to(torch.float32), best.sum())
+            counts_i.to(torch.float32), ws["partial"].sum())
 
 
 # ---- K2: f32 (bf16 dot) ------------------------------------------------------
@@ -173,18 +232,19 @@ def kmeans_partials(points, centroids):
     if dev.type != "cuda":
         raise ValueError(f"kmeans_partials runs on cuda or cpu, not {dev}")
     lib = _lib("kmeans_partials")
+    bf16 = points.dtype == torch.bfloat16
+    p = plan("kmeans_partials", dev, n, d, k, bf16)
     c_b, c2 = bf16_centroids(centroids)
     with torch.cuda.device(dev):
-        grid = _grid(lib, "kmeans_partials_grid", n, d, k)
-        slabs = torch.empty((grid, k, d), dtype=torch.float32, device=dev)
+        ws = _buffers(p, n, d, k, True, dev)
         counts_i = torch.zeros((k,), dtype=torch.int32, device=dev)
-        inertia = torch.empty((grid,), dtype=torch.float32, device=dev)
         sums = torch.empty((k, d), dtype=torch.float32, device=dev)
         build.check(lib.kmeans_partials(
-            points.data_ptr(), int(points.dtype == torch.bfloat16),
-            c_b.data_ptr(), c2.data_ptr(), n, d, k, slabs.data_ptr(),
-            counts_i.data_ptr(), inertia.data_ptr(), sums.data_ptr(), grid,
+            points.data_ptr(), int(bf16), c_b.data_ptr(), c2.data_ptr(), n,
+            d, k, ws["cen_pack"].data_ptr(), ws["c2_pack"].data_ptr(),
+            ws["assign"].data_ptr(), ws["slabs"].data_ptr(),
+            counts_i.data_ptr(), ws["partial"].data_ptr(), sums.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream),
             "kmeans_partials launch")
     LAUNCHES["kmeans_partials"] += 1
-    return sums, counts_i.to(torch.float32), inertia.sum()
+    return sums, counts_i.to(torch.float32), ws["partial"].sum()

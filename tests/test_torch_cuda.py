@@ -59,9 +59,15 @@ def _int8_args(pts, centers, dev):
     return q, c_q, c_scale, c2, scale
 
 
-# (n, d, k): ragged n, d not a multiple of 4 (byte-assembled loads), k not a
-# multiple of the 32-centroid tile, and a k whose sums do not fit on chip
-SHAPES = [(1000, 40, 7), (4099, 13, 37), (3000, 300, 100), (2049, 300, 1000)]
+# (n, d, k): ragged n, d not a multiple of 4 or of the 32-byte MMA k-step
+# (13, 40, 300), k not a multiple of a 16-centroid pair, a k whose sums do
+# not fit in shared memory (the two-pass path: assignments, then sums by
+# centroid range), d < 32, d = 1040 (K1's exactness limit) fused and
+# two-pass, k = 1, k just past one centroid pair (17) and one streamed chunk
+# of 64 (65), and n below one tile
+SHAPES = [(1000, 40, 7), (4099, 13, 37), (3000, 300, 100), (2049, 300, 1000),
+          (700, 1040, 20), (1500, 1040, 300), (1000, 24, 1), (2000, 64, 17),
+          (2000, 64, 65), (10, 300, 100), (5, 5, 3)]
 
 
 @pytest.mark.parametrize("n,d,k", SHAPES)
@@ -79,6 +85,9 @@ def test_k1_matches_plain_exactly(dev, n, d, k):
     assert torch.equal(n1, n2) and torch.equal(s1, s2)
     # the best-score sum differs only in f32 summation order
     torch.testing.assert_close(b1, b2, rtol=1e-5, atol=1e-3)
+    # bit-identical reruns of all three outputs
+    s3, n3, b3 = KK.kmeans_partials_int8(*args)
+    assert torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(b1, b3)
 
 
 def test_k1_ties_go_to_the_lowest_index(dev):
@@ -86,6 +95,65 @@ def test_k1_ties_go_to_the_lowest_index(dev):
     centers = np.tile(pts[:1], (70, 1))  # 70 identical centroids, 3 tiles
     _, counts, _ = KK.kmeans_partials_int8(*_int8_args(pts, centers, dev))
     assert counts[0] == 500 and counts[1:].sum() == 0
+
+
+# (d, k) of the tie tests: 19 centroid pairs in one warp's sequence (fused,
+# d = 24), five streamed chunks of 64 (two-pass, d = 300), and pairs split
+# over the warps that share an M-tile, merged across warps in shared memory
+# (fused at d = 300 for K2 and d = 1040 for both)
+TIE_SHAPES = [(24, 300), (300, 300), (300, 100), (1040, 40)]
+
+
+@pytest.mark.parametrize("d,k", TIE_SHAPES)
+def test_k1_ties_span_pairs_warps_and_chunks(dev, d, k):
+    """k identical centroids: every point goes to centroid 0."""
+    pts = np.random.default_rng(0).normal(size=(700, d)).astype(np.float32)
+    centers = np.tile(pts[:1], (k, 1))
+    args = _int8_args(pts, centers, dev)
+    sums, counts, _ = KK.kmeans_partials_int8(*args)
+    assert counts[0] == 700 and counts[1:].sum() == 0
+    s2, _, _ = KK.kmeans_partials_int8_plain(*args)
+    assert torch.equal(sums, s2)
+
+
+@pytest.mark.parametrize("d", [13, 300])
+def test_k1_takes_an_unaligned_view(dev, d):
+    """A contiguous view of the points at an odd row offset: its base is
+    not 16-byte (for d = 13 not even 4-byte) aligned."""
+    pts, centers = _blobs(2001, d, 40)
+    q, c_q, c_scale, c2, scale = _int8_args(pts, centers, dev)
+    view = q[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    args = (view, c_q, c_scale, c2, scale)
+    s1, n1, b1 = KK.kmeans_partials_int8(*args)
+    s2, n2, b2 = KK.kmeans_partials_int8_plain(*args)
+    assert torch.equal(n1, n2) and torch.equal(s1, s2)
+    torch.testing.assert_close(b1, b2, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("k", [100, 1000])
+def test_k12_launches_a_call(dev, k):
+    """CUDA launches of one call, from a captured graph: K1 is one launch
+    when its sums fit in shared memory (k = 100 at d = 300), else pack,
+    main and range; K2 adds the ordered reduce of its slabs."""
+    pts, centers = _blobs(3000, 300, k)
+    args = _int8_args(pts, centers, dev)
+    x = torch.from_numpy(pts).to(dev)
+    c = torch.from_numpy(centers).to(dev)
+    fused = k == 100
+    for name, fn, want in (
+            ("kmeans_partials_int8", lambda: KK.kmeans_partials_int8(*args),
+             1 if fused else 3),
+            ("kmeans_partials", lambda: KK.kmeans_partials(x, c),
+             2 if fused else 4)):
+        assert KK.plan(name, dev, 3000, 300, k).fused == fused
+        with torch.cuda.stream(_side()):
+            fn()
+        torch.cuda.synchronize()
+        nodes = _graph_nodes(fn)
+        ours = [n for n in nodes if "kernel" in n and "at6native" not in n
+                and "at::native" not in n]
+        assert len(ours) == want, (name, ours)
 
 
 @pytest.mark.parametrize("n,d,k", SHAPES)
@@ -104,8 +172,8 @@ def test_k2_matches_plain(dev, n, d, k, dtype):
     x2 = float((x.double() ** 2).sum())
     assert abs(float(i1) - float(i2)) <= 1e-5 * x2
     # bit-identical reruns: no float atomics anywhere
-    s3, _, i3 = KK.kmeans_partials(x, c)
-    assert torch.equal(s1, s3) and torch.equal(i1, i3)
+    s3, n3, i3 = KK.kmeans_partials(x, c)
+    assert torch.equal(s1, s3) and torch.equal(n1, n3) and torch.equal(i1, i3)
 
 
 def test_k2_ties_go_to_the_lowest_index(dev):
@@ -113,6 +181,33 @@ def test_k2_ties_go_to_the_lowest_index(dev):
     c = x[:1].repeat(70, 1)
     _, counts, _ = KK.kmeans_partials(x, c)
     assert counts[0] == 300 and counts[1:].sum() == 0
+
+
+@pytest.mark.parametrize("d,k", TIE_SHAPES)
+def test_k2_ties_span_pairs_warps_and_chunks(dev, d, k):
+    x = torch.randn(700, d, device=dev)
+    c = x[:1].repeat(k, 1)  # k identical centroids
+    sums, counts, _ = KK.kmeans_partials(x, c)
+    assert counts[0] == 700 and counts[1:].sum() == 0
+    s2, _, _ = KK.kmeans_partials_plain(x, c)
+    scale = float(x.abs().max()) * 700
+    assert float((sums - s2).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("d", [13, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_takes_an_unaligned_view(dev, d, dtype):
+    pts, centers = _blobs(2001, d, 40)
+    x = torch.from_numpy(pts).to(dev, dtype)[1:]
+    assert x.is_contiguous()
+    c = torch.from_numpy(centers).to(dev)
+    s1, n1, i1 = KK.kmeans_partials(x, c)
+    s2, n2, i2 = KK.kmeans_partials_plain(x, c)
+    assert torch.equal(n1, n2)
+    scale = float(x.float().abs().max()) * float(n1.max())
+    assert float((s1 - s2).abs().max()) <= 1e-5 * scale
+    x2 = float((x.double() ** 2).sum())
+    assert abs(float(i1) - float(i2)) <= 1e-5 * x2
 
 
 def test_fit_runs_each_kernel_once_per_iteration(dev):

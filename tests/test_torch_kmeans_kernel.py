@@ -193,3 +193,37 @@ def test_k2_wrapper_rejects_bad_arguments(bad):
         x = torch.zeros(4, 16).T
     with pytest.raises((TypeError, ValueError)):
         KK.kmeans_partials(x, c)
+
+
+# plans as the kernels' *_plan entry points give them on an H100 (132 SMs)
+# at 1M x 300: fused at k = 100, two-pass (assignments, then sums by
+# centroid range) at k = 1000
+_PLANS = {"fused": KK.Plan(fused=True, grid=132, k_pad=128, sb=336,
+                           tile_rows=128, ranges=0, stripes=0),
+          "two-pass": KK.Plan(fused=False, grid=132, k_pad=1024, sb=624,
+                              tile_rows=64, ranges=8, stripes=16)}
+
+
+@pytest.mark.parametrize("which", sorted(_PLANS))
+@pytest.mark.parametrize("f32_sums", [False, True])
+def test_workspace_follows_the_plan(which, f32_sums):
+    """The buffers a launch takes besides its outputs: packed centroids and
+    per-point assignments only on the two-pass path, one best-sum partial
+    per main block, and K2's [slabs, k, d] sums (one slab per main block
+    when fused, per point stripe otherwise)."""
+    p = _PLANS[which]
+    n, d, k = 1_000_000, 300, 100 if p.fused else 1000
+    ws = KK.workspace(p, n, d, k, f32_sums)
+    assert ws["partial"] == ((p.grid,), torch.float32)
+    two = not p.fused
+    assert ws["assign"] == ((n if two else 1,), torch.int32)
+    assert ws["cen_pack"] == ((p.k_pad * p.sb if two else 1,), torch.uint8)
+    assert ws["c2_pack"] == ((p.k_pad if two else 1,), torch.float32)
+    assert ("slabs" in ws) == f32_sums and ("cs_pack" in ws) != f32_sums
+    if f32_sums:
+        assert ws["slabs"] == ((p.stripes if two else p.grid, k, d),
+                               torch.float32)
+    if which == "fused" and f32_sums:  # K2 at k = 100: 132 slabs of 120 KB
+        nbytes = sum(int(np.prod(shape)) * dt.itemsize
+                     for shape, dt in ws.values())
+        assert nbytes == 132 * 100 * 300 * 4 + 4 * 132 + 4 + 1 + 4
