@@ -408,14 +408,18 @@ def k3_phase(dev, card: str) -> dict:
     return row
 
 
-def k12_bound_ms(n: int, d: int, k: int, point_bytes: int, int8: bool
-                 ) -> tuple[float, str]:
-    """K1's or K2's least time at (n, d, k): the points once (``point_bytes``
-    each element), the centroids and their per-row scalars in, the [k, d]
-    sums, the counts and the best-score sum out (4 bytes each); 2 n k d
-    tensor-core operations (int8 or bf16)."""
-    nbytes = (point_bytes * n * d + point_bytes * k * d + 4 * (2 * k + d)
-              + 4 * (k * d + k + 1))
+def k12_bound_ms(n: int, d: int, k: int, int8: bool) -> tuple[float, str]:
+    """K1's or K2's least time at (n, d, k): its inputs read once and its
+    outputs written once, 2 n k d tensor-core operations (int8 or bf16).
+    K1 reads int8 points and centroids and its f32 scalars (c_scale and c2
+    a centroid, col_scale a feature); K2 reads f32 points and centroids
+    only (its wrapper derives c2).  Both write the [k, d] sums, the counts
+    and the best-score sum (4 bytes each)."""
+    if int8:
+        nbytes = n * d + k * d + 4 * (2 * k + d)
+    else:
+        nbytes = 4 * n * d + 4 * k * d
+    nbytes += 4 * (k * d + k + 1)
     return bound_ms(nbytes, 2.0 * n * k * d, "int8" if int8 else "bf16")
 
 
@@ -457,7 +461,7 @@ def k1_phase(dev, card: str, gen) -> dict:
         plain = cuda_ms(lambda: KK.kmeans_partials_int8_plain(*args),
                         reps=3, warmup=1)
         n_cuda = kernel_launches(lambda: KK.kmeans_partials_int8(*args))
-        b_ms, b_by = k12_bound_ms(n, d, k, 1, True)
+        b_ms, b_by = k12_bound_ms(n, d, k, True)
         p = KK.plan("kmeans_partials_int8", dev, n, d, k)
         print(f"K1 n={n} d={d} k={k}: equal sums/counts, best_sum rel err "
               f"{rel:.2e}, reruns bit-equal; kernel {ms:.4f} ms "
@@ -513,7 +517,7 @@ def k2_phase(dev, card: str, gen) -> dict:
         plain = cuda_ms(lambda: KK.kmeans_partials_plain(x, centers),
                         reps=3, warmup=1)
         n_cuda = kernel_launches(lambda: KK.kmeans_partials(x, centers))
-        b_ms, b_by = k12_bound_ms(n, d, k, 4, False)
+        b_ms, b_by = k12_bound_ms(n, d, k, False)
         p = KK.plan("kmeans_partials", dev, n, d, k)
         line = (f"K2 n={n} d={d} k={k}: equal counts, sums max err "
                 f"{err:.3e} (tol {tol:.3e}), inertia err {ierr:.3e} (tol "

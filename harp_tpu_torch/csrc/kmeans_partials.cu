@@ -93,12 +93,11 @@ __global__ void reduce_kernel(const float* __restrict__ slabs, int nslabs,
 }
 
 template <class Tr>
-int run(const void* pts, const void* cen, const void* c2, int n, int d, int k,
-        void* cen_pack, void* c2_pack, void* assign, void* slabs,
-        void* counts, void* inertia_partial, void* sums, cudaStream_t s) {
-  km::Plan P;
-  cudaError_t err = km::make_plan<Tr>(n, d, k, &P);
-  if (err != cudaSuccess) return (int)err;
+int run(const km::Plan& P, const void* pts, const void* cen, const void* c2,
+        int n, int d, int k, void* cen_pack, void* c2_pack, void* assign,
+        void* slabs, void* counts, void* inertia_partial, void* sums,
+        cudaStream_t s) {
+  cudaError_t err;
   if (!P.fused) {
     pack_kernel<<<128, 256, 0, s>>>((const float*)cen, (const float*)c2, k,
                                     d, P.k_pad, P.sb, (uint16_t*)cen_pack,
@@ -143,27 +142,20 @@ int run(const void* pts, const void* cen, const void* c2, int n, int d, int k,
 
 extern "C" {
 
-// The launch plan for (n, d, k): out[0] fused (1: main and reduce launches;
-// 0: pack, main, range and reduce), out[1] the main grid (inertia partials), out[2]
-// k_pad, out[3] sb (the packed centroid row stride in bytes), out[4] tile
-// rows, out[5] centroid ranges, out[6] point stripes.  The [slabs, k, d]
-// workspace has out[1] slabs when fused, else out[6].
-int kmeans_partials_plan(int n, int d, int k, int pts_bf16, int* out) {
-  km::Plan P;
-  const cudaError_t err =
-      pts_bf16 ? km::make_plan<km::Bf16Traits<__nv_bfloat16>>(n, d, k, &P)
-               : km::make_plan<km::Bf16Traits<float>>(n, d, k, &P);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = P.fused;
-  out[1] = P.grid;
-  out[2] = P.k_pad;
-  out[3] = P.sb;
-  out[4] = 16 * P.mt;
-  out[5] = P.ranges;
-  out[6] = P.stripes;
-  return 0;
+// The launch plan for (n, d, k) on the current device, made once: *handle
+// for every launch of that shape, and out[] as km::export_plan gives it.
+// out[0] fused (1: main and reduce launches; 0: pack, main, range and
+// reduce), out[1] the main grid (inertia partials).  The [slabs, k, d]
+// workspace has out[1] slabs when fused, else out[6] (point stripes).
+int kmeans_partials_plan(int n, int d, int k, int pts_bf16, int* out,
+                         void** handle) {
+  return pts_bf16 ? km::export_plan<km::Bf16Traits<__nv_bfloat16>>(
+                        n, d, k, out, handle)
+                  : km::export_plan<km::Bf16Traits<float>>(n, d, k, out,
+                                                           handle);
 }
 
+// plan: the handle kmeans_partials_plan gave for (n, d, k) and pts_bf16.
 // pts: [n, d] f32 (pts_bf16 = 0) or bf16 (pts_bf16 = 1); cen: [k, d] f32
 // holding bf16-rounded values; c2: [k] f32 from those.  Workspace: cen_pack
 // k_pad * sb bytes, c2_pack k_pad floats, assign n int32 (unused when
@@ -172,18 +164,21 @@ int kmeans_partials_plan(int n, int d, int k, int pts_bf16, int* out) {
 // is written.  Returns cudaGetLastError() after the launches (0 on success).
 // The fused path reads the centroids as they are and leaves the pack
 // buffers untouched.
-int kmeans_partials(const void* pts, int pts_bf16, const void* cen,
-                    const void* c2, int n, int d, int k, void* cen_pack,
-                    void* c2_pack, void* assign, void* slabs, void* counts,
-                    void* inertia_partial, void* sums, void* stream) {
+int kmeans_partials(const void* plan, const void* pts, int pts_bf16,
+                    const void* cen, const void* c2, int n, int d, int k,
+                    void* cen_pack, void* c2_pack, void* assign, void* slabs,
+                    void* counts, void* inertia_partial, void* sums,
+                    void* stream) {
+  const km::Plan* P = km::plan_of(plan, n, d, k);
+  if (!P) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (pts_bf16)
     return run<km::Bf16Traits<__nv_bfloat16>>(
-        pts, cen, c2, n, d, k, cen_pack, c2_pack, assign, slabs, counts,
+        *P, pts, cen, c2, n, d, k, cen_pack, c2_pack, assign, slabs, counts,
         inertia_partial, sums, s);
-  return run<km::Bf16Traits<float>>(pts, cen, c2, n, d, k, cen_pack, c2_pack,
-                                    assign, slabs, counts, inertia_partial,
-                                    sums, s);
+  return run<km::Bf16Traits<float>>(*P, pts, cen, c2, n, d, k, cen_pack,
+                                    c2_pack, assign, slabs, counts,
+                                    inertia_partial, sums, s);
 }
 
 #ifdef KM_PHASES

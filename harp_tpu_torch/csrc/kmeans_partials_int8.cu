@@ -83,38 +83,30 @@ __global__ void pack_kernel(const int8_t* __restrict__ c,
 
 extern "C" {
 
-// The launch plan for (n, d, k): out[0] fused (1: one main launch; 0: pack,
-// main and range launches), out[1] the main grid (the caller sizes best_partial
-// with it), out[2] k_pad, out[3] sb (the packed centroid row stride in
-// bytes), out[4] tile rows, out[5] centroid ranges, out[6] point stripes.
-int kmeans_partials_int8_plan(int n, int d, int k, int* out) {
-  km::Plan P;
-  const cudaError_t err = km::make_plan<Tr>(n, d, k, &P);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = P.fused;
-  out[1] = P.grid;
-  out[2] = P.k_pad;
-  out[3] = P.sb;
-  out[4] = 16 * P.mt;
-  out[5] = P.ranges;
-  out[6] = P.stripes;
-  return 0;
+// The launch plan for (n, d, k) on the current device, made once: *handle
+// for every launch of that shape, and out[] as km::export_plan gives it.
+// out[0] fused (1: one main launch; 0: pack, main and range launches),
+// out[1] the main grid (the caller sizes best_partial with it).
+int kmeans_partials_int8_plan(int n, int d, int k, int* out, void** handle) {
+  return km::export_plan<Tr>(n, d, k, out, handle);
 }
 
+// plan: the handle kmeans_partials_int8_plan gave for (n, d, k).
 // pts_q [n, d] int8 (any base alignment); c_q [k, d] int8, c_scale and c2
 // [k] f32.  Workspace: cen_pack k_pad * sb bytes, c2_pack and cs_pack k_pad
 // floats, assign n int32 (unused when fused).  sums [k, d] and counts [k]
 // int32 must be zeroed; best_partial holds `grid` floats.  Returns
 // cudaGetLastError() after the launches (0 on success).  The fused path
 // reads the centroids as they are and leaves the pack buffers untouched.
-int kmeans_partials_int8(const void* pts_q, const void* c_q,
-                         const void* c_scale, const void* c2, int n, int d,
-                         int k, void* cen_pack, void* c2_pack, void* cs_pack,
-                         void* assign, void* sums, void* counts,
-                         void* best_partial, void* stream) {
-  km::Plan P;
-  cudaError_t err = km::make_plan<Tr>(n, d, k, &P);
-  if (err != cudaSuccess) return (int)err;
+int kmeans_partials_int8(const void* plan, const void* pts_q,
+                         const void* c_q, const void* c_scale, const void* c2,
+                         int n, int d, int k, void* cen_pack, void* c2_pack,
+                         void* cs_pack, void* assign, void* sums,
+                         void* counts, void* best_partial, void* stream) {
+  const km::Plan* Pp = km::plan_of(plan, n, d, k);
+  if (!Pp) return (int)cudaErrorInvalidValue;
+  const km::Plan& P = *Pp;
+  cudaError_t err;
   cudaStream_t s = (cudaStream_t)stream;
   if (!P.fused) {
     pack_kernel<<<128, 256, 0, s>>>(

@@ -13,7 +13,12 @@
 // tiles of 16 * mt points (grid-stride).  A tile's points are one
 // contiguous run, fetched by one 1-D bulk copy (cp.async.bulk, the copy
 // engine, completing on an mbarrier) from the 16-byte chunk that holds its
-// first byte into a staging buffer: any base alignment and any d.  The
+// first byte into a staging buffer: any base alignment and any d.  A copy
+// moves whole chunks, so it reads up to 15 bytes before a run's first
+// element and after its last one, inside the aligned 16-byte chunks that
+// hold them.  Such a chunk never crosses a page, so the read cannot fault
+// whatever allocated the tensor; the extra bytes are never used.  It is
+// still a read outside the view, which a memory checker reports.  The
 // next tile's copy is in flight while this tile is scored and summed.  The
 // warps re-stride the staged bytes into the tile's rows (rounding f32 to
 // bf16 and summing |x|^2 for K2).  Scores, in one of two ways:
@@ -208,7 +213,8 @@ __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
 // ---- point loads ------------------------------------------------------------
 
 // A contiguous run of elements as the aligned 16-byte chunks that cover it
-// (a bulk copy's source: any base alignment, any d).
+// (a bulk copy's source: any base alignment, any d).  The first and last
+// chunk may hold bytes outside the run: they are read, never used.
 struct Run {
   const uint4* a0;  // the chunk holding the run's first byte
   int lead;         // bytes from a0 to the run's first element
@@ -1136,6 +1142,7 @@ __global__ void __launch_bounds__(kThreads, 1) range_kernel(const RangeArgs A) {
 // ---- host-side plan ----------------------------------------------------------------
 
 struct Plan {
+  int n, d, k;  // the shape it was made for
   int fused, regs, mt, kc, stages, grid, k16, k_pad, sb, ks;
   int ranges, range_k, stripes, tr;
   size_t smem_main, smem_range;
@@ -1194,7 +1201,8 @@ inline size_t range_layout(RangeArgs& L, int range_k, int tr, int sb,
 // the [k, d] accumulator, the resident centroids and a tile of at least 32
 // points fit in shared memory (the largest such tile); else the two-pass
 // path with the largest tile and centroid ring that fit, and centroid ranges
-// whose accumulator fits.
+// whose accumulator fits.  It lets each kernel it plans take the card's
+// whole opt-in shared memory, so plans of other shapes never cap it.
 template <class Tr>
 cudaError_t make_plan(int n, int d, int k, Plan* P) {
   int dev, optin, sms;
@@ -1211,6 +1219,9 @@ cudaError_t make_plan(int n, int d, int k, Plan* P) {
   const int crb = (int)run_bytes(d, es_src);  // raw bytes of one gathered row
   const int dA = acc_stride(d);
   *P = Plan{};
+  P->n = n;
+  P->d = d;
+  P->k = k;
   P->sb = row_stride(d * es);
   P->ks = ksteps(d * es);
   P->k16 = (k + 15) / 16 * 16;
@@ -1264,7 +1275,7 @@ cudaError_t make_plan(int n, int d, int k, Plan* P) {
   void (*kern)(MainArgs) =
       P->regs ? main_kernel<Tr, true> : main_kernel<Tr, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)P->smem_main);
+                             optin);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
@@ -1302,7 +1313,7 @@ cudaError_t make_plan(int n, int d, int k, Plan* P) {
     P->range = L;
     err = cudaFuncSetAttribute(range_kernel<Tr>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)P->smem_range);
+                               optin);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, range_kernel<Tr>, kThreads, P->smem_range);
@@ -1314,6 +1325,34 @@ cudaError_t make_plan(int n, int d, int k, Plan* P) {
     P->stripes = stripes < 1 ? 1 : (int)stripes;
   }
   return cudaSuccess;
+}
+
+// A *_plan entry point's work: make the plan for (n, d, k) on the current
+// device and hand it out as an opaque handle, which the caller keeps for
+// the process's life and passes to every launch of that shape, and as
+// out[0] fused, out[1] the main grid, out[2] k_pad, out[3] sb (the packed
+// centroid row stride in bytes), out[4] tile rows, out[5] centroid ranges,
+// out[6] point stripes.
+template <class Tr>
+int export_plan(int n, int d, int k, int* out, void** handle) {
+  Plan* P = new Plan;
+  const cudaError_t err = make_plan<Tr>(n, d, k, P);
+  if (err != cudaSuccess) {
+    delete P;
+    return (int)err;
+  }
+  const int fields[7] = {P->fused, P->grid,  P->k_pad,  P->sb,
+                         16 * P->mt, P->ranges, P->stripes};
+  for (int i = 0; i < 7; ++i) out[i] = fields[i];
+  *handle = P;
+  return 0;
+}
+
+// The plan behind a launch's handle, or null when it was made for another
+// shape.
+inline const Plan* plan_of(const void* handle, int n, int d, int k) {
+  const Plan* P = static_cast<const Plan*>(handle);
+  return P && P->n == n && P->d == d && P->k == k ? P : nullptr;
 }
 
 template <class Tr>

@@ -99,21 +99,27 @@ def sass_census(name: str) -> dict:
 
 def measure(name: str, call, lib, p: KK.Plan, n: int) -> dict:
     ms = cuda_ms(call, reps=20)
-    plain = KK._BOUND[name]
+    # a plan belongs to the library that made it: the instrumented library
+    # makes its own while it is bound
+    plain, plans = KK._BOUND[name], dict(KK._PLANS)
     KK._BOUND[name] = lib
+    KK._PLANS.clear()
     try:
         ms_phases = cuda_ms(call, reps=5)
         call()
         torch.cuda.synchronize()
     finally:
         KK._BOUND[name] = plain
+        KK._PLANS.clear()
+        KK._PLANS.update(plans)
     main = np.zeros((1024, len(MAIN)), np.uint64)
     rng = np.zeros((1024, len(RANGE)), np.uint64)
     build.check(lib.kmeans_phases(main.ctypes.data, rng.ctypes.data),
                 "kmeans_phases")
     per_block = main[:p.grid].astype(float).mean(0)
     tiles = -(-n // p.tile_rows) / p.grid
-    row = {"ms": ms, "ms_phases": ms_phases, "plan": p._asdict(),
+    row = {"ms": ms, "ms_phases": ms_phases,
+           "plan": {f: v for f, v in p._asdict().items() if f != "handle"},
            "cycles_per_tile": {k: round(v / tiles) for k, v in
                                zip(MAIN, per_block)}}
     if not p.fused:

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``; shared
 device code lives in ``csrc/*.cuh`` headers.  The library lands in
 ``harp_tpu_torch/_build/`` (git ignores it) under a name keyed by a hash of
-the source, the headers and the flags, so an edited source or header
-rebuilds and an unchanged one is reused.  :func:`build` compiles several sources at
-once, one ``nvcc`` process each, all started together.
+the source, the headers it includes and the flags, so an edited source or
+header rebuilds the libraries that use it and an unchanged one is reused.
+:func:`build` compiles several sources at once, one ``nvcc`` process each,
+all started together.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +31,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
 #: per source built in this process: {"seconds": wall, "log": nvcc output}
 BUILD_LOG: dict[str, dict] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -39,9 +43,25 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def headers(path: Path) -> list[Path]:
+    """The headers of ``csrc/`` that ``path`` includes (``#include "..."``),
+    directly or through another header, in order of first inclusion."""
+    found: list[Path] = []
+    todo = [path]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_text()):
+            h = CSRC / inc
+            if h.exists() and h not in found:
+                found.append(h)
+                todo.append(h)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    """Where the library of ``csrc/<name>.cu`` lands, named by a hash of the
+    source, the headers it includes and the flags."""
+    path = CSRC / f"{name}.cu"
+    src = path.read_bytes() + b"".join(h.read_bytes() for h in headers(path))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

@@ -44,14 +44,16 @@ LAUNCHES = {"kmeans_partials_int8": 0, "kmeans_partials": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kmeans_partials_int8": {
-        "kmeans_partials_int8_plan": [_I, _I, _I, ctypes.POINTER(_I)],
-        "kmeans_partials_int8": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                 _P, _P, _P, _P],
+        "kmeans_partials_int8_plan": [_I, _I, _I, ctypes.POINTER(_I),
+                                      ctypes.POINTER(_P)],
+        "kmeans_partials_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                 _P, _P, _P, _P, _P],
     },
     "kmeans_partials": {
-        "kmeans_partials_plan": [_I, _I, _I, _I, ctypes.POINTER(_I)],
-        "kmeans_partials": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                            _P, _P, _P],
+        "kmeans_partials_plan": [_I, _I, _I, _I, ctypes.POINTER(_I),
+                                 ctypes.POINTER(_P)],
+        "kmeans_partials": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                            _P, _P, _P, _P],
     },
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
@@ -60,7 +62,9 @@ _PLANS: dict[tuple, "Plan"] = {}
 
 class Plan(NamedTuple):
     """A kernel's launch plan for one (n, d, k) on one card, as its
-    ``*_plan`` entry point gives it."""
+    ``*_plan`` entry point gives it: the fields the wrapper sizes its
+    buffers by, and the library's own plan that every launch of the shape
+    is given."""
 
     fused: bool     # one main launch (sums in shared memory), else main +
                     # range launches (assignments, then sums by range)
@@ -70,6 +74,7 @@ class Plan(NamedTuple):
     tile_rows: int  # points a main-kernel tile
     ranges: int     # centroid ranges of the range launch (two-pass only)
     stripes: int    # point stripes of the range launch (two-pass only)
+    handle: int = 0  # the library's plan (kept for the process's life)
 
 
 def workspace(plan: Plan, n: int, d: int, k: int, f32_sums: bool) -> dict:
@@ -104,19 +109,19 @@ def _lib(name: str) -> ctypes.CDLL:
 
 def plan(name: str, dev: torch.device, n: int, d: int, k: int,
          pts_bf16: bool = False) -> Plan:
-    """The card's launch plan for kernel ``name`` at (n, d, k), asked of
-    the library once per shape and card."""
+    """The card's launch plan for kernel ``name`` at (n, d, k), made by the
+    library once per shape and card; its launches reuse it."""
     index = torch.cuda.current_device() if dev.index is None else dev.index
     key = (name, index, n, d, k, pts_bf16)
     if key not in _PLANS:
         lib = _lib(name)
-        out = (_I * 7)()
+        out, handle = (_I * 7)(), _P()
         with torch.cuda.device(dev):
             args = (n, d, k, int(pts_bf16)) if name == "kmeans_partials" \
                 else (n, d, k)
-            build.check(getattr(lib, f"{name}_plan")(*args, out),
-                        f"{name}_plan")
-        _PLANS[key] = Plan(bool(out[0]), *out[1:])
+            build.check(getattr(lib, f"{name}_plan")(
+                *args, out, ctypes.byref(handle)), f"{name}_plan")
+        _PLANS[key] = Plan(bool(out[0]), *out[1:], handle.value)
     return _PLANS[key]
 
 
@@ -177,7 +182,7 @@ def kmeans_partials_int8(pts_q, c_q, c_scale, c2, col_scale):
         sums_i = torch.zeros((k, d), dtype=torch.int32, device=dev)
         counts_i = torch.zeros((k,), dtype=torch.int32, device=dev)
         build.check(lib.kmeans_partials_int8(
-            pts_q.data_ptr(), c_q.data_ptr(), c_scale.data_ptr(),
+            p.handle, pts_q.data_ptr(), c_q.data_ptr(), c_scale.data_ptr(),
             c2.data_ptr(), n, d, k, ws["cen_pack"].data_ptr(),
             ws["c2_pack"].data_ptr(), ws["cs_pack"].data_ptr(),
             ws["assign"].data_ptr(), sums_i.data_ptr(), counts_i.data_ptr(),
@@ -240,7 +245,7 @@ def kmeans_partials(points, centroids):
         counts_i = torch.zeros((k,), dtype=torch.int32, device=dev)
         sums = torch.empty((k, d), dtype=torch.float32, device=dev)
         build.check(lib.kmeans_partials(
-            points.data_ptr(), int(bf16), c_b.data_ptr(), c2.data_ptr(), n,
+            p.handle, points.data_ptr(), int(bf16), c_b.data_ptr(), c2.data_ptr(), n,
             d, k, ws["cen_pack"].data_ptr(), ws["c2_pack"].data_ptr(),
             ws["assign"].data_ptr(), ws["slabs"].data_ptr(),
             counts_i.data_ptr(), ws["partial"].data_ptr(), sums.data_ptr(),

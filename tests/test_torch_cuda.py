@@ -156,6 +156,34 @@ def test_k12_launches_a_call(dev, k):
         assert len(ours) == want, (name, ours)
 
 
+def test_k12_plans_of_two_shapes_do_not_cap_each_other(dev, monkeypatch):
+    """Each shape's plan is made once and reused by its launches: a small
+    shape's plan made between two launches of a large one (fused, ~200 KB
+    of shared memory) leaves the large one launchable, and a launch given
+    another shape's plan raises rather than run it."""
+    monkeypatch.setattr(KK, "_PLANS", {})
+    big, small = (3000, 300, 100), (500, 13, 3)
+    for n, d, k in (big, small, big):
+        pts, centers = _blobs(n, d, k)
+        args = _int8_args(pts, centers, dev)
+        s1, n1, _ = KK.kmeans_partials_int8(*args)
+        s2, n2, _ = KK.kmeans_partials_int8_plain(*args)
+        assert torch.equal(s1, s2) and torch.equal(n1, n2)
+        x, c = torch.from_numpy(pts).to(dev), torch.from_numpy(centers).to(dev)
+        _, n1, _ = KK.kmeans_partials(x, c)
+        _, n2, _ = KK.kmeans_partials_plain(x, c)
+        assert torch.equal(n1, n2)
+    index = torch.cuda.current_device()
+    assert len({p.handle for p in KK._PLANS.values()}) == 4
+    for name in ("kmeans_partials_int8", "kmeans_partials"):
+        KK._PLANS[(name, index, *big, False)] = \
+            KK._PLANS[(name, index, *small, False)]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        KK.kmeans_partials_int8(*args)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        KK.kmeans_partials(x, c)
+
+
 @pytest.mark.parametrize("n,d,k", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_plain(dev, n, d, k, dtype):

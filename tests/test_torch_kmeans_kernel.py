@@ -195,9 +195,9 @@ def test_k2_wrapper_rejects_bad_arguments(bad):
         KK.kmeans_partials(x, c)
 
 
-# plans as the kernels' *_plan entry points give them on an H100 (132 SMs)
-# at 1M x 300: fused at k = 100, two-pass (assignments, then sums by
-# centroid range) at k = 1000
+# two arbitrary plans at 1M x 300, one of each kind: fused at k = 100,
+# two-pass (assignments, then sums by centroid range) at k = 1000; the
+# workspace follows whatever fields a plan holds
 _PLANS = {"fused": KK.Plan(fused=True, grid=132, k_pad=128, sb=336,
                            tile_rows=128, ranges=0, stripes=0),
           "two-pass": KK.Plan(fused=False, grid=132, k_pad=1024, sb=624,

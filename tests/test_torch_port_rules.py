@@ -173,10 +173,34 @@ def test_library_names_follow_the_source_hash():
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
 
 
+def test_library_names_hash_only_the_headers_a_source_includes(tmp_path,
+                                                              monkeypatch):
+    """An edited header renames (so rebuilds) the libraries whose sources
+    include it, directly or through another header, and no other."""
+    for name in build.sources():
+        want = ["kmeans_tiles.cuh"] if name.startswith("kmeans") else []
+        assert [h.name for h in
+                build.headers(build.CSRC / f"{name}.cu")] == want
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "outer.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text('#include <cuda_runtime.h>\nint b;\n')
+    (tmp_path / "outer.cuh").write_text('  #  include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    assert build.headers(tmp_path / "a.cu") == [tmp_path / "outer.cuh",
+                                                tmp_path / "inner.cuh"]
+    assert build.headers(tmp_path / "b.cu") == []
+    a, b = build.library_path("a"), build.library_path("b")
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert (build.library_path("a"), build.library_path("b")) == (a, b)
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    assert build.library_path("a") != a and build.library_path("b") == b
+
+
 def test_kernel_sources_ship_as_package_data_and_builds_are_ignored():
     cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
     data = cfg["tool"]["setuptools"]["package-data"]["harp_tpu_torch"]
-    assert "csrc/*.cu" in data
+    assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert "torch" in cfg["project"]["optional-dependencies"]
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "harp_tpu_torch/_build/" in ignored
