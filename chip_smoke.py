@@ -75,15 +75,18 @@ fatal when it fails (exit code != 0 and no result line):
    harp_tpu_torch svm --algo pallas), and torch.profiler over one fit;
 17. K6 (smacof_bx) against its plain version at n = 4096, dim 3, f32 and
    bf16 delta, and at a ragged n = 4099: within rtol 1e-4 / atol 1e-5 (f32
-   summation order), reruns bit-equal;
+   summation order), reruns bit-equal; the kernel's time from a CUDA
+   graph of 20 calls (k6_phase);
 18. models.wdamds.mds at n = 4096, dim 3, 30 iterations, algo="pallas": K6
    launched 30 times, a finite stress below the one-iteration stress, the
    card and the CPU agreeing on a small input for both algos (stress rtol
    1e-3), benchmark and the CLI, and torch.profiler over one mds;
 19. K7 (hist_bins) against its plain version at 200k x 64 features x 32
    bins, 32 trees, on the row codes and weights of every level 0-5 of a
-   real fit: bit-equal int32; torch.bincount of the same weighted cells
-   timed beside it (library_ms);
+   real fit: bit-equal int32 counts for uint8 and int32 bins, reruns
+   bit-equal, the kernel's time from a CUDA graph of 5 calls;
+   torch.bincount of the same weighted cells timed beside it (library_ms)
+   (k7_phase);
 20. models.rf at 200k x 64, 32 trees, depth 6, hist_algo="pallas": K7
    launched once per level, the forest bit-equal to the dense arm's on the
    card under the same seed, train_acc on 20k rows above RF_ACC_FLOOR,
@@ -1138,17 +1141,16 @@ def k6_bound_ms(n_loc: int, N: int, dim: int, dsize: int
                                        else "operations")
 
 
-def mds_phases(dev, card: str) -> tuple[dict, int]:
-    """Phases 17-18; returns K6's row of the kernels line and its launches
-    on the WDA-MDS main path (one mds)."""
-    import numpy as np
+def k6_phase(dev, card: str) -> dict:
+    """Phase 17: K6 against its plain version at n = 4096, dim 3, f32 and
+    bf16 delta, and at a ragged n = 4099; returns K6's row of the kernels
+    line (f32 delta at n = 4096, the main path's)."""
     import torch
 
     from harp_tpu_torch.models import wdamds as WD
     from harp_tpu_torch.ops import wdamds_kernel as K6
-    from harp_tpu_torch.utils.timing import cuda_ms
+    from harp_tpu_torch.utils.timing import cuda_ms, graph_ms
 
-    # -- 17. K6 against its plain version ----------------------------------
     row = None
     for N, ddt in ((MDS_N, torch.float32), (MDS_N, torch.bfloat16),
                    (MDS_N + 3, torch.float32)):
@@ -1167,7 +1169,8 @@ def mds_phases(dev, card: str) -> tuple[dict, int]:
             fail(f"K6 N={N} {ddt}: err {err} above rtol 1e-4 / atol 1e-5")
         if not torch.equal(a, a2):
             fail(f"K6 N={N} {ddt}: reruns differ")
-        ms = cuda_ms(lambda: K6.smacof_bx(*args, eps=1e-9), reps=50, warmup=3)
+        # the kernel from a CUDA graph (Python launches slower than it runs)
+        ms = graph_ms(lambda: K6.smacof_bx(*args, eps=1e-9), reps=20)
         plain = cuda_ms(lambda: K6.smacof_bx_plain(*args, eps=1e-9), reps=10,
                         warmup=2)
         b_ms, b_by = k6_bound_ms(N, N, MDS_DIM, delta.element_size())
@@ -1179,6 +1182,18 @@ def mds_phases(dev, card: str) -> tuple[dict, int]:
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "bound_ms": b_ms, "bound_by": b_by}
         del delta, a, p, a2
+    return row
+
+
+def mds_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 17-18; returns K6's row of the kernels line and its launches
+    on the WDA-MDS main path (one mds)."""
+    import numpy as np
+
+    from harp_tpu_torch.models import wdamds as WD
+    from harp_tpu_torch.ops import wdamds_kernel as K6
+
+    row = k6_phase(dev, card)
 
     # -- 18. WDA-MDS through the public entry -------------------------------
     delta = WD.benchmark_delta(MDS_N, 0)
@@ -1219,15 +1234,29 @@ def mds_phases(dev, card: str) -> tuple[dict, int]:
     return row, launches
 
 
-def rf_phases(dev, card: str) -> tuple[dict, int]:
-    """Phases 19-20; returns K7's row of the kernels line and its launches
-    on the RF main path (one RandomForest.fit)."""
+def k7_bound_ms(n: int, f: int, T: int, R: int, B: int, nnz: int,
+                bin_bytes: int = 1) -> tuple[float, str]:
+    """K7's least time for one level: the bins once, the row codes and
+    weights of every tree in, the [T, R, f·B] int32 histogram out; or one
+    shared-memory update a weighted increment (a nonzero (tree, sample)
+    weight times each feature: ``nnz`` of them), at one 4-byte update per
+    bank and clock (SMEM_UPDATES_S), where that is larger."""
+    nbytes = n * f * bin_bytes + 8 * T * n + 4 * T * R * f * B
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, nnz * f / SMEM_UPDATES_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k7_phase(dev, card: str) -> dict:
+    """Phase 19: K7 against its plain version at every level 0-5 of a real
+    32-tree 200k x 64 fit; returns K7's row of the kernels line (sums over
+    the six levels)."""
     import numpy as np
     import torch
 
     from harp_tpu_torch.models import rf as RF
     from harp_tpu_torch.ops import rf_kernel as K7
-    from harp_tpu_torch.utils.timing import cuda_ms
+    from harp_tpu_torch.utils.timing import cuda_ms, graph_ms
 
     # -- 19. K7 against its plain version, every level of a real fit -------
     cfg = RF.RFConfig(n_trees=RF_TREES, max_depth=RF_DEPTH,
@@ -1242,18 +1271,20 @@ def rf_phases(dev, card: str) -> tuple[dict, int]:
     nnz = int((w_i32 != 0).sum())
     node = torch.zeros((RF_TREES, RF_N), dtype=torch.int64, device=dev)
     C_, B = cfg.n_classes, cfg.n_bins
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
-           "ops": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for level in range(RF_DEPTH):
         R = 2 ** level * C_
         rc = (node * C_ + y[None, :]).to(torch.int32)
         h1 = K7.hist_bins(bins, rc, w_i32, R, B)
         h2 = K7.hist_bins_plain(bins, rc, w_i32, R, B)
+        h3 = K7.hist_bins(bins.to(torch.int32), rc, w_i32, R, B)
         torch.cuda.synchronize()
-        if not torch.equal(h1, h2):
-            fail(f"K7 level {level}: differs from the plain version")
-        ms = cuda_ms(lambda: K7.hist_bins(bins, rc, w_i32, R, B), reps=10,
-                     warmup=2)
+        if not (torch.equal(h1, h2) and torch.equal(h3, h2)
+                and torch.equal(h1, K7.hist_bins(bins, rc, w_i32, R, B))):
+            fail(f"K7 level {level}: uint8 or int32 bins differ from the "
+                 f"plain version, or a rerun differs")
+        ms = graph_ms(lambda: K7.hist_bins(bins, rc, w_i32, R, B), reps=5,
+                      replays=2)
         plain = cuda_ms(lambda: K7.hist_bins_plain(bins, rc, w_i32, R, B),
                         reps=2, warmup=1)
         # the library yardstick: the same weighted cells in one bincount
@@ -1273,25 +1304,21 @@ def rf_phases(dev, card: str) -> tuple[dict, int]:
             flat, weights=wf, minlength=RF_TREES * R * RF_F * B), reps=3,
             warmup=1)
         del flat, wf, lib_h
-        nbytes = RF_N * RF_F + 8 * RF_TREES * RF_N + 4 * h1.numel()
-        ops = nnz * RF_F  # one weighted increment a (tree, sample, feature)
-        b_ms, b_by = (max(nbytes / HBM_BYTES_S, ops / SMEM_UPDATES_S) * 1e3,
-                      "bytes" if nbytes / HBM_BYTES_S >= ops / SMEM_UPDATES_S
-                      else "operations")
+        b_ms, b_by = k7_bound_ms(RF_N, RF_F, RF_TREES, R, B, nnz,
+                                 bins.element_size())
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                     ("bytes", nbytes), ("ops", ops)):
+                     ("bound_ms", b_ms)):
             tot[k] += v
-        print(f"K7 level {level} (R={R}): bit-equal to the plain version; "
+        print(f"K7 level {level} (R={R}): uint8 and int32 bins bit-equal "
+              f"to the plain version, reruns bit-equal; "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.bincount "
               f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
         if level + 1 < RF_DEPTH:
             node = RF._grow_level(bins, y, weights, node, level, feat_mask,
                                   cfg)[2]
-        del h1, h2
-    t_bytes, t_ops = tot["bytes"] / HBM_BYTES_S, tot["ops"] / SMEM_UPDATES_S
+        del h1, h2, h3
     row = {"max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms": tot["bound_ms"], "bound_by": b_by,
            "library_ms": tot["library_ms"]}
     print(f"K7 over levels 0-{RF_DEPTH - 1} (one launch each, {nnz} "
           f"nonzero (tree, sample) weights): kernel {row['ms']:.4f} ms, "
@@ -1299,6 +1326,21 @@ def rf_phases(dev, card: str) -> tuple[dict, int]:
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}) [{card}]")
     del bins, y, weights, feat_mask, w_i32, node
+    return row
+
+
+def rf_phases(dev, card: str) -> tuple[dict, int]:
+    """Phases 19-20; returns K7's row of the kernels line and its launches
+    on the RF main path (one RandomForest.fit)."""
+    import numpy as np
+
+    from harp_tpu_torch.models import rf as RF
+    from harp_tpu_torch.ops import rf_kernel as K7
+
+    row = k7_phase(dev, card)
+    cfg = RF.RFConfig(n_trees=RF_TREES, max_depth=RF_DEPTH,
+                      hist_algo="pallas")
+    x, yh = RF.synthetic_classification(RF_N, RF_F, seed=0)
 
     # -- 20. RF through the public entry ------------------------------------
     K7.reset_launches()  # the RF main path's run starts here

@@ -108,12 +108,23 @@ def smacof_bx(delta_rows, row_mask, Xl, X, n_real: float, *, eps: float):
     lib = _lib()
     with torch.cuda.device(dev):
         grid, ch = _plan(lib, n_loc, N, dim, dev)
-        out = torch.empty((n_loc, dim), dtype=torch.float32, device=dev)
-        build.check(lib.wdamds_smacof_bx(
-            delta_rows.data_ptr(), int(delta_rows.dtype == torch.bfloat16),
-            row_mask.data_ptr(), Xl.data_ptr(), X.data_ptr(), n_loc, N, dim,
-            float(n_real), float(eps), grid, ch, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream),
-            "wdamds_smacof_bx launch")
+        return launch(lib, grid, ch, delta_rows, row_mask, Xl, X, n_real,
+                      eps)
+
+
+def launch(lib: ctypes.CDLL, grid: int, ch: int, delta_rows, row_mask, Xl,
+           X, n_real: float, eps: float):
+    """One launch of K6 from ``lib`` (the built
+    ``csrc/wdamds_smacof_bx.cu``) with its plan (``grid``, ``ch``) on the
+    current stream; the arguments as :func:`smacof_bx` checked them."""
+    (n_loc, N), dim = delta_rows.shape, X.shape[1]
+    dev = delta_rows.device
+    out = torch.empty((n_loc, dim), dtype=torch.float32, device=dev)
+    build.check(lib.wdamds_smacof_bx(
+        delta_rows.data_ptr(), int(delta_rows.dtype == torch.bfloat16),
+        row_mask.data_ptr(), Xl.data_ptr(), X.data_ptr(), n_loc, N, dim,
+        float(n_real), float(eps), grid, ch, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream),
+        "wdamds_smacof_bx launch")
     LAUNCHES["smacof_bx"] += 1
     return out

@@ -713,6 +713,53 @@ def test_k6_refuses_a_dim_past_its_registers(dev):
         K6.smacof_bx(*args, 64.0, eps=1e-9)
 
 
+# (n_loc, N, dim, dtype): n_loc not a multiple of the 32- or 16-row tile,
+# N not a multiple of the 16-byte load (4 f32, 8 bf16: element loads), a
+# bf16 N that is a multiple of 4 but not of 8, and dim 5 (2 rows a warp)
+K6_RAGGED = [(37, 4099, 3, torch.float32), (70, 4100, 3, torch.bfloat16),
+             (33, 4097, 3, torch.bfloat16), (45, 4104, 5, torch.float32),
+             (4096, 4096, 3, torch.float32), (4096, 4096, 3, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("n_loc,N,dim,dtype", K6_RAGGED)
+def test_k6_ragged_rows_and_loads_match_plain(dev, n_loc, N, dim, dtype):
+    args = _k6_inputs(n_loc, N, dim, dtype, dev, pad=1)
+    a = K6.smacof_bx(*args, float(N - 2), eps=1e-9)
+    b = K6.smacof_bx_plain(*args, float(N - 2), eps=1e-9)
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert torch.equal(a, K6.smacof_bx(*args, float(N - 2), eps=1e-9))
+    assert bool((a[-1] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_takes_an_unaligned_delta(dev, dtype):
+    """A delta whose base is not 16-byte aligned takes element loads."""
+    delta, rm, Xl, X = _k6_inputs(100, 1024, 3, dtype, dev)
+    flat = torch.empty(delta.numel() + 1, dtype=dtype, device=dev)
+    flat[1:] = delta.reshape(-1)
+    du = flat[1:].view(delta.shape)
+    assert du.is_contiguous() and du.data_ptr() % 16 != 0
+    a = K6.smacof_bx(du, rm, Xl, X, 1024.0, eps=1e-9)
+    torch.testing.assert_close(
+        a, K6.smacof_bx_plain(delta, rm, Xl, X, 1024.0, eps=1e-9),
+        rtol=1e-4, atol=1e-5)
+    assert torch.equal(a, K6.smacof_bx(du, rm, Xl, X, 1024.0, eps=1e-9))
+
+
+def test_k6_plans_of_two_shapes_do_not_cap_each_other(dev):
+    """Each shape's plan is asked once; a small N's plan may not lower the
+    shared memory a large N's launches take (records of 20,000 columns at
+    dim 3 walk 128 KB chunks)."""
+    for n_loc, N in ((37, 20_000), (16, 300), (37, 20_000)):
+        args = _k6_inputs(n_loc, N, 3, torch.float32, dev)
+        torch.testing.assert_close(
+            K6.smacof_bx(*args, float(N), eps=1e-9),
+            K6.smacof_bx_plain(*args, float(N), eps=1e-9), rtol=1e-4,
+            atol=1e-5)
+    idx = torch.device(dev).index or 0
+    assert {(37, 20_000, 3, idx), (16, 300, 3, idx)} <= set(K6._PLANS)
+
+
 def test_mds_launches_k6_once_per_iteration(dev):
     delta = WD.benchmark_delta(300, 1)
     K6.reset_launches()
@@ -742,6 +789,118 @@ def test_k7_is_bit_equal_to_plain(dev, level, dtype):
     assert K7.LAUNCHES["hist_bins"] == before + 1
     assert torch.equal(h1, K7.hist_bins_plain(bins, rc, w, R, B))
     assert torch.equal(h1, K7.hist_bins(bins, rc, w, R, B))
+
+
+def _k7_inputs(T, n, f, B, R, dtype, dev, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bins = torch.randint(0, B, (n, f), generator=g, device=dev).to(dtype)
+    rc = torch.randint(0, R, (T, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    w = torch.poisson(torch.ones((T, n), device=dev), generator=g).clamp(
+        0, 127).to(torch.int32)
+    return bins, rc, w
+
+
+def _k7_check(bins, rc, w, R, B):
+    before = K7.LAUNCHES["hist_bins"]
+    h1 = K7.hist_bins(bins, rc, w, R, B)
+    torch.cuda.synchronize()
+    assert K7.LAUNCHES["hist_bins"] == before + 1
+    assert torch.equal(h1, K7.hist_bins_plain(bins, rc, w, R, B))
+    assert torch.equal(h1, K7.hist_bins(bins, rc, w, R, B))
+    return h1
+
+
+@pytest.mark.parametrize("level", [0, 5])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_k7_main_path_width_is_bit_equal(dev, level, dtype):
+    """f = 64 features, 32 trees, 32 bins, 2 classes at levels 0 and 5."""
+    _k7_check(*_k7_inputs(32, 20_000, 64, 32, 2 ** level * 2, dtype, dev,
+                          level), 2 ** level * 2, 32)
+
+
+@pytest.mark.parametrize("f", [9, 13, 72])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_k7_features_not_a_multiple_of_the_vector_width(dev, f, dtype):
+    _k7_check(*_k7_inputs(6, 5001, f, 32, 16, dtype, dev, f), 16, 32)
+
+
+@pytest.mark.parametrize("f", [64, 13])
+def test_k7_takes_bins_that_are_not_16_byte_aligned(dev, f):
+    """A contiguous [n, f] view one byte into its storage: element loads."""
+    bins, rc, w = _k7_inputs(4, 3001, f, 32, 8, torch.uint8, dev)
+    flat = torch.empty(bins.numel() + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = bins.reshape(-1)
+    bu = flat[1:].view(bins.shape)
+    assert bu.is_contiguous() and bu.data_ptr() % 16 != 0
+    _k7_check(bu, rc, w, 8, 32)
+
+
+def test_k7_all_zero_weights_give_zero_counts(dev):
+    bins, rc, w = _k7_inputs(32, 20_000, 64, 32, 64, torch.uint8, dev)
+    h = _k7_check(bins, rc, torch.zeros_like(w), 64, 32)
+    assert not bool(h.any())
+
+
+def test_k7_takes_R_up_to_its_shared_memory_limit(dev):
+    """The largest R whose one-feature histogram the planner fits runs
+    bit-equal; the next power of two past it raises."""
+    K7.hist_bins(*_k7_inputs(1, 64, 2, 32, 2, torch.uint8, dev), 2, 32)
+    optin, sms = K7._CARDS[torch.cuda.current_device()]
+    R = 1
+    while K7.plan(2, 5000, 3, 32, 2 * R, 1, optin, sms) is not None:
+        R *= 2
+    lo, hi = R, 2 * R  # the limit lies in [lo, hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if K7.plan(2, 5000, 3, 32, mid, 1, optin, sms) is None:
+            hi = mid
+        else:
+            lo = mid
+    _k7_check(*_k7_inputs(2, 5000, 3, 32, lo, torch.uint8, dev), lo, 32)
+    bins, rc, w = _k7_inputs(2, 100, 3, 32, 2, torch.uint8, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        K7.hist_bins(bins, rc, w, 2 * hi, 32)
+
+
+# pinned plans (fs, tg, ns, nchunks): W = 32 over two passes, 16, 8, 4 and
+# 1 lanes an item, a ragged last slice (24), one sub-tile a slot and 64,
+# owner stores (one chunk) and atomic flushes, uint8 and int32 bins
+K7_PINS = [(64, 2, 2, 1), (64, 2, 2, 5), (32, 1, 8, 3), (16, 4, 4, 1),
+           (8, 8, 1, 2), (4, 1, 64, 1), (1, 3, 4, 4), (24, 2, 4, 2)]
+
+
+@pytest.mark.parametrize("fs,tg,ns,nchunks", K7_PINS)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_k7_every_plan_is_bit_equal(dev, fs, tg, ns, nchunks, dtype):
+    T, n, f, B, R = 7, 9001, 64, 32, 8
+    bins, rc, w = _k7_inputs(T, n, f, B, R, dtype, dev, fs)
+    lib = K7._lib()
+    optin, sms = K7._card(lib, torch.cuda.current_device())
+    p = K7.plan(T, n, f, B, R, bins.element_size(), optin, sms, fs=fs,
+                tg=tg, ns=ns, nchunks=nchunks)
+    assert p.smem <= optin and (p.ns, p.nchunks) == (ns, nchunks)
+    assert p.w == min(32, 1 << (fs - 1).bit_length())
+    # the planner's layout of shared memory is the kernel's
+    assert p.smem == lib.rf_hist_bins_smem(p.fs, p.tg, p.w, p.ns, R, B,
+                                           int(dtype == torch.int32))
+    ref = K7.hist_bins_plain(bins, rc, w, R, B)
+    h = K7.launch(lib, p, bins, rc, w, R, B)
+    assert torch.equal(h, ref)
+    assert torch.equal(h, K7.launch(lib, p, bins, rc, w, R, B))
+
+
+def test_k7_plans_of_two_shapes_do_not_cap_each_other(dev):
+    """Each shape's plan is made once; a small shape's plan between two
+    launches of a large one (~195 KB of shared memory) leaves the large
+    one launchable."""
+    big, small = (32, 20_000, 64, 32, 64), (3, 500, 5, 7, 2)
+    for T, n, f, B, R in (big, small, big):
+        _k7_check(*_k7_inputs(T, n, f, B, R, torch.uint8, dev), R, B)
+    idx = torch.cuda.current_device()
+    assert {(*big, 1, idx), (*small, 1, idx)} <= set(K7._PLANS)
+    assert K7._PLANS[(*big, 1, idx)].smem > 100_000
 
 
 def test_k7_refuses_a_histogram_past_shared_memory(dev):
