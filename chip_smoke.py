@@ -75,8 +75,9 @@ fatal when it fails (exit code != 0 and no result line):
    harp_tpu_torch svm --algo pallas), and torch.profiler over one fit;
 17. K6 (smacof_bx) against its plain version at n = 4096, dim 3, f32 and
    bf16 delta, and at a ragged n = 4099: within rtol 1e-4 / atol 1e-5 (f32
-   summation order), reruns bit-equal; the kernel's time from a CUDA
-   graph of 20 calls (k6_phase);
+   summation order), reruns bit-equal; the time of back-to-back wrapper
+   calls (the kernels line's ms) and of the kernel from a CUDA graph of 20
+   calls (graph_ms) (k6_phase);
 18. models.wdamds.mds at n = 4096, dim 3, 30 iterations, algo="pallas": K6
    launched 30 times, a finite stress below the one-iteration stress, the
    card and the CPU agreeing on a small input for both algos (stress rtol
@@ -84,8 +85,8 @@ fatal when it fails (exit code != 0 and no result line):
 19. K7 (hist_bins) against its plain version at 200k x 64 features x 32
    bins, 32 trees, on the row codes and weights of every level 0-5 of a
    real fit: bit-equal int32 counts for uint8 and int32 bins, reruns
-   bit-equal, the kernel's time from a CUDA graph of 5 calls;
-   torch.bincount of the same weighted cells timed beside it (library_ms)
+   bit-equal, the time of back-to-back wrapper calls (ms) and of the
+   kernel from a CUDA graph of 5 calls (graph_ms); torch.bincount of the same weighted cells timed beside it (library_ms)
    (k7_phase);
 20. models.rf at 200k x 64, 32 trees, depth 6, hist_algo="pallas": K7
    launched once per level, the forest bit-equal to the dense arm's on the
@@ -1169,18 +1170,23 @@ def k6_phase(dev, card: str) -> dict:
             fail(f"K6 N={N} {ddt}: err {err} above rtol 1e-4 / atol 1e-5")
         if not torch.equal(a, a2):
             fail(f"K6 N={N} {ddt}: reruns differ")
-        # the kernel from a CUDA graph (Python launches slower than it runs)
-        ms = graph_ms(lambda: K6.smacof_bx(*args, eps=1e-9), reps=20)
+        # ms: back-to-back wrapper calls, what a call costs on the main
+        # path; graph: the kernel alone, replayed from a CUDA graph (the
+        # host launches a call more slowly than the kernel runs)
+        ms = cuda_ms(lambda: K6.smacof_bx(*args, eps=1e-9), reps=50,
+                     warmup=3)
+        graph = graph_ms(lambda: K6.smacof_bx(*args, eps=1e-9), reps=20)
         plain = cuda_ms(lambda: K6.smacof_bx_plain(*args, eps=1e-9), reps=10,
                         warmup=2)
         b_ms, b_by = k6_bound_ms(N, N, MDS_DIM, delta.element_size())
         name = str(ddt).removeprefix("torch.")
         print(f"K6 N={N} dim {MDS_DIM} delta {name}: max err {err:.3e}, "
-              f"reruns bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+              f"reruns bit-equal; kernel {ms:.4f} ms (from a CUDA graph "
+              f"{graph:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}) [{card}]")
         if (N, ddt) == (MDS_N, torch.float32):  # the main path's shapes
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            row = {"max_abs_err": err, "ms": ms, "graph_ms": graph,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
         del delta, a, p, a2
     return row
 
@@ -1271,7 +1277,8 @@ def k7_phase(dev, card: str) -> dict:
     nnz = int((w_i32 != 0).sum())
     node = torch.zeros((RF_TREES, RF_N), dtype=torch.int64, device=dev)
     C_, B = cfg.n_classes, cfg.n_bins
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0}
     for level in range(RF_DEPTH):
         R = 2 ** level * C_
         rc = (node * C_ + y[None, :]).to(torch.int32)
@@ -1283,8 +1290,10 @@ def k7_phase(dev, card: str) -> dict:
                 and torch.equal(h1, K7.hist_bins(bins, rc, w_i32, R, B))):
             fail(f"K7 level {level}: uint8 or int32 bins differ from the "
                  f"plain version, or a rerun differs")
-        ms = graph_ms(lambda: K7.hist_bins(bins, rc, w_i32, R, B), reps=5,
-                      replays=2)
+        ms = cuda_ms(lambda: K7.hist_bins(bins, rc, w_i32, R, B), reps=10,
+                     warmup=2)
+        graph = graph_ms(lambda: K7.hist_bins(bins, rc, w_i32, R, B), reps=5,
+                         replays=2)
         plain = cuda_ms(lambda: K7.hist_bins_plain(bins, rc, w_i32, R, B),
                         reps=2, warmup=1)
         # the library yardstick: the same weighted cells in one bincount
@@ -1306,22 +1315,24 @@ def k7_phase(dev, card: str) -> dict:
         del flat, wf, lib_h
         b_ms, b_by = k7_bound_ms(RF_N, RF_F, RF_TREES, R, B, nnz,
                                  bins.element_size())
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                     ("bound_ms", b_ms)):
+        for k, v in (("ms", ms), ("graph_ms", graph), ("plain_ms", plain),
+                     ("library_ms", lib), ("bound_ms", b_ms)):
             tot[k] += v
         print(f"K7 level {level} (R={R}): uint8 and int32 bins bit-equal "
-              f"to the plain version, reruns bit-equal; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.bincount "
+              f"to the plain version, reruns bit-equal; kernel {ms:.4f} ms "
+              f"(from a CUDA graph {graph:.4f} ms), plain {plain:.4f} ms, "
+              f"torch.bincount "
               f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
         if level + 1 < RF_DEPTH:
             node = RF._grow_level(bins, y, weights, node, level, feat_mask,
                                   cfg)[2]
         del h1, h2, h3
-    row = {"max_abs_err": 0.0, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-           "bound_ms": tot["bound_ms"], "bound_by": b_by,
-           "library_ms": tot["library_ms"]}
+    row = {"max_abs_err": 0.0, "ms": tot["ms"], "graph_ms": tot["graph_ms"],
+           "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+           "bound_by": b_by, "library_ms": tot["library_ms"]}
     print(f"K7 over levels 0-{RF_DEPTH - 1} (one launch each, {nnz} "
-          f"nonzero (tree, sample) weights): kernel {row['ms']:.4f} ms, "
+          f"nonzero (tree, sample) weights): kernel {row['ms']:.4f} ms "
+          f"(from a CUDA graph {row['graph_ms']:.4f} ms), "
           f"plain {row['plain_ms']:.4f} ms, torch.bincount "
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}) [{card}]")

@@ -18,8 +18,9 @@
 // shared-memory update per bank and clock (32 banks x 132 SMs x 1.98 GHz).
 //
 // Design (the launch plan - slice width FS, trees a block TG, lanes an item
-// W, sub-tiles a super-tile NS, sample chunks - is made once per card and
-// shape by harp_tpu_torch/ops/rf_kernel.py::plan):
+// W, sub-tiles a super-tile NS, sample chunks - and the block's
+// shared-memory layout are made once per card and shape by
+// harp_tpu_torch/ops/rf_kernel.py::plan; the launch checks the layout):
 //  - A block owns (a group of TG trees, a slice of FS features, a chunk of
 //    samples) and keeps those trees' [R, B, FS] int32 histograms in shared
 //    memory, the feature fastest.  One staged copy of a sample's bins
@@ -65,42 +66,18 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;  // super-tiles in the ring: three in flight
 constexpr int kBatch = 4;   // queued items a lane group takes at once
 
+// The launch plan and the block's shared-memory layout, both made by
+// rf_kernel.plan / rf_kernel.layout (the one owner of the layout; the
+// launch checks that each region holds what the kernel puts there).
 struct Plan {
   int fs, tg, w, ns, chunk, nchunks, nslices;
+  int fsp;        // histogram columns a (row, bin): fs rounded up to w
+  int counts_at;  // bytes: the [tg, R, B, fsp] int32 histograms, then
+  int queue_at;   // two int32 counters, the int2 item queue,
+  int ring_at;    // and kStages ring slots of
+  int slot;       // this many bytes: the bins [32 ns, fs], then at
+  int rcw_at;     // this offset the row codes and weights [tg, 32 ns]
 };
-
-__host__ __device__ inline long round16(long bytes) {
-  return (bytes + 15) / 16 * 16;
-}
-
-__host__ __device__ inline int padded_fs(const Plan& p) {
-  return (p.fs + p.w - 1) / p.w * p.w;
-}
-
-__host__ __device__ inline long hist_bytes(const Plan& p, int R, int B) {
-  return round16((long)p.tg * R * B * padded_fs(p) * 4);
-}
-
-__host__ __device__ inline long bins_bytes(const Plan& p, int in_size) {
-  return round16((long)p.ns * 32 * p.fs * in_size);
-}
-
-// one ring slot: the super-tile's bins [32 ns, fs], then its row codes and
-// weights [tg, 32 ns] each
-__host__ __device__ inline long stage_bytes(const Plan& p, int in_size) {
-  return bins_bytes(p, in_size) + 2L * p.tg * p.ns * 32 * 4;
-}
-
-// the block's item queue: two counters, then up to tg * 32 ns items
-__host__ __device__ inline long queue_bytes(const Plan& p) {
-  return 16 + round16((long)p.tg * p.ns * 32 * 8);
-}
-
-__host__ __device__ inline long smem_bytes(const Plan& p, int R, int B,
-                                           int in_size) {
-  return hist_bytes(p, R, B) + queue_bytes(p) +
-         kStages * stage_bytes(p, in_size);
-}
 
 // cp.async of 16 or 4 bytes, zero-filling what lies past src_bytes
 __device__ __forceinline__ void copy16(void* dst, const void* src,
@@ -136,21 +113,24 @@ hist_kernel(const BinT* __restrict__ bins, const int* __restrict__ rowcode,
             int R, Plan p, int* __restrict__ hist) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int fs = p.fs, fsp = padded_fs(p);
+  const int fs = p.fs, fsp = p.fsp;
   const int chunk_id = blockIdx.x % p.nchunks;
   const int g = blockIdx.x / p.nchunks;
   const int f0 = (g % p.nslices) * fs, nf = min(fs, f - f0);
   const int t0 = (g / p.nslices) * p.tg, ntr = min(p.tg, T - t0);
   const int S = p.ns * 32;
+  // The offsets are multiples of 16 (the launch checks it); the masks say
+  // so to the compiler, which then addresses the regions as aligned
+  // (without them K7 is slower: k67_phases' "no alignment hints")
   int* hs = reinterpret_cast<int*>(smem);
-  int* counts = reinterpret_cast<int*>(smem + hist_bytes(p, R, B));
-  int2* queue = reinterpret_cast<int2*>(smem + hist_bytes(p, R, B) + 16);
-  unsigned char* ring = smem + hist_bytes(p, R, B) + queue_bytes(p);
-  const long sb = stage_bytes(p, sizeof(BinT)), bb = bins_bytes(p, sizeof(BinT));
+  int* counts = reinterpret_cast<int*>(smem + (p.counts_at & ~15L));
+  int2* queue = reinterpret_cast<int2*>(smem + (p.queue_at & ~15L));
+  unsigned char* ring = smem + (p.ring_at & ~15L);
+  const long sb = p.slot & ~15L, bb = p.rcw_at & ~15L;
 
   {  // zero this block's histograms (16-byte stores over the rounded region)
     int4* h4 = reinterpret_cast<int4*>(hs);
-    const long n4 = hist_bytes(p, R, B) / 16;
+    const long n4 = p.counts_at >> 4;
     for (long c = tid; c < n4; c += kThreads) h4[c] = make_int4(0, 0, 0, 0);
     if (tid < 2) counts[tid] = 0;
   }
@@ -286,8 +266,7 @@ hist_kernel(const BinT* __restrict__ bins, const int* __restrict__ rowcode,
 template <typename BinT, bool kVecBins, bool kVecRcw>
 cudaError_t launch(const void* bins, const int* rowcode, const int* weights,
                    int T, int n, int f, int B, int R, const Plan& p,
-                   int* hist, cudaStream_t s) {
-  const long smem = smem_bytes(p, R, B, sizeof(BinT));
+                   long smem, int* hist, cudaStream_t s) {
   const int blocks = (T + p.tg - 1) / p.tg * p.nslices * p.nchunks;
   hist_kernel<BinT, kVecBins, kVecRcw><<<blocks, kThreads, smem, s>>>(
       static_cast<const BinT*>(bins), rowcode, weights, T, n, f, B, R, p,
@@ -298,13 +277,13 @@ cudaError_t launch(const void* bins, const int* rowcode, const int* weights,
 template <typename BinT>
 cudaError_t launch_bins(const void* bins, bool vec_bins, bool vec_rcw,
                         const int* rowcode, const int* weights, int T, int n,
-                        int f, int B, int R, const Plan& p, int* hist,
-                        cudaStream_t s) {
+                        int f, int B, int R, const Plan& p, long smem,
+                        int* hist, cudaStream_t s) {
   if (vec_bins)
-    return vec_rcw ? launch<BinT, true, true>(bins, rowcode, weights, T, n, f, B, R, p, hist, s)
-                   : launch<BinT, true, false>(bins, rowcode, weights, T, n, f, B, R, p, hist, s);
-  return vec_rcw ? launch<BinT, false, true>(bins, rowcode, weights, T, n, f, B, R, p, hist, s)
-                 : launch<BinT, false, false>(bins, rowcode, weights, T, n, f, B, R, p, hist, s);
+    return vec_rcw ? launch<BinT, true, true>(bins, rowcode, weights, T, n, f, B, R, p, smem, hist, s)
+                   : launch<BinT, true, false>(bins, rowcode, weights, T, n, f, B, R, p, smem, hist, s);
+  return vec_rcw ? launch<BinT, false, true>(bins, rowcode, weights, T, n, f, B, R, p, smem, hist, s)
+                 : launch<BinT, false, false>(bins, rowcode, weights, T, n, f, B, R, p, smem, hist, s);
 }
 
 template <typename BinT>
@@ -348,44 +327,51 @@ int rf_hist_bins_setup(int* optin, int* sms) {
   return (int)allow<int32_t>(*optin);
 }
 
-// The shared memory (bytes) a block of the plan takes.
-int rf_hist_bins_smem(int fs, int tg, int w, int ns, int R, int B,
-                      int bins_int32) {
-  Plan p{fs, tg, w, ns, 1, 1, 1};
-  return (int)smem_bytes(p, R, B, bins_int32 ? 4 : 1);
-}
-
 // bins: [n, f] uint8 (bins_int32 = 0) or int32 (1), row-major; rowcode and
 // weights [T, n] int32; hist [T, R, f*B] int32, zeroed unless nchunks is 1
 // (each block then stores every cell it owns).  The plan (fs, tg, w, ns,
-// chunk, nchunks) comes from rf_kernel.plan on this card.  The bins take
-// 16-byte copies when their rows and slices are 16-byte aligned, the row
-// codes and weights when n is a multiple of 4 and both are aligned.
+// chunk, nchunks) and the shared-memory layout (fsp, the byte offsets
+// counts_at, queue_at and ring_at, a ring slot's bytes and its row codes'
+// offset rcw_at, smem in all) come from rf_kernel.plan on this card.  The
+// bins take 16-byte copies when their rows and slices are 16-byte aligned,
+// the row codes and weights when n is a multiple of 4 and both are aligned.
 // Returns a CUDA error code (0 on success).
 int rf_hist_bins(const void* bins, int bins_int32, const void* rowcode,
                  const void* weights, int T, int n, int f, int B, int R,
                  int fs, int tg, int w, int ns, int chunk, int nchunks,
-                 void* hist, void* stream) {
+                 int fsp, long counts_at, long queue_at, long ring_at,
+                 long slot, long rcw_at, long smem, void* hist,
+                 void* stream) {
+  const int in_size = bins_int32 ? 4 : 1;
+  const long S = 32L * ns;
   if (T < 1 || n < 1 || f < 1 || B < 1 || R < 1 || fs < 1 || fs > f ||
       fs > 2 * w || tg < 1 || w < 1 || w > 32 || 32 % w || ns < 1 ||
-      ns > 64 || chunk < 1 || chunk % (32 * ns) || nchunks < 1 ||
+      ns > 64 || chunk < 1 || chunk % S || nchunks < 1 ||
       (long)chunk * nchunks < n || (long)tg * R > (1 << 20))
     return (int)cudaErrorInvalidValue;
-  const int in_size = bins_int32 ? 4 : 1;
+  // each region holds what the kernel puts there, on 16-byte boundaries
+  if (fsp < fs || fsp % w || counts_at % 16 || queue_at % 16 ||
+      ring_at % 16 || slot % 16 || rcw_at % 16 ||
+      counts_at < (long)tg * R * B * fsp * 4 || queue_at < counts_at + 8 ||
+      ring_at < queue_at + tg * S * 8 || rcw_at < S * fs * in_size ||
+      slot < rcw_at + 2 * tg * S * 4 || smem < ring_at + kStages * slot ||
+      smem > (1 << 30))
+    return (int)cudaErrorInvalidValue;
   const bool vec_bins = (f * in_size) % 16 == 0 && (fs * in_size) % 16 == 0 &&
                         (uintptr_t)bins % 16 == 0;
   const bool vec_rcw = n % 4 == 0 && (uintptr_t)rowcode % 16 == 0 &&
                        (uintptr_t)weights % 16 == 0;
-  Plan p{fs, tg, w, ns, chunk, nchunks, (f + fs - 1) / fs};
+  Plan p{fs, tg, w, ns, chunk, nchunks, (f + fs - 1) / fs, fsp,
+         (int)counts_at, (int)queue_at, (int)ring_at, (int)slot, (int)rcw_at};
   cudaStream_t s = (cudaStream_t)stream;
   const int* rc = (const int*)rowcode;
   const int* wt = (const int*)weights;
   int* out = (int*)hist;
   if (bins_int32)
     return (int)launch_bins<int32_t>(bins, vec_bins, vec_rcw, rc, wt, T, n, f,
-                                     B, R, p, out, s);
+                                     B, R, p, smem, out, s);
   return (int)launch_bins<uint8_t>(bins, vec_bins, vec_rcw, rc, wt, T, n, f,
-                                   B, R, p, out, s);
+                                   B, R, p, smem, out, s);
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@ card, by ablation, and how K7's launch plans compare.  Times are CUDA
 events around a CUDA graph of several calls (``utils.timing.graph_ms``),
 so the host's launch cost is left out.
 
-    python -m harp_tpu_torch.examples.k67_phases [--parent DIR] [--sweep]
+    python -m harp_tpu_torch.examples.k67_phases [--sweep]
 
 At the main paths' shapes (K7: every level 0-5 of the real 32-tree
 200k x 64 fit with 32 uint8 bins, as ``chip_smoke.k7_phase`` builds them;
@@ -14,23 +14,20 @@ replace, and fail loudly when a line is not there):
 
 - K7: "no increments" keeps every load and the bin-id reads but skips the
   shared-memory atomics (their condition can never hold, yet the compiler
-  cannot know it); "no items" (this design) also drops the loop over the
-  queued items; "no stream" (this design) loads only the first four
-  super-tiles of each block and counts them over and over; "no bin loads"
-  (the parent design) makes the bin ids from the sample and feature index
-  in place of the byte loads.
+  cannot know it); "no items" also drops the loop over the queued items;
+  "no stream" loads only the first four super-tiles of each block and
+  counts them over and over.
 - K6: "no delta" takes 1 in place of each delta (the loads go), "no
   distance" takes D = 1 (the distance arithmetic goes).
 
-K7 is also timed as built with 3 ring slots in place of 4 and with 8
-queued items a batch in place of 4 (design options).
+K7 is also timed as built with 3 ring slots in place of 4, with 8
+queued items a batch in place of 4, and without the masks that tell the
+compiler its shared-memory offsets are multiples of 16 (design options).
 
-``--parent DIR`` does the same for the sources of an older tree (its
-``harp_tpu_torch/csrc``; the design before this one, with its own C
-interface for K7), so that both splits come from one call.  ``--sweep``
-times K7 at every plan that fits (slice widths 64 / 32 / 16 / 8, 1-16
-trees a block, the planner's sample chunks; and the planner's slice and
-trees at 2-64 sub-tiles a ring slot) beside the planner's choice.
+``--sweep`` times K7 at every plan that fits (slice widths 64 / 32 / 16
+/ 8, 1-16 trees a block, the planner's sample chunks; and the planner's
+slice and trees at 2-64 sub-tiles a ring slot) beside the planner's
+choice.
 Prints one JSON line a kernel, with the card's name and power limit; K7's
 result is checked bit for bit against the plain version at every level.
 """
@@ -57,14 +54,8 @@ from harp_tpu_torch.utils.timing import graph_ms
 RF_N, RF_F, RF_TREES, RF_DEPTH = 200_000, 64, 32, 6
 MDS_N, MDS_DIM = 4096, 3
 
-_I, _P = ctypes.c_int, ctypes.c_void_p
-#: the parent design's C interface of K7 (bins transposed, plan in C)
-K7_PARENT_SIGNATURES = {
-    "rf_hist_bins_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
-                          ctypes.POINTER(_I)],
-    "rf_hist_bins": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-}
-#: {variant: [(source text, what replaces it)]} for each design's source
+_I = ctypes.c_int
+#: {variant: [(source text, what replaces it)]}
 K7_ABLATIONS = {
     "no increments": [("if (it[q].y == 0) continue;",
                        "if (it[q].y == 0 || b0[q] + b1[q] != -1000 - it[q].y) "
@@ -74,23 +65,17 @@ K7_ABLATIONS = {
                    "if (tile + kStages - 1 < kStages)")],
     "3 stages": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
     "batch 8": [("constexpr int kBatch = 4;", "constexpr int kBatch = 8;")],
-}
-K7_PARENT_ABLATIONS = {
-    "no increments": [("if ((unsigned)b < (unsigned)B) atomicAdd(&row[k * B + b], w);",
-                       "if (b == w + 1000) atomicAdd(&row[k * B + b], w);")],
-    "no bin loads": [("const int b = (int)binsT[(long)(f0 + k) * n + i];",
-                      "const int b = (int)((i + k) & 31);")],
+    "no alignment hints": [
+        ("smem + (p.counts_at & ~15L)", "smem + p.counts_at"),
+        ("smem + (p.queue_at & ~15L)", "smem + p.queue_at"),
+        ("smem + (p.ring_at & ~15L)", "smem + p.ring_at"),
+        ("sb = p.slot & ~15L, bb = p.rcw_at & ~15L;",
+         "sb = p.slot, bb = p.rcw_at;")],
 }
 K6_ABLATIONS = {
     "no delta": [("cur[q].get(e) * rsqrtf(d2)", "rsqrtf(d2)")],
     "no distance": [("const float d2 = fmaxf(x2[q] - 2.f * cross + y[DIM], 0.f);",
                      "const float d2 = 1.f;")],
-}
-K6_PARENT_ABLATIONS = {
-    "no delta": [("const float dl = load_delta<kBf16>(delta, (long)row[q] * N + c0 + j);",
-                  "const float dl = 1.f;")],
-    "no distance": [("const float D = sqrtf(fmaxf(x2[q] - 2.f * cross + y2, 0.f));",
-                     "const float D = 1.f;")],
 }
 
 
@@ -153,25 +138,6 @@ def rf_levels(dev):
     return bins, w_i32, levels, cfg.n_classes, cfg.n_bins
 
 
-def parent_k7(lib, bins, rc, w, R, B):
-    """A call of the parent design's K7 from ``lib`` as its wrapper made it
-    (transpose the bins, zero the histogram, launch)."""
-    (n, f), T = bins.shape, rc.shape[0]
-    fs, chunk = _I(), _I()
-    build.check(lib.rf_hist_bins_plan(T, n, f, B, R, ctypes.byref(fs),
-                                      ctypes.byref(chunk)), "parent plan")
-
-    def call():
-        binsT = bins.T.contiguous()
-        hist = torch.zeros((T, R, f * B), dtype=torch.int32, device=bins.device)
-        build.check(lib.rf_hist_bins(
-            binsT.data_ptr(), 0, rc.data_ptr(), w.data_ptr(), T, n, f, B, R,
-            fs.value, chunk.value, hist.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "parent launch")
-        return hist
-    return call
-
-
 def k6_call(lib, args):
     grid, ch = _I(), _I()
     delta, _, Xl, _, _ = args
@@ -190,8 +156,6 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", default=None,
-                    help="an older tree's root: split its kernels too")
     ap.add_argument("--sweep", action="store_true",
                     help="time K7 at every plan that fits")
     a = ap.parse_args(argv)
@@ -204,18 +168,6 @@ def main(argv=None) -> int:
         todo[("K7", v)] = (csrc / "rf_hist_bins.cu", p, K7._SIGNATURES)
     for v, p in K6_ABLATIONS.items():
         todo[("K6", v)] = (csrc / "wdamds_smacof_bx.cu", p, K6._SIGNATURES)
-    if a.parent:
-        pc = Path(a.parent) / "harp_tpu_torch" / "csrc"
-        todo[("K7 parent", "full")] = (pc / "rf_hist_bins.cu", [],
-                                       K7_PARENT_SIGNATURES)
-        todo[("K6 parent", "full")] = (pc / "wdamds_smacof_bx.cu", [],
-                                       K6._SIGNATURES)
-        for v, p in K7_PARENT_ABLATIONS.items():
-            todo[("K7 parent", v)] = (pc / "rf_hist_bins.cu", p,
-                                      K7_PARENT_SIGNATURES)
-        for v, p in K6_PARENT_ABLATIONS.items():
-            todo[("K6 parent", v)] = (pc / "wdamds_smacof_bx.cu", p,
-                                      K6._SIGNATURES)
     libs = build_variants(todo)
 
     # -- K7 -----------------------------------------------------------------
@@ -233,12 +185,9 @@ def main(argv=None) -> int:
         ref = K7.hist_bins_plain(bins, rc, w, R, B)
         row = {"level": level, "R": R, "plan": p.__dict__, "ms": {}}
         for (kern, var), lib in libs.items():
-            if not kern.startswith("K7"):
+            if kern != "K7":
                 continue
-            if kern == "K7":
-                call = (lambda lib=lib: K7.launch(lib, p, bins, rc, w, R, B))
-            else:
-                call = parent_k7(lib, bins, rc, w, R, B)
+            call = (lambda lib=lib: K7.launch(lib, p, bins, rc, w, R, B))
             if var == "full" and not torch.equal(call(), ref):
                 raise SystemExit(f"{kern} level {level}: differs from plain")
             row["ms"][f"{kern}: {var}"] = graph_ms(call, reps=5, replays=2)
@@ -276,7 +225,7 @@ def main(argv=None) -> int:
         args = (delta, torch.ones(MDS_N, device=dev), X, X, float(MDS_N))
         row = {"delta": str(ddt).removeprefix("torch."), "ms": {}}
         for (kern, var), lib in libs.items():
-            if kern.startswith("K6"):
+            if kern == "K6":
                 row["ms"][f"{kern}: {var}"] = graph_ms(k6_call(lib, args),
                                                        reps=20)
         rec["arms"].append(row)

@@ -41,12 +41,11 @@ LAUNCHES = {"hist_bins": 0}
 #: kernel's 11-bit sample index)
 STAGES, MIN_SUB_TILES, MAX_SUB_TILES = 4, 4, 64
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _SIGNATURES = {
     "rf_hist_bins_setup": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    "rf_hist_bins_smem": [_I, _I, _I, _I, _I, _I, _I],
     "rf_hist_bins": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P, _P],
+                     _I, _I, _I, _L, _L, _L, _L, _L, _L, _P, _P],
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
 #: per card index: (opt-in shared memory a block, SM count); the ask also
@@ -62,7 +61,11 @@ class Plan:
     ``fs`` features a slice, ``tg`` trees a block, ``w`` lanes an item's
     features take, ``ns`` 32-sample sub-tiles a super-tile (a ring slot),
     ``chunk`` samples a block (a multiple of 32·ns) over ``nchunks``
-    chunks, ``smem`` bytes of shared memory a block."""
+    chunks; and the block's shared memory, which the kernel takes as
+    given here (:func:`layout`): ``fsp`` histogram columns a (row, bin),
+    the byte offsets of the two counters, the item queue and the ring,
+    a ring slot's bytes and the offset of its row codes, and ``smem`` in
+    all."""
 
     fs: int
     tg: int
@@ -70,6 +73,12 @@ class Plan:
     ns: int
     chunk: int
     nchunks: int
+    fsp: int
+    counts_at: int
+    queue_at: int
+    ring_at: int
+    slot: int
+    rcw_at: int
     smem: int
 
 
@@ -77,17 +86,29 @@ def _round16(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
+def layout(fs: int, tg: int, w: int, ns: int, R: int, B: int,
+           itemsize: int) -> dict:
+    """A block's shared memory, in order: the [tg, R, B, fsp] int32
+    histograms (fsp = fs rounded up to w), two counters, a queue of 8-byte
+    items for a super-tile's tg·32·ns (tree, sample) pairs, and STAGES
+    ring slots, each a super-tile's bins [32·ns, fs] and then its trees'
+    row codes and weights [tg, 32·ns] each.  Regions start on 16 bytes."""
+    S = 32 * ns
+    fsp = -(-fs // w) * w
+    counts_at = _round16(tg * R * B * fsp * 4)
+    queue_at = counts_at + 16
+    ring_at = queue_at + _round16(tg * S * 8)
+    rcw_at = _round16(S * fs * itemsize)
+    slot = rcw_at + 2 * tg * S * 4
+    return {"fsp": fsp, "counts_at": counts_at, "queue_at": queue_at,
+            "ring_at": ring_at, "slot": slot, "rcw_at": rcw_at,
+            "smem": ring_at + STAGES * slot}
+
+
 def smem_bytes(fs: int, tg: int, w: int, ns: int, R: int, B: int,
                itemsize: int) -> int:
-    """A block's shared memory, as the kernel lays it out: the [tg, R, B,
-    fsp] int32 histograms (fsp = fs rounded up to w), two counters and a
-    queue of 8-byte items for a super-tile's tg·32·ns (tree, sample)
-    pairs, and STAGES ring slots of a super-tile's bins [32·ns, fs] and its
-    trees' row codes and weights [tg, 32·ns] each."""
-    fsp = -(-fs // w) * w
-    slot = _round16(ns * 32 * fs * itemsize) + 2 * tg * ns * 32 * 4
-    return (_round16(tg * R * B * fsp * 4) + 16 + _round16(tg * ns * 32 * 8)
-            + STAGES * slot)
+    """The bytes of :func:`layout`."""
+    return layout(fs, tg, w, ns, R, B, itemsize)["smem"]
 
 
 def plan(T: int, n: int, f: int, B: int, R: int, itemsize: int, optin: int,
@@ -109,9 +130,11 @@ def plan(T: int, n: int, f: int, B: int, R: int, itemsize: int, optin: int,
     - When nothing fits beside MIN_SUB_TILES, one sub-tile a slot will do
       before the plan is refused.
 
-    ``fs``, ``tg``, ``ns`` and ``nchunks`` pin a choice (for measuring
-    other plans).  Measured on an H100 against the other plans that fit,
-    with ``examples/k67_phases.py --sweep``."""
+    ``fs``, ``tg``, ``ns`` and ``nchunks`` pin a choice; only the tests
+    (to reach each branch of the kernel: lanes an item, ragged slices,
+    one sub-tile a slot, owner stores against atomic flushes) and
+    ``examples/k67_phases.py --sweep`` (to time the other plans that fit,
+    against which this rule was fitted on an H100) use them."""
     widths = sorted({min(f, 64) >> i for i in range(7)} - {0}, reverse=True)
     for least in (MIN_SUB_TILES, 1):
         for w_fs in widths if fs is None else [fs]:
@@ -130,7 +153,7 @@ def plan(T: int, n: int, f: int, B: int, R: int, itemsize: int, optin: int,
                                                math.ceil(n / tile)))
                 chunk = math.ceil(math.ceil(n / chunks) / tile) * tile
                 p = Plan(w_fs, w_tg, w, w_ns, chunk, math.ceil(n / chunk),
-                         smem_bytes(w_fs, w_tg, w, w_ns, R, B, itemsize))
+                         **layout(w_fs, w_tg, w, w_ns, R, B, itemsize))
                 load = w_tg * math.ceil(n / chunks)  # the busiest block's
                 if best is None or load <= best[0]:
                     best = (load, p)
@@ -232,7 +255,8 @@ def launch(lib: ctypes.CDLL, p: Plan, bins, rowcode, weights, R: int,
     build.check(lib.rf_hist_bins(
         bins.data_ptr(), int(bins.dtype == torch.int32), rowcode.data_ptr(),
         weights.data_ptr(), T, n, f, B, R, p.fs, p.tg, p.w, p.ns, p.chunk,
-        p.nchunks, hist.data_ptr(),
+        p.nchunks, p.fsp, p.counts_at, p.queue_at, p.ring_at, p.slot,
+        p.rcw_at, p.smem, hist.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "rf_hist_bins launch")
     LAUNCHES["hist_bins"] += 1
     return hist

@@ -9,6 +9,7 @@ fixture decides, never the import).  On the card, from the repo root:
 machine does not have; this file imports only torch and the port.)
 """
 
+import dataclasses
 import os
 import re
 import tempfile
@@ -882,9 +883,11 @@ def test_k7_every_plan_is_bit_equal(dev, fs, tg, ns, nchunks, dtype):
                 tg=tg, ns=ns, nchunks=nchunks)
     assert p.smem <= optin and (p.ns, p.nchunks) == (ns, nchunks)
     assert p.w == min(32, 1 << (fs - 1).bit_length())
-    # the planner's layout of shared memory is the kernel's
-    assert p.smem == lib.rf_hist_bins_smem(p.fs, p.tg, p.w, p.ns, R, B,
-                                           int(dtype == torch.int32))
+    # the launch refuses a layout with a region too small for its contents
+    for bad in ({"smem": p.smem - 16}, {"counts_at": p.counts_at - 16},
+                {"slot": p.slot - 16}, {"rcw_at": p.rcw_at - 16}):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K7.launch(lib, dataclasses.replace(p, **bad), bins, rc, w, R, B)
     ref = K7.hist_bins_plain(bins, rc, w, R, B)
     h = K7.launch(lib, p, bins, rc, w, R, B)
     assert torch.equal(h, ref)

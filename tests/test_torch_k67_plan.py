@@ -89,6 +89,40 @@ def test_shared_memory_of_a_plan_by_hand():
                                                     + 2 * 2 * 128 * 4))
 
 
+def test_layout_of_level_5_by_hand():
+    """The regions of the level-5 plan in order, each on 16 bytes: the
+    histograms [1, 64, 32, 16] int32, the counters, the 960-item queue,
+    then four slots of 960 x 16 bin ids and, at 15,360 bytes into a slot,
+    960 row codes and 960 weights."""
+    assert K7.layout(16, 1, 16, 30, 64, 32, 1) == {
+        "fsp": 16, "counts_at": 131_072, "queue_at": 131_088,
+        "ring_at": 131_088 + 7_680, "slot": 15_360 + 7_680,
+        "rcw_at": 15_360, "smem": 138_768 + 4 * 23_040}
+
+
+def test_layout_pads_and_rounds_to_16_bytes():
+    """fs = 3 at w = 4 pads to 4 columns; the regions of odd sizes (a
+    [1, 3, 5, 4] histogram of 240 bytes, 32 x 3 bin ids of 96 bytes) keep
+    their successors on 16-byte boundaries, as does a [1, 1, 3, 1]
+    histogram of 12 bytes."""
+    lay = K7.layout(3, 1, 4, 1, 3, 5, 1)
+    assert lay["fsp"] == 4 and lay["counts_at"] == 240
+    assert lay["rcw_at"] == 96 and lay["slot"] == 96 + 2 * 32 * 4
+    assert all(v % 16 == 0 for k, v in lay.items() if k != "fsp")
+    assert K7.layout(1, 1, 1, 1, 1, 3, 1)["counts_at"] == 16  # 12 → 16
+
+
+@pytest.mark.parametrize("T,n,f,B,R,itemsize", [(32, N, F, B, 64, 1),
+                                                (7, 9001, 13, 32, 8, 4),
+                                                (3, 500, 5, 7, 2, 1)])
+def test_a_plan_carries_its_layout(T, n, f, B, R, itemsize):
+    """The kernel takes the regions as the plan gives them; they must be
+    what :func:`rf_kernel.layout` makes for the plan's own choices."""
+    p = K7.plan(T, n, f, B, R, itemsize, OPTIN, SMS)
+    lay = K7.layout(p.fs, p.tg, p.w, p.ns, R, B, itemsize)
+    assert {k: getattr(p, k) for k in lay} == lay
+
+
 # level: (fs, tg, w, ns, chunk, nchunks) of the main path's plans, uint8
 MAIN = {0: (64, 8, 32, 5, 6080, 33), 1: (64, 4, 32, 7, 12544, 16),
         2: (64, 2, 32, 9, 25056, 8), 3: (64, 1, 32, 10, 50240, 4),
