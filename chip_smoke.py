@@ -115,7 +115,30 @@ fatal when it fails (exit code != 0 and no result line):
    the CPU at the example's defaults (loss sequence rtol 1e-3);
 24. MoE (moe_ffn on one card: one expert) against the CPU and the host
    reference on a small input, zero drops at capacity = tokens;
-25. one JSON line of the kernels, the card's name and power limit, and
+25. K1 at the streaming chunk shape, [262,144, 300] with k = 1000, against
+   its plain version (sums and counts equal, best_sum rtol 1e-5, reruns
+   bit-equal; ms, graph_ms, bound), models.kmeans._partials_block_int8
+   timed beside it, and K2 beside _partials_block (the f32 chunk route) at
+   the same shape (stream_chunk_phase);
+26. models.kmeans_stream.fit_streaming on a seeded 2M x 300 host array, k =
+   1000, explicit init, f32 and int8, at prefetch 0, 1, 2 and 4: every
+   depth bit-identical, the int8 stream launching K1 once a chunk an epoch
+   (counts set to 0 just before the int8 prefetch-2 fit, read just after),
+   f32 and int8 inertias within 2e-2, each fit's pipeline account and peak
+   device memory, the H2D rate of one chunk from pinned and from pageable
+   memory, and the card against the CPU on a small input (rtol 1e-4)
+   (stream_fit_phase);
+27. models.kmeans_stream.benchmark_ingest on a .npy memmap of the first 1M
+   rows, f32 at prefetch 0, 1, 2 and 4 and f16 at 2 (the f16 wire
+   bit-identical to the host cast), and fit_streaming_files over a
+   directory of CSV splits read by the port's native loader, against the
+   single-source fit of the same rows (stream_ingest_phase);
+28. models.kmeans_stream.benchmark_streaming at the north star (n = 1e9, d
+   = 300, k = 1000, int8; K1 once a chunk an epoch) and f32 at n = 1e8:
+   iters/s, points/s, s/iter and peak device memory; torch.profiler over
+   one int8 epoch of 128 chunks; and the CLI (python -m harp_tpu_torch
+   kmeans-stream --quantize int8) (stream_benchmark_phase);
+29. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -169,6 +192,14 @@ RF_N, RF_F, RF_TREES, RF_DEPTH = 200_000, 64, 32, 6
 # models.rf.synthetic_classification(20000, 64) with the default forest:
 # 0.9976), less 0.02
 SVM_ACC_FLOOR, RF_ACC_FLOOR = 0.97, 0.97
+
+# streaming KMeans at the north star (BASELINE.json: 1B points, k = 1000,
+# d = 300) on one card, in chunks of the reference's StreamConfig default;
+# f32 at the CLI's default n; a seeded 2M-row host array (a ragged last
+# chunk) for fit_streaming and, its first 1M rows, for the .npy ingest
+STREAM_N, STREAM_F32_N, STREAM_D, STREAM_K = 1_000_000_000, 100_000_000, 300, 1000
+STREAM_CHUNK, STREAM_ITERS, STREAM_BENCH_ITERS = 262_144, 2, 3
+STREAM_HOST_N, STREAM_NPY_N, STREAM_CSV_FILES, STREAM_CSV_ROWS = 2_000_000, 1_000_000, 4, 2048
 
 # Mistral-7B-v0.1's attention block (its config.json: hidden_size 4096, 32
 # attention heads, 8 KV heads, head dim 128, sliding_window 4096,
@@ -1697,6 +1728,310 @@ def attention_phases(dev, card: str) -> tuple[dict, int]:
     return row, launches
 
 
+def stream_chunk_phase(dev, card: str, gen) -> tuple[dict, dict]:
+    """Phase 25: K1 and K2 at the streaming chunk shape (STREAM_CHUNK x
+    STREAM_D, k = STREAM_K) on separated blobs drawn from ``gen``, each
+    against its plain version as in phases 2-3, with the time of
+    back-to-back wrapper calls (ms), of the kernel from a CUDA graph
+    (graph_ms), the plain version's, the bound, and beside them the port's
+    matmul routes: _partials_block_int8 for int8, _partials_block (the
+    route the f32 stream takes) for f32.  Returns the keys the two kernels'
+    rows of the kernels line gain."""
+    import torch
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.utils.timing import cuda_ms, graph_ms
+
+    n, d, k = STREAM_CHUNK, STREAM_D, STREAM_K
+    x, centers = blobs(n, d, k, gen, dev)
+    c2 = (centers ** 2).sum(-1)
+    q, scale = C.quantize_to_int8(x, x.abs().amax(0))
+    args = (q, *KM._quantize_centroids(centers, scale), scale)
+    s1, n1, b1 = KK.kmeans_partials_int8(*args)
+    s2, n2, b2 = KK.kmeans_partials_int8_plain(*args)
+    s3, n3, b3 = KK.kmeans_partials_int8(*args)
+    torch.cuda.synchronize()
+    rel = abs(float(b1) - float(b2)) / max(abs(float(b2)), 1e-30)
+    if not (torch.equal(s1, s2) and torch.equal(n1, n2)) or rel > 1e-5:
+        fail(f"K1 at the chunk shape: sums/counts differ or best_sum rel "
+             f"err {rel} > 1e-5")
+    if not (torch.equal(s1, s3) and torch.equal(n1, n3)
+            and torch.equal(b1, b3)):
+        fail("K1 reruns differ at the chunk shape")
+    b_ms, b_by = k12_bound_ms(n, d, k, True)
+    k1 = {"ms_chunk": cuda_ms(lambda: KK.kmeans_partials_int8(*args),
+                              reps=20),
+          "graph_ms_chunk": graph_ms(lambda: KK.kmeans_partials_int8(*args)),
+          "plain_ms_chunk": cuda_ms(
+              lambda: KK.kmeans_partials_int8_plain(*args), reps=3, warmup=1),
+          "bound_ms_chunk": b_ms,
+          "partials_block_int8_ms_chunk": cuda_ms(
+              lambda: KM._partials_block_int8(q, scale, centers, c2),
+              reps=3, warmup=1)}
+    print(f"K1 chunk n={n} d={d} k={k}: equal sums/counts, best_sum rel err "
+          f"{rel:.2e}, reruns bit-equal; kernel {k1['ms_chunk']:.4f} ms "
+          f"(graph {k1['graph_ms_chunk']:.4f}), plain "
+          f"{k1['plain_ms_chunk']:.4f} ms, _partials_block_int8 "
+          f"{k1['partials_block_int8_ms_chunk']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}) [{card}]")
+    del q, args, s1, s2, s3
+    t1, m1, i1 = KK.kmeans_partials(x, centers)
+    t2, m2, i2 = KK.kmeans_partials_plain(x, centers)
+    torch.cuda.synchronize()
+    err = float((t1 - t2).abs().max())
+    tol = 1e-5 * float(x.abs().max()) * float(m1.max())
+    x2 = float((x.double() ** 2).sum())
+    if not torch.equal(m1, m2) or err > tol or abs(float(i1 - i2)) > 1e-5 * x2:
+        fail(f"K2 at the chunk shape: counts differ, sums err {err} (tol "
+             f"{tol}) or inertia err {abs(float(i1 - i2))}")
+    b_ms, b_by = k12_bound_ms(n, d, k, False)
+    k2 = {"ms_chunk": cuda_ms(lambda: KK.kmeans_partials(x, centers),
+                              reps=20),
+          "plain_ms_chunk": cuda_ms(lambda: KK.kmeans_partials_plain(
+              x, centers), reps=3, warmup=1),
+          "bound_ms_chunk": b_ms,
+          "yardstick_ms_chunk": cuda_ms(
+              lambda: KM._partials_block(x, centers, c2), reps=5, warmup=1)}
+    print(f"K2 chunk n={n} d={d} k={k}: equal counts, sums max err "
+          f"{err:.3e} (tol {tol:.3e}); kernel {k2['ms_chunk']:.4f} ms, plain "
+          f"{k2['plain_ms_chunk']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the "
+          f"f32 stream's route _partials_block "
+          f"{k2['yardstick_ms_chunk']:.4f} ms [{card}]")
+    return k1, k2
+
+
+def h2d_rates(dev, card: str) -> None:
+    """GB/s of one chunk's host-to-device copy (f32 and int8 [STREAM_CHUNK,
+    STREAM_D]) from pageable and from pinned memory: host clock around five
+    copies ending in a synchronize, after one untimed."""
+    import torch
+
+    for dt in (torch.float32, torch.int8):
+        host = torch.ones((STREAM_CHUNK, STREAM_D), dtype=dt)
+        out = []
+        for name, src in (("pageable", host), ("pinned", host.pin_memory())):
+            dst = torch.empty_like(src, device=dev)
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            gbs = 5 * src.numel() * src.element_size() / 1e9 / (
+                time.perf_counter() - t0)
+            out.append(f"{name} {gbs:.2f} GB/s")
+        print(f"H2D of one {str(dt).removeprefix('torch.')} chunk "
+              f"[{STREAM_CHUNK}, {STREAM_D}]: " + ", ".join(out)
+              + f" [{card}]")
+
+
+def stream_fit_phase(dev, card: str) -> tuple:
+    """Phase 26; returns (the host array, its explicit init, K1's launches
+    on the streaming main path: the int8 fit at prefetch 2)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    # unit noise, as phase 4's points: int8 rounding then moves the
+    # inertia well inside 2e-2 (0.5 % on a CPU run at 60k x 300, k = 1000)
+    x, centers = blobs(STREAM_HOST_N, STREAM_D, STREAM_K, g, dev, noise=1.0)
+    pts = x.cpu().numpy()
+    # one centroid near each blob: the f32 and int8 runs share a basin
+    init = (centers + 0.1 * torch.randn(centers.shape, generator=g,
+                                        device=dev)).cpu().numpy()
+    del x, centers
+    n_chunks = -(-STREAM_HOST_N // STREAM_CHUNK)
+    h2d_rates(dev, card)
+    main_launches = None
+    inertia = {}
+    for q in (None, "int8"):
+        runs = {}
+        for p in (0, 1, 2, 4):
+            inst: dict = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            main = q == "int8" and p == 2
+            if main:
+                KK.reset_launches()  # the streaming main path starts here
+            t0 = time.perf_counter()
+            runs[p] = KS.fit_streaming(
+                pts, k=STREAM_K, iters=STREAM_ITERS,
+                chunk_points=STREAM_CHUNK, init=init, quantize=q, prefetch=p,
+                return_history=True, instrument=inst)
+            wall = time.perf_counter() - t0
+            if main:
+                launches = dict(KK.LAUNCHES)  # ... and ends here
+                main_launches = launches["kmeans_partials_int8"]
+                want = n_chunks * STREAM_ITERS
+                if launches != {"kmeans_partials_int8": want,
+                                "kmeans_partials": 0}:
+                    fail(f"fit_streaming int8: launches {launches}, "
+                         f"expected K1 {want} times (once a chunk an epoch)")
+            ep = inst["epochs"][-1]
+            pl = ep["pipeline"]
+            print(f"fit_streaming {q or 'f32'} prefetch {p}: inertia "
+                  f"{runs[p][1]:.6e}, wall {wall:.3f} s for {STREAM_ITERS} "
+                  f"epochs of {n_chunks} chunks; last epoch {ep['epoch_s']:.4f}"
+                  f" s, host {ep['host_s']:.4f} s, device tail "
+                  f"{ep['sync_s']:.4f} s, read {pl['read_s']:.4f} s, prep "
+                  f"{pl['prep_s']:.4f} s, ship {pl['ship_s']:.4f} s, wait "
+                  f"{pl['wait_s']:.4f} s, overlap_efficiency "
+                  f"{pl['overlap_efficiency']:.4f}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
+                  f"[{card}]")
+        for p in (1, 2, 4):
+            if not (np.array_equal(runs[p][0], runs[0][0])
+                    and np.array_equal(runs[p][2], runs[0][2])):
+                fail(f"fit_streaming {q or 'f32'}: prefetch {p} differs "
+                     "from prefetch 0")
+        c, i, h = runs[0]
+        if not (np.isfinite(c).all() and np.isfinite(h).all()
+                and h[-1] <= h[0]):
+            fail(f"fit_streaming {q or 'f32'}: history {h}")
+        inertia[q] = i
+    if abs(inertia["int8"] - inertia[None]) > 2e-2 * abs(inertia[None]):
+        fail(f"fit_streaming: int8 inertia {inertia['int8']} differs from "
+             f"f32's {inertia[None]} by more than 2e-2")
+    print(f"fit_streaming: every depth bit-identical, K1 {main_launches} "
+          f"launches (once a chunk an epoch), int8/f32 inertia "
+          f"{inertia['int8'] / inertia[None]:.6f}")
+    small, small_init = pts[:4096, :32], pts[:8, :32].copy()
+    for q in (None, "int8"):
+        kw = dict(k=8, iters=3, chunk_points=1000, init=small_init,
+                  quantize=q)
+        cg, ig = KS.fit_streaming(small, **kw)
+        cc, ic = KS.fit_streaming(small, device="cpu", **kw)
+        if not (np.allclose(cg, cc, rtol=1e-4, atol=1e-4)
+                and abs(ig - ic) <= 1e-4 * abs(ic)):
+            fail(f"fit_streaming {q or 'f32'}: the card and the CPU "
+                 "disagree on a small input")
+    print("fit_streaming: card and CPU agree on 4096 x 32, k=8, f32 and "
+          "int8 (rtol 1e-4)")
+    return pts, init, main_launches
+
+
+def stream_ingest_phase(dev, card: str, pts, init) -> None:
+    """Phase 27 (see the module doc)."""
+    import numpy as np
+
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.native import build as NB
+    from harp_tpu_torch.native.datasource import load_csv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        f32, f16 = os.path.join(tmp, "p32.npy"), os.path.join(tmp, "p16.npy")
+        np.save(f32, pts[:STREAM_NPY_N])
+        np.save(f16, pts[:STREAM_NPY_N].astype(np.float16))
+        for path, depths in ((f32, (0, 1, 2, 4)), (f16, (2,))):
+            mm = np.load(path, mmap_mode="r")
+            for p in depths:
+                out = KS.benchmark_ingest(mm, k=STREAM_K, iters=STREAM_ITERS,
+                                          chunk_points=STREAM_CHUNK,
+                                          prefetch=p)
+                if not np.isfinite(out["inertia"]):
+                    fail(f"benchmark_ingest {out['wire_dtype']}: inertia")
+                print(f"benchmark_ingest {mm.dtype} memmap {mm.shape} wire "
+                      f"{out['wire_dtype']} prefetch {p}: "
+                      f"{out['points_per_sec']:.6e} points/s, epoch "
+                      f"{out['epoch_sec']:.4f} s, host "
+                      f"{out['host_sec_per_epoch']:.4f} s "
+                      f"({out['host_gb_per_sec']:.3f} GB/s of disk bytes), "
+                      f"device tail {out['sync_sec_per_epoch']:.4f} s, "
+                      f"overlap_efficiency {out['overlap_efficiency']:.4f}, "
+                      f"ingest_bound_fraction "
+                      f"{out['ingest_bound_fraction']:.4f} [{card}]")
+        mm16 = np.load(f16, mmap_mode="r")
+        kw = dict(k=STREAM_K, iters=STREAM_ITERS, chunk_points=STREAM_CHUNK,
+                  init=init)
+        c16, i16 = KS.fit_streaming(mm16, **kw)
+        c32, i32 = KS.fit_streaming(np.asarray(mm16, np.float32), **kw)
+        if not (np.array_equal(c16, c32) and i16 == i32):
+            fail("the f16 wire is not bit-identical to the host cast")
+        print("f16 wire: bit-identical to the host cast")
+        if NB.load_native() is None:
+            fail("the port's native loader did not build (g++)")
+        paths = []
+        for f in range(STREAM_CSV_FILES):
+            paths.append(os.path.join(tmp, f"split_{f}.csv"))
+            np.savetxt(paths[-1], pts[f * STREAM_CSV_ROWS:
+                                      (f + 1) * STREAM_CSV_ROWS],
+                       fmt="%.7e", delimiter=",")
+        src = np.concatenate([load_csv(p) for p in paths])
+        info: dict = {}
+        cf, i_f = KS.fit_streaming_files(paths, info=info, **kw)
+        cs, i_s = KS.fit_streaming(src, **kw)
+        if not (np.allclose(cf, cs, rtol=1e-5, atol=1e-6)
+                and abs(i_f - i_s) <= 1e-5 * abs(i_s)
+                and info["n_total"] == len(src)):
+            fail("fit_streaming_files over CSV splits disagrees with the "
+                 "single-source fit")
+        print(f"fit_streaming_files: {len(paths)} CSV splits, {len(src)} x "
+              f"{src.shape[1]} rows through the native loader "
+              f"({NB.so_path().name}), equal to the single-source fit "
+              f"(rtol 1e-5)")
+
+
+def stream_benchmark_phase(dev, card: str) -> int:
+    """Phase 28; returns K1's launches in the north-star run."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.utils.timing import device_sync
+
+    KK.reset_launches()
+    n_launches = 0
+    for n, q, iters in ((STREAM_N, "int8", STREAM_BENCH_ITERS),
+                        (STREAM_F32_N, None, STREAM_ITERS)):
+        before = KK.LAUNCHES["kmeans_partials_int8"]
+        out = KS.benchmark_streaming(n=n, d=STREAM_D, k=STREAM_K,
+                                     iters=iters, chunk_points=STREAM_CHUNK,
+                                     quantize=q)
+        launched = KK.LAUNCHES["kmeans_partials_int8"] - before
+        want = out["n_chunks"] * (1 + iters) if q else 0
+        if launched != want or not np.isfinite(out["inertia"]):
+            fail(f"benchmark_streaming {q or 'f32'}: K1 launches {launched} "
+                 f"(expected {want}) or inertia {out['inertia']}")
+        if q:
+            n_launches = launched
+        print(f"benchmark_streaming {q or 'f32'} n={out['n']} d={STREAM_D} "
+              f"k={STREAM_K} ({out['n_chunks']} chunks of "
+              f"{out['chunk_points']}): {out['iters_per_sec']:.6f} iters/s, "
+              f"{out['points_per_sec']:.6e} points/s, "
+              f"{out['sec_per_iter']:.4f} s/iter, inertia "
+              f"{out['inertia']:.6e}, peak device memory "
+              f"{out['peak_mem_bytes'] / 2**30:.3f} GiB, K1 launches "
+              f"{launched} [{card}]")
+    # one int8 epoch of 128 chunks under the profiler
+    gen = KS._make_chunk_gen(0, 0, STREAM_CHUNK, STREAM_D, torch.float32,
+                             dev)
+    cfg = KS.StreamConfig(k=STREAM_K, quantize="int8")
+    col = torch.full((STREAM_D,), 5.0 / 127.0, device=dev)
+    c0 = torch.randn((STREAM_K, STREAM_D), device=dev)
+
+    def epoch():
+        device_sync(KS._synthetic_run(c0, 1, gen, 128, cfg, col)[1])
+
+    epoch()
+    t0 = time.perf_counter()
+    epoch()
+    bare = time.perf_counter() - t0
+    profile_run(epoch, card, "kmeans-stream int8", "epoch of 128 chunks",
+                bare, count=(KK.LAUNCHES, "kmeans_partials_int8",
+                             "main_kernel"))
+    row = run_cli("kmeans-stream", "--quantize", "int8", "--iters", "2")
+    if not np.isfinite(row["inertia"]):
+        fail(f"kmeans-stream CLI row is not finite: {row}")
+    return n_launches
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -1883,7 +2218,18 @@ def main() -> int:
     rows["flash_attention"], launches["flash_attention"] = attention_phases(
         dev, card)
 
-    # -- 25. result ----------------------------------------------------------
+    # -- 25-28. streaming KMeans ---------------------------------------------------
+    k1_chunk, k2_chunk = stream_chunk_phase(dev, card, gen)
+    pts_s, init_s, stream_launches = stream_fit_phase(dev, card)
+    stream_ingest_phase(dev, card, pts_s, init_s)
+    del pts_s
+    north_star_launches = stream_benchmark_phase(dev, card)
+    rows["kmeans_partials_int8"].update(
+        k1_chunk, stream_launches=stream_launches,
+        north_star_launches=north_star_launches)
+    rows["kmeans_partials"].update(k2_chunk)
+
+    # -- 29. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",

@@ -2,6 +2,8 @@
 
     python -m harp_tpu_torch kmeans --bench --quantize int8
     python -m harp_tpu_torch kmeans --n 4096 --d 16 --k 8 --device cpu
+    python -m harp_tpu_torch kmeans-stream --n 1000000000 --quantize int8
+    python -m harp_tpu_torch kmeans-stream --n 65536 --d 16 --k 8 --device cpu
     python -m harp_tpu_torch mfsgd --algo pallas --epochs 3
     python -m harp_tpu_torch mfsgd --users 2000 --items 500 --nnz 50000 --device cpu
     python -m harp_tpu_torch lda --algo pallas
@@ -23,6 +25,8 @@ from importlib import import_module
 APPS = {
     "kmeans": ("harp_tpu_torch.models.kmeans",
                "KMeans Lloyd iterations (allreduce)"),
+    "kmeans-stream": ("harp_tpu_torch.models.kmeans_stream",
+                      "streaming (blocked-epoch) KMeans, the 1B-point path"),
     "mfsgd": ("harp_tpu_torch.models.mfsgd",
               "MF-SGD with model rotation (rotate)"),
     "lda": ("harp_tpu_torch.models.lda",

@@ -20,9 +20,12 @@ f32 products on the card run in full f32: :func:`fit` and
 before they run on a CUDA device, since TF32 keeps about three decimal
 digits and would move assignments.
 
+The streaming form (``models.kmeans_stream``) takes its chunk partials from
+:func:`chunk_partials`, with the same routing.
+
 Not ported yet (ROADMAP.md, Queue 1): ``fit``'s checkpoint/fault path
-(``ckpt_dir``, ``fault``) and ``psum_schedule="hier"`` raise
-``NotImplementedError``.
+(``ckpt_dir``, ``fault``; item 5) and ``psum_schedule="hier"`` (item 2)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ class KMeansConfig:
         if self.psum_schedule == "hier":
             raise NotImplementedError(
                 "psum_schedule='hier' (allreduce_hier) is "
-                + _NOT_PORTED.format(item=1))
+                + _NOT_PORTED.format(item=2))
         if self.psum_schedule != "one_shot":
             raise ValueError(
                 f"psum_schedule must be 'one_shot' or 'hier', "
@@ -115,6 +118,17 @@ _INT8_SUM_ROW_LIMIT = (1 << 31) // 127
 def _clip_round_int8(values, scale):
     """The int8 rounding rule (numpy): round half to even, clip to ±127."""
     return np.clip(np.round(values / scale), -127, 127).astype(np.int8)
+
+
+def _check_int8_chunk_rows(rows_per_worker, limit):
+    """The exact-int32 accumulation guard for streamed chunks.  ``limit``
+    is required: callers resolve their module's ``_INT8_SUM_ROW_LIMIT``
+    at call time (tests shrink it to exercise the guard)."""
+    if rows_per_worker > limit:
+        raise ValueError(
+            f"quantize='int8': {rows_per_worker} chunk rows/worker "
+            f"exceeds the {limit} exact-int32 accumulation "
+            "bound — use a smaller chunk_points")
 
 
 def quantize_points_int8(points):
@@ -164,6 +178,36 @@ def _use_pallas(cfg: KMeansConfig) -> bool:
     if cfg.use_pallas is None:
         return cfg.quantize == "int8"
     return cfg.use_pallas
+
+
+def epoch_operands(centroids, quantize=None, col_scale=None) -> tuple:
+    """The centroid operands of every :func:`chunk_partials` call of one
+    epoch, taken once an epoch: ``(c_q, c_scale, c2, col_scale)`` for
+    int8 (the centroids requantized, as K1 takes them), else
+    ``(centroids, c2)``."""
+    if quantize == "int8":
+        return (*_quantize_centroids(centroids, col_scale), col_scale)
+    return centroids, (centroids.to(torch.float32) ** 2).sum(-1)
+
+
+def chunk_partials(points, operands, quantize=None):
+    """One streamed chunk's partials → (sums [k, d], counts [k], inertia),
+    routed as :func:`_use_pallas` routes a shard by default: K1 for int8
+    chunks, ``_partials_block`` for float ones.  ``points`` is this
+    worker's rows of the chunk, possibly none (then nothing launches);
+    ``operands`` come from :func:`epoch_operands`."""
+    if points.shape[0] == 0:
+        k, d = operands[0].shape
+        return (torch.zeros((k, d), device=points.device),
+                torch.zeros((k,), device=points.device),
+                torch.zeros((), device=points.device))
+    if quantize == "int8":
+        c_q, c_scale, c2, col_scale = operands
+        sums, counts, best_sum = kmeans_kernel.kmeans_partials_int8(
+            points, c_q, c_scale, c2, col_scale)
+        return sums, counts, best_sum + _hoisted_x2((points, col_scale))
+    centroids, c2 = operands
+    return _partials_block(points, centroids, c2)
 
 
 def kmeans_step(points, centroids, cfg: KMeansConfig, x2=None):
@@ -298,7 +342,7 @@ def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
     if ckpt_dir is not None or fault is not None:
         raise NotImplementedError(
             "fit's checkpoint/fault path (ckpt_dir, fault) is "
-            + _NOT_PORTED.format(item=2))
+            + _NOT_PORTED.format(item=5))
     mesh = resolve_mesh(mesh, device)
     _exact_f32(mesh.device)
     variant = _effective_variant(variant, k, mesh.num_workers)

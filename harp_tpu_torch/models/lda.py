@@ -37,10 +37,10 @@ rbg), but both ``rng_impl`` values draw from the port's
 the reference documents for its own two generators.  ``sample_epoch(noise=
 ...)`` injects draws instead (the tests hand in the reference's).
 
-Not ported yet: ``algo="pushpull"`` (ROADMAP.md, Queue 1, items 1 and 6),
+Not ported yet: ``algo="pushpull"`` (ROADMAP.md, Queue 1, item 3),
 ``fit``'s checkpoint/fault path, the CLI's ``--ckpt-dir``/``--resume`` and
-``--input`` (item 2), ``--elastic``/``--max-worker-loss`` (item 10) and
-``benchmark(pack_cache=...)`` (item 7); each raises ``NotImplementedError``.
+``--input`` (item 5), ``--elastic``/``--max-worker-loss`` (item 8) and
+``benchmark(pack_cache=...)`` (item 4); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ class LDAConfig:
         if self.algo == "pushpull":
             raise NotImplementedError(
                 "algo='pushpull' (table pull/push and regroup) is "
-                + _ITEM.format("1 and 6"))
+                + _ITEM.format(3))
 
 
 def carry_db_resolved(cfg: LDAConfig) -> bool:
@@ -501,7 +501,7 @@ class LDA:
         if ckpt_dir is not None or fault is not None:
             raise NotImplementedError(
                 "fit's checkpoint/fault path (ckpt_dir, fault) is "
-                + _ITEM.format(2))
+                + _ITEM.format(5))
         self._require_tokens("fit")
         for _ in range(epochs):
             self.sample_epoch()
@@ -627,7 +627,7 @@ def benchmark(n_docs=100_000, vocab_size=50_000, n_topics=1000,
     ``sample_epochs(epochs)``, ending in its readback."""
     if pack_cache is not None:
         raise NotImplementedError("benchmark(pack_cache=...) is not ported "
-                                  "yet (ROADMAP.md, Queue 1, item 7)")
+                                  "yet (ROADMAP.md, Queue 1, item 4)")
     mesh = resolve_mesh(mesh, device)
     cfg = _make_cfg(n_topics, algo, chunk, d_tile, w_tile, entry_cap,
                     pull_cap, ndk_dtype, dedup_pulls, sampler, rng_impl,
@@ -703,9 +703,9 @@ def main(argv=None):
         p.add_argument(flag, action="store_true", help="not ported yet")
     args = p.parse_args(argv)
     unported = [(f, item) for f, on, item in (
-        ("--ckpt-dir", args.ckpt_dir, 2), ("--resume", args.resume, 2),
-        ("--input", args.input, 2), ("--elastic", args.elastic, 10),
-        ("--max-worker-loss", args.max_worker_loss, 10)) if on]
+        ("--ckpt-dir", args.ckpt_dir, 5), ("--resume", args.resume, 5),
+        ("--input", args.input, 5), ("--elastic", args.elastic, 8),
+        ("--max-worker-loss", args.max_worker_loss, 8)) if on]
     if unported:
         raise NotImplementedError("; ".join(
             f"{f} is " + _ITEM.format(item) for f, item in unported))

@@ -24,10 +24,10 @@ The pallas path needs no ``insert_coverage_entries``: that host step exists
 so the TPU's W-block streaming writes every output block, and K3's level
 schedule skips entries without a rating.
 
-Not ported yet (ROADMAP.md, Queue 1, item 5): ``fit``'s checkpoint/fault
-path, the CLI's ``--ckpt-dir``/``--resume``, ``--input`` and
-``--elastic``/``--max-worker-loss``, and ``carry_w`` (a lever of the
-reference's XLA path); each raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1): ``fit``'s checkpoint/fault path,
+the CLI's ``--ckpt-dir``/``--resume`` and ``--input`` (item 5),
+``--elastic``/``--max-worker-loss`` (item 8), and ``carry_w`` (a lever of
+the reference's XLA path; item 4); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from harp_tpu_torch.parallel.rotate import (ROTATE_WIRES, resident_chunk_index,
                                            rotate_pipeline)
 from harp_tpu_torch.utils import telemetry
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 5)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {})"
 
 
 @dataclasses.dataclass
@@ -83,7 +83,7 @@ class MFSGDConfig:
                 "already keeps W resident across its block runs; scatter "
                 "has no tile slicing to amortize)")
         if self.carry_w:
-            raise NotImplementedError("carry_w is " + _NOT_PORTED)
+            raise NotImplementedError("carry_w is " + _NOT_PORTED.format(4))
         if self.rotate_chunks is not None and self.rotate_chunks < 1:
             raise ValueError(
                 f"rotate_chunks must be >= 1, got {self.rotate_chunks}")
@@ -401,7 +401,7 @@ class MFSGD:
         if ckpt_dir is not None or fault is not None:
             raise NotImplementedError(
                 "fit's checkpoint/fault path (ckpt_dir, fault) is "
-                + _NOT_PORTED)
+                + _NOT_PORTED.format(5))
         return [self.train_epoch() for _ in range(epochs)]
 
     def factors(self):
@@ -549,12 +549,13 @@ def main(argv=None):
     for flag in ("--resume", "--elastic"):
         p.add_argument(flag, action="store_true", help="not ported yet")
     args = p.parse_args(argv)
-    unported = [f for f, on in (
-        ("--ckpt-dir", args.ckpt_dir), ("--resume", args.resume),
-        ("--input", args.input), ("--elastic", args.elastic),
-        ("--max-worker-loss", args.max_worker_loss)) if on]
+    unported = [(f, item) for f, on, item in (
+        ("--ckpt-dir", args.ckpt_dir, 5), ("--resume", args.resume, 5),
+        ("--input", args.input, 5), ("--elastic", args.elastic, 8),
+        ("--max-worker-loss", args.max_worker_loss, 8)) if on]
     if unported:
-        raise NotImplementedError(", ".join(unported) + " " + _NOT_PORTED)
+        raise NotImplementedError("; ".join(
+            f"{f} is " + _NOT_PORTED.format(item) for f, item in unported))
     mesh = WorkerMesh(args.device)
     print(benchmark_json("mfsgd_cli", benchmark(
         args.users or 138_493, args.items or 26_744, args.nnz, args.rank,

@@ -26,10 +26,8 @@ another stream than the reference's threefry, with the same distributions.
 ``RandomForest._fit(x, y, draws)`` takes the draws instead (the tests hand
 in the reference's).
 
-Not ported yet: ``binize_chunked``'s ingest threads (ROADMAP.md, Queue 1,
-item 3).  Until they come it is a serial chunk loop with ``binize``'s
-output, kept as the place they go in; and the telemetry,
-skew and flight-recorder hooks of ``fit``/``predict`` (item 10).
+Not ported yet: the telemetry, skew and flight-recorder hooks of
+``fit``/``predict`` (ROADMAP.md, Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -40,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from harp_tpu_torch.ingest import IngestPipeline
 from harp_tpu_torch.models.kmeans import _exact_f32
 from harp_tpu_torch.ops import rf_kernel
 from harp_tpu_torch.parallel import collective as C
@@ -81,13 +80,29 @@ def binize(x, edges):
     return out
 
 
-def binize_chunked(x, edges, chunk_rows=65_536):
-    """:func:`binize` a chunk of rows at a time, with the same output (a
-    row's bins depend on that row alone)."""
+def binize_chunked(x, edges, chunk_rows=65_536, prefetch=2):
+    """:func:`binize` through the ingest pipeline
+    (:class:`harp_tpu_torch.ingest.IngestPipeline`), with the same output
+    (a row's bins depend on that row alone): the read stage hands row
+    views and, with ``prefetch >= 2``, chunk j+1 bins on a worker thread
+    while chunk j's result is written back.  Each chunk writes its own
+    rows of the output, so the prep stage is thread-safe."""
     x = np.asarray(x)
+    n = x.shape[0]
     out = np.empty(x.shape, np.int32)
-    for lo in range(0, x.shape[0], chunk_rows):
-        out[lo:lo + chunk_rows] = binize(x[lo:lo + chunk_rows], edges)
+
+    def read(j):
+        lo = j * chunk_rows
+        return lo, x[lo:lo + chunk_rows]
+
+    def prep(t):
+        lo, blk = t
+        out[lo:lo + blk.shape[0]] = binize(blk, edges)
+
+    with IngestPipeline(read, prep, None, depth=max(1, prefetch),
+                        tag="rf.binize") as pipe:
+        for _ in pipe.stream(max(1, -(-n // chunk_rows))):
+            pass
     return out
 
 

@@ -2,7 +2,7 @@
 ``harp_tpu.models.stats`` that SVM needs.
 
 The statistics apps themselves (moments, covariance, naive Bayes, ...) are
-not ported yet (ROADMAP.md, Queue 1, item 8).
+not ported yet (ROADMAP.md, Queue 1, item 4).
 """
 
 from __future__ import annotations

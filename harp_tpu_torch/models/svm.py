@@ -17,7 +17,7 @@ device: the step size is a host number and ``b`` stays on the device.
 
 Not ported yet: ``fit_sparse``, ``make_train_fn_ell`` and the CLI's
 ``--libsvm`` (ELL rows from the native libsvm loader; ROADMAP.md, Queue 1,
-item 2).  Each raises ``NotImplementedError``.
+item 5).  Each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from harp_tpu_torch.parallel.mesh import WorkerMesh, num_workers, resolve_mesh
 from harp_tpu_torch.utils import telemetry
 
 _NOT_PORTED = ("the sparse ELL path is not ported yet (ROADMAP.md, Queue 1, "
-               "item 2: the native libsvm loader)")
+               "item 5: the native libsvm loader)")
 
 
 @dataclasses.dataclass

@@ -17,7 +17,7 @@ either: the reference's fallback to its XLA body when N is not a multiple
 of 128 is a Mosaic rule.
 
 Not ported yet: the weighted path (``mds(weights=...)``, the CG solve of
-``make_wsmacof_fn``; ROADMAP.md, Queue 1, item 8).  It raises
+``make_wsmacof_fn``; ROADMAP.md, Queue 1, item 4).  It raises
 ``NotImplementedError``.
 """
 
@@ -110,7 +110,7 @@ def mds(delta, cfg: MDSConfig | None = None, mesh: WorkerMesh | None = None,
     if weights is not None:
         raise NotImplementedError(
             "mds(weights=...): the weighted CG path is not ported yet "
-            "(ROADMAP.md, Queue 1, item 8)")
+            "(ROADMAP.md, Queue 1, item 4)")
     mesh = resolve_mesh(mesh, device)
     cfg = cfg or MDSConfig()
     _exact_f32(mesh.device)

@@ -479,7 +479,7 @@ def reshard(tree: Any, src_spec, dst_spec, *, wire: str = "exact"):
         if p[0] not in ("identity", "gather"):
             raise NotImplementedError(
                 f"reshard lowering {p[0]!r}: only the identity and blocked "
-                "-> replicated are ported (ROADMAP.md, Queue 1, item 1)")
+                "-> replicated are ported (ROADMAP.md, Queue 1, item 2)")
     moving = [x for x, p in zip(leaves, plans) if p[0] == "gather"]
     if moving:
         record_comm("reshard", tuple(moving), wire_dtype=RING_WIRES[wire])

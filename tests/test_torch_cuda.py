@@ -1034,3 +1034,53 @@ def test_k8_refuses_bad_head_dims_and_layouts(dev):
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(64 * 32 + 1, device=dev)
         K8.flash_attention(flat[1:].view(1, 64, 32), q, q)
+
+
+# ---- streaming KMeans: the staging ring and K1 on the stream -----------------
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_staging_ring_copies_are_ordered_on_the_card(dev, depth):
+    """Pinned buffers, a side-stream copy and a compute stream kept busy:
+    every chunk the consumer reads is the chunk that was prepped."""
+    from harp_tpu_torch.ingest import IngestPipeline, StagingRing
+
+    rows, cols, n = 4096, 256, 24
+    ring = StagingRing(rows, (cols,), torch.float32, dev, slots=depth + 1)
+
+    def prep(j):
+        ring.host(j, rows).fill_(float(j))
+        return j, rows
+
+    busy = torch.randn((2048, 2048), device=dev)
+    sums = []
+    with IngestPipeline(lambda j: j, prep, lambda t: ring.ship(*t),
+                        depth=depth) as pipe:
+        for shipped in pipe.stream(n):
+            x = shipped.get()
+            for _ in range(4):  # compute the copies must not overtake
+                busy = busy @ busy * 1e-3
+            sums.append(x.sum())
+    got = torch.stack(sums).cpu().numpy()
+    np.testing.assert_array_equal(got, np.arange(n, dtype=np.float32)
+                                  * rows * cols)
+
+
+def test_fit_streaming_runs_k1_once_a_chunk_and_matches_the_cpu(dev):
+    from harp_tpu_torch.models import kmeans_stream as KS
+
+    pts, centers = _blobs(20_000, 64, 16, seed=5)
+    kw = dict(k=16, iters=3, chunk_points=3000, init=centers,
+              return_history=True)
+    KK.reset_launches()
+    runs = [KS.fit_streaming(pts, quantize="int8", prefetch=p, **kw)
+            for p in (0, 1, 2, 4)]
+    assert KK.LAUNCHES == {"kmeans_partials_int8": 4 * 7 * 3,
+                           "kmeans_partials": 0}
+    for c, i, h in runs[1:]:
+        np.testing.assert_array_equal(c, runs[0][0])
+        np.testing.assert_array_equal(h, runs[0][2])
+    for q in (None, "int8"):
+        cg, ig, _ = KS.fit_streaming(pts, quantize=q, **kw)
+        cc, ic, _ = KS.fit_streaming(pts, quantize=q, device="cpu", **kw)
+        np.testing.assert_allclose(cg, cc, rtol=1e-4, atol=1e-4)
+        assert abs(ig - ic) <= 1e-4 * abs(ic)

@@ -4,6 +4,7 @@ built or launched when a module is imported."""
 
 import ast
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -15,12 +16,15 @@ import torch
 
 from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
+from harp_tpu_torch.models import kmeans_stream as KS
 from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
 from harp_tpu_torch.models import rf as RF
 from harp_tpu_torch.models import svm as SV
 from harp_tpu_torch.models import wdamds as WD
+from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
+from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel import mesh as M
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -58,7 +62,9 @@ def test_importing_the_whole_port_loads_no_jax():
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'harp_tpu'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "from harp_tpu_torch.native import build as NB\n"
+            "assert NB._LIB is None and not NB._TRIED\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -74,7 +80,11 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.ops.ring_attention",
             "harp_tpu_torch.ops.a2a_attention", "harp_tpu_torch.ops.rope",
             "harp_tpu_torch.ops.moe",
-            "harp_tpu_torch.examples.longctx_layer"} <= set(mods)
+            "harp_tpu_torch.examples.longctx_layer",
+            "harp_tpu_torch.ingest", "harp_tpu_torch.fileformat",
+            "harp_tpu_torch.models.kmeans_stream",
+            "harp_tpu_torch.native.build",
+            "harp_tpu_torch.native.datasource"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -96,7 +106,10 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
                                    "rf-benchmark", "rf-cli", "svm-fit",
                                    "svm-benchmark", "svm-cli", "wdamds-mds",
                                    "wdamds-benchmark", "wdamds-cli",
-                                   "longctx-main"])
+                                   "longctx-main", "stream-fit",
+                                   "stream-local", "stream-files",
+                                   "stream-benchmark", "stream-ingest",
+                                   "stream-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -138,6 +151,18 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
             WD.main(["--n", "8"])
         elif entry == "longctx-main":
             LC.main(["--seq", "16", "--steps", "1"])
+        elif entry == "stream-fit":
+            KS.fit_streaming(pts, k=2, iters=1)
+        elif entry == "stream-local":
+            KS.fit_streaming_local(pts, k=2, iters=1)
+        elif entry == "stream-files":
+            KS.fit_streaming_files(["points.npy"], k=2, iters=1)
+        elif entry == "stream-benchmark":
+            KS.benchmark_streaming(n=16, d=4, k=2, iters=1)
+        elif entry == "stream-ingest":
+            KS.benchmark_ingest(pts, k=2, iters=1)
+        elif entry == "stream-cli":
+            KS.main(["--n", "16", "--d", "4", "--k", "2", "--iters", "1"])
         elif entry == "lda-cli":
             LD.main(["--docs", "16", "--vocab", "8", "--topics", "4",
                      "--tokens-per-doc", "2", "--epochs", "1"])
@@ -201,7 +226,62 @@ def test_kernel_sources_ship_as_package_data_and_builds_are_ignored():
     cfg = tomllib.loads((REPO / "pyproject.toml").read_text())
     data = cfg["tool"]["setuptools"]["package-data"]["harp_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
+    native = cfg["tool"]["setuptools"]["package-data"]["harp_tpu_torch.native"]
+    assert native == ["*.cpp"]
+    assert (REPO / "harp_tpu_torch" / "native" / "loader.cpp").is_file()
     assert "torch" in cfg["project"]["optional-dependencies"]
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "harp_tpu_torch/_build/" in ignored
     assert "chiprun_out/" in ignored
+
+
+def _queue1_items() -> dict[int, str]:
+    """ROADMAP.md's Queue 1, item number -> the item's text."""
+    text = (REPO / "ROADMAP.md").read_text()
+    queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    parts = re.split(r"\n(\d)\. \*\*", queue)
+    return {int(parts[i]): parts[i + 1] for i in range(1, len(parts), 2)}
+
+
+_PTS = np.zeros((16, 4), np.float32)
+#: (what, a call that is not ported yet, a phrase of the ROADMAP item that
+#: its message must name)
+UNPORTED = [
+    ("kmeans-hier", lambda: KM.KMeansConfig(psum_schedule="hier"),
+     "allreduce_hier"),
+    ("kmeans-ckpt", lambda: KM.fit(_PTS, k=2, iters=1, device="cpu",
+                                   ckpt_dir="x"), "fit(ckpt_dir"),
+    ("stream-ckpt", lambda: KS.fit_streaming(_PTS, k=2, iters=1,
+                                             device="cpu", ckpt_dir="x"),
+     "streaming KMeans' `ckpt_dir`"),
+    ("stream-elastic", lambda: KS.main(["--elastic", "--device", "cpu"]),
+     "`elastic/`"),
+    ("parquet", lambda: DS.load_csv("x.parquet"), "Parquet"),
+    ("reshard", lambda: C.reshard(torch.zeros(4, 2), C.ShardSpec.blocked(0),
+                                  C.ShardSpec.blocked(1)), "`reshard`"),
+    ("wdamds-weights", lambda: WD.mds(np.zeros((8, 8), np.float32),
+                                      device="cpu",
+                                      weights=np.ones((8, 8))),
+     "weighted path"),
+    ("svm-sparse", lambda: SV.make_train_fn_ell(), "fit_sparse"),
+    ("lda-pushpull", lambda: LD.LDAConfig(algo="pushpull"), "pushpull"),
+    ("lda-pack_cache", lambda: LD.benchmark(
+        n_docs=16, vocab_size=8, n_topics=4, tokens_per_doc=2,
+        pack_cache="x", device="cpu"), "pack_cache"),
+    ("mfsgd-carry_w", lambda: MF.MFSGDConfig(algo="dense", carry_w=True),
+     "carry_w"),
+    ("mfsgd-elastic", lambda: MF.main(["--elastic", "--device", "cpu"]),
+     "`elastic/`"),
+]
+
+
+@pytest.mark.parametrize("what,call,phrase", UNPORTED,
+                         ids=[u[0] for u in UNPORTED])
+def test_not_ported_messages_name_their_roadmap_item(what, call, phrase):
+    items = _queue1_items()
+    assert sorted(items) == list(range(1, 10))
+    with pytest.raises(NotImplementedError) as err:
+        call()
+    named = {int(n) for n in re.findall(r"item (\d)", str(err.value))}
+    assert named, str(err.value)
+    assert any(phrase in items[n] for n in named), (named, phrase)

@@ -186,9 +186,9 @@ def test_one_worker_gather_still_rounds_and_records(jmesh1, wire):
 
 def test_unported_pairs_raise_and_wires_are_checked():
     x = torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         C.reshard(x, C.ShardSpec.replicated(), C.ShardSpec.blocked(0))
-    with pytest.raises(NotImplementedError, match="item 1"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         C.reshard(x, C.ShardSpec.blocked(0), C.ShardSpec.blocked(1))
     with pytest.raises(ValueError, match="wire"):
         C.reshard(x, C.ShardSpec.blocked(0), C.ShardSpec.replicated(),

@@ -170,11 +170,11 @@ def test_state_from_the_reference_predicts_the_same(jmesh1):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         SV.SVM(device="cpu").fit_sparse(None, None, None, None, 3)
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         SV.make_train_fn_ell()
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         SV.main(["--libsvm", "f.txt", "--device", "cpu"])
     with pytest.raises(ValueError, match="sv_wire"):
         SV.SVMConfig(sv_wire="fp8")

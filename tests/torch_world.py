@@ -794,3 +794,51 @@ def run_longctx_cases(rank: int, world: int) -> dict:
                            s["window"], s["steps"], mesh=WorkerMesh("cpu"))
     return {"losses": losses, "params": {k: v.numpy()
                                          for k, v in params.items()}}
+
+
+# ---- streaming KMeans ------------------------------------------------------------
+
+STREAM_SHAPE = {"n": 1300, "d": 6, "k": 5, "iters": 3, "chunk": 256,
+                "files": 3}
+
+
+def stream_points(seed: int = 11) -> np.ndarray:
+    """Separated blobs: both packages stream these rows."""
+    s = STREAM_SHAPE
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(s["n"], s["d"]))
+            + rng.integers(0, 4, size=(s["n"], 1)) * 6).astype(np.float32)
+
+
+def stream_split(pts: np.ndarray, rank: int, world: int) -> np.ndarray:
+    """Worker ``rank``'s rows for the local-split fit: uneven, rank-major,
+    so the concatenation is ``pts``."""
+    bounds = np.round(np.linspace(0, len(pts), world + 1) ** 1.1
+                      / len(pts) ** 0.1).astype(int)
+    return pts[bounds[rank]:bounds[rank + 1]]
+
+
+def run_stream_cases(rank: int, world: int, pts: np.ndarray,
+                     paths: list) -> dict:
+    """Every streaming variant on this worker of a gloo world: the local
+    split, the single source (each worker its block of every chunk) and
+    the file splits (fewer files than workers), f32 and int8, from one
+    explicit init; plus the string seedings of the local split."""
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+
+    s = STREAM_SHAPE
+    mesh = WorkerMesh("cpu")
+    kw = {"k": s["k"], "iters": s["iters"], "chunk_points": s["chunk"],
+          "mesh": mesh, "init": pts[:s["k"]].copy(), "return_history": True}
+    mine = stream_split(pts, rank, world)
+    out = {}
+    for q in (None, "int8"):
+        out[f"local-{q}"] = KS.fit_streaming_local(mine, quantize=q, **kw)
+        out[f"single-{q}"] = KS.fit_streaming(pts, quantize=q, **kw)
+        out[f"files-{q}"] = KS.fit_streaming_files(paths, quantize=q, **kw)
+    out["local-f16"] = KS.fit_streaming_local(mine.astype(np.float16), **kw)
+    for init in ("random", "kmeans++"):
+        out[f"init-{init}"] = KS.fit_streaming_local(
+            mine, k=s["k"], iters=0, mesh=mesh, seed=1, init=init)[0]
+    return out
