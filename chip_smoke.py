@@ -138,7 +138,28 @@ fatal when it fails (exit code != 0 and no result line):
    iters/s, points/s, s/iter and peak device memory; torch.profiler over
    one int8 epoch of 128 chunks; and the CLI (python -m harp_tpu_torch
    kmeans-stream --quantize int8) (stream_benchmark_phase);
-29. one JSON line of the kernels, the card's name and power limit, and
+29. the collective surface on the card's one-rank NCCL group: every
+   quantized verb, every reshard pair of five layouts on the three wires
+   and allreduce_hier against numpy, then the bench app (python -m
+   harp_tpu_torch bench --max-mb 256: GB/s and microseconds a call per
+   verb and size; one worker, so the local path) (verbs_phase);
+30. the sparse row verbs (pull/push_rows_sparse and their _dedup forms) on
+   a [50,000, 1000] f32 table with 8192 Zipf ids against numpy gathers and
+   np.add.at, drops at a small capacity, and the time a call
+   (tables_phase);
+31. LDA push/pull (this slice's main path; no kernel): a small corpus on
+   the card against the CPU, bit-equal under injected draws; benchmark(
+   algo="pushpull") at the benchmark width (tokens/s, s/epoch, prep,
+   log-likelihood, dropped_tokens 0, peak memory); suggest_pull_cap and a
+   sweep at it (0 dropped, Nwk.sum(0) == Nk, sum Ndk == tokens); the split
+   of a chunk into pull, sample and push from CUDA events; torch.profiler
+   over a sweep of a tenth of the docs (device busy and idle share, top
+   kernels); and the CLI
+   (python -m harp_tpu_torch lda --algo pushpull) (lda_pushpull_phases);
+32. models.kmeans.fit at 1M x 300, k = 100, int8 with psum_schedule="hier"
+   (K1 once an iteration), bit-equal to one_shot on one card
+   (kmeans_hier_phase);
+33. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -2032,6 +2053,329 @@ def stream_benchmark_phase(dev, card: str) -> int:
     return n_launches
 
 
+# -- 29-32: the collective surface, the tables, LDA push/pull, KMeans hier ---
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def verbs_phase(dev, card: str) -> None:
+    """Phase 29: every quantized verb, every reshard lowering and
+    allreduce_hier on the card's one-rank NCCL group, against numpy (bf16
+    casts against torch's CPU cast: numpy has no bf16); then the bench app
+    over 64 KB-256 MB."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from harp_tpu_torch import benchmark as BM
+    from harp_tpu_torch.parallel import collective as C
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        if dist.get_backend() != "nccl" or C.num_workers() != 1:
+            fail("verbs: the one-rank NCCL group did not come up")
+        rng = np.random.default_rng(3)
+        xh = (rng.normal(size=(64, 48)) * 5).astype(np.float32)
+        ih = rng.integers(-9, 10, size=(64, 2)).astype(np.int32)
+        bh = rng.random((64, 1)) < 0.5
+        x, i, b = (torch.from_numpy(a).to(dev) for a in (xh, ih, bh))
+        scale = np.float32(max(np.abs(xh).max(), 1e-30)) / np.float32(127.0)
+        q8 = (np.clip(np.round(xh / scale), -127, 127).astype(np.float32)
+              * scale).astype(np.float32)
+        b16 = torch.from_numpy(xh).to(torch.bfloat16).to(torch.float32).numpy()
+        want = {torch.bfloat16: b16, torch.int8: q8}
+        checked = 0
+        for verb, kw in (("allreduce_quantized", {}),
+                         ("push_quantized", {}),
+                         ("regroup_quantized", {}),
+                         ("regroup_quantized", {"split_dim": 1,
+                                                "concat_dim": 0}),
+                         ("rotate_quantized", {"shift": 1})):
+            for wd in (torch.bfloat16, torch.int8):
+                out = getattr(C, verb)((x, i, b), wire_dtype=wd, **kw)
+                got = [o.cpu().numpy() for o in out]
+                if not (np.array_equal(got[0], want[wd])
+                        and np.array_equal(got[1], ih)
+                        and np.array_equal(got[2], bh)
+                        and out[2].dtype == torch.bool):
+                    fail(f"verbs: {verb} {kw} on the {wd} wire disagrees "
+                         "with numpy")
+                checked += 1
+        S = C.ShardSpec
+        specs = {"R": S.replicated(), "S0": S.blocked(0), "S1": S.blocked(1),
+                 "S0s1": S.blocked(0, 1), "S1s2": S.blocked(1, 2)}
+        for wire, ref in (("exact", xh), ("bf16", b16), ("int8", q8)):
+            for a in specs:
+                for bb in specs:
+                    got = C.reshard(x, specs[a], specs[bb], wire=wire)
+                    ref_naive = C.reshard_reference(x, specs[a], specs[bb])
+                    plan = C._reshard_plan(specs[a], specs[bb], 1)[0]
+                    want_x = xh if plan in ("identity", "slice") else ref
+                    if not (np.array_equal(got.cpu().numpy(), want_x)
+                            and np.array_equal(ref_naive.cpu().numpy(), xh)):
+                        fail(f"verbs: reshard {a} -> {bb} ({plan}) on the "
+                             f"{wire} wire disagrees with numpy")
+                    checked += 1
+        for gs in (None, 1):
+            got = C.allreduce_hier((x, i, b), group_size=gs)
+            if not (np.array_equal(got[0].cpu().numpy(), xh)
+                    and np.array_equal(got[1].cpu().numpy(), ih)
+                    and np.array_equal(got[2].cpu().numpy(), bh)):
+                fail(f"verbs: allreduce_hier(group_size={gs}) disagrees")
+            checked += 1
+        print(f"verbs: {checked} calls of the quantized verbs, reshard "
+              "(every pair of 5 layouts on 3 wires) and allreduce_hier on "
+              "the one-rank NCCL group equal numpy (one worker: each verb "
+              f"is its local path) [{card}]")
+    finally:
+        dist.destroy_process_group()
+
+    cli = subprocess.run([sys.executable, "-m", "harp_tpu_torch", "bench",
+                          "--max-mb", "256"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    if cli.returncode:
+        fail(f"bench CLI exited {cli.returncode}:\n{cli.stderr[-2000:]}")
+    rows = [json.loads(ln) for ln in cli.stdout.splitlines()]
+    by_verb: dict[str, list] = {}
+    for r in rows:
+        if r["device"] != card or not (r["gb_per_sec"] > 0):
+            fail(f"bench row does not name this card or has no rate: {r}")
+        by_verb.setdefault(r["verb"], []).append(r)
+    n_sizes = len(BM.sizes(64, 256))
+    if set(by_verb) != set(BM.VERBS) | set(BM.SPARSE_VERBS) or any(
+            len(v) != n_sizes for v in by_verb.values()):
+        fail(f"bench: expected every verb at {n_sizes} sizes, got "
+             f"{ {k: len(v) for k, v in by_verb.items()} }")
+    print(f"bench (python -m harp_tpu_torch bench --max-mb 256; "
+          f"{rows[0]['note']}) [{card}]: per verb, size MB: GB/s, us a call")
+    for verb, rs in by_verb.items():
+        print(f"  {verb}: " + " | ".join(
+            f"{r['bytes'] / 2 ** 20:g}: {r['gb_per_sec']:.1f}, "
+            f"{r['sec'] * 1e6:.1f}" for r in rs))
+
+
+def tables_phase(dev, card: str) -> None:
+    """Phase 30: the sparse row verbs on a [50,000, 1000] f32 row table with
+    8192 Zipf ids (the LDA benchmark's word-topic table and chunk), against
+    numpy gathers and np.add.at (integer counts and +-1 deltas: exact in any
+    order), with the time a call."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch import table as T
+    from harp_tpu_torch.utils.timing import cuda_ms
+
+    rows, k, m = LDA_VOCAB, LDA_TOPICS, 8192
+    rng = np.random.default_rng(7)
+    table_h = rng.integers(0, 50, size=(rows, k)).astype(np.float32)
+    ids_h = ((rng.zipf(1.1, size=m) - 1) % rows).astype(np.int32)
+    deltas_h = rng.integers(-1, 2, size=(m, k)).astype(np.float32)
+    table, ids, deltas = (torch.from_numpy(a).to(dev)
+                          for a in (table_h, ids_h, deltas_h))
+    pushed_h = table_h.copy()
+    np.add.at(pushed_h, ids_h, deltas_h)
+    distinct = len(np.unique(ids_h))
+    for name in ("pull_rows_sparse", "pull_rows_sparse_dedup"):
+        fn = getattr(T, name)
+        got, ok, dropped = fn(table, ids, capacity=m)
+        if not (np.array_equal(got.cpu().numpy(), table_h[ids_h])
+                and bool(ok.all()) and int(dropped) == 0):
+            fail(f"tables: {name} disagrees with the numpy gather")
+        small = 256
+        want_drop = (distinct if name.endswith("dedup") else m) - small
+        if int(fn(table, ids, capacity=small)[2]) != want_drop:
+            fail(f"tables: {name} at capacity {small} does not drop "
+                 f"{want_drop}")
+        ms = cuda_ms(lambda: fn(table, ids, capacity=m), reps=10)
+        print(f"tables: {name} [{rows}, {k}] f32, {m} Zipf ids ({distinct} "
+              f"distinct), capacity {m}: {ms:.4f} ms a call; equal to "
+              f"numpy, drops {want_drop} at capacity {small} [{card}]")
+    for name in ("push_rows_sparse", "push_rows_sparse_dedup"):
+        fn = getattr(T, name)
+        got, dropped = fn(table, ids, deltas, capacity=m)
+        if not (np.array_equal(got.cpu().numpy(), pushed_h)
+                and int(dropped) == 0):
+            fail(f"tables: {name} disagrees with np.add.at")
+        ms = cuda_ms(lambda: fn(table, ids, deltas, capacity=m), reps=10)
+        print(f"tables: {name} of [{m}, {k}] +-1 deltas: {ms:.4f} ms a "
+              f"call; equal to np.add.at [{card}]")
+
+
+def _pushpull_split(model, card: str) -> float:
+    """One sweep with CUDA events around each chunk and its pull and push:
+    the device timeline's split of a chunk (gaps between launches
+    included).  Returns the sweep's wall seconds."""
+    import torch
+
+    from harp_tpu_torch import table as T
+    from harp_tpu_torch.models import lda as LD
+
+    spans = {"chunk": [], "pull": [], "push": []}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        return run
+
+    saved = (LD._sample_chunk_pushpull, T.pull_rows_sparse_dedup,
+             T.push_rows_sparse_dedup)
+    LD._sample_chunk_pushpull = timed(saved[0], "chunk")
+    T.pull_rows_sparse_dedup = timed(saved[1], "pull")
+    T.push_rows_sparse_dedup = timed(saved[2], "push")
+    try:
+        t0 = time.perf_counter()
+        model.sample_epoch()
+        wall = time.perf_counter() - t0
+    finally:
+        (LD._sample_chunk_pushpull, T.pull_rows_sparse_dedup,
+         T.push_rows_sparse_dedup) = saved
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    n = len(spans["chunk"])
+    rest = ms["chunk"] - ms["pull"] - ms["push"]
+    print(f"LDA pushpull split of one sweep ({n} chunks, wall {wall:.4f} s, "
+          f"events on the stream): a chunk {ms['chunk'] / n:.4f} ms = pull "
+          f"{ms['pull'] / n:.4f} + sample {rest / n:.4f} + push "
+          f"{ms['push'] / n:.4f}; pull+push share "
+          f"{(ms['pull'] + ms['push']) / ms['chunk']:.3f} [{card}]")
+    return wall
+
+
+def lda_pushpull_phases(dev, card: str) -> None:
+    """Phase 31: LDA push/pull, this slice's main path: a small corpus on
+    the card against the CPU, bit-equal under injected draws; benchmark(
+    algo="pushpull") at the benchmark width with the split of a chunk;
+    suggest_pull_cap; the invariants; the CLI."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import lda as LD
+
+    # -- the card against the CPU, the same draws ---------------------------
+    d, w = LD.synthetic_corpus(96, 64, 4, 50)
+    # exprace: products and quotients, rounded alike on both devices (a
+    # Gumbel draw's logs may differ in the last place between them)
+    for kw in ({}, {"dedup_pulls": False}, {"pull_cap": 3},
+               {"pull_cap": 8, "dedup_pulls": False}):
+        cfg = dict(n_topics=8, algo="pushpull", chunk=64, **kw)
+        models = [LD.LDA(96, 64, LD.LDAConfig(**cfg), seed=4),
+                  LD.LDA(96, 64, LD.LDAConfig(**cfg), seed=4, device="cpu")]
+        for m in models:
+            m.set_tokens(d, w)
+        rng = np.random.default_rng(9)
+        T_pad = models[1]._tokens[0].shape[0]
+        drops = []
+        for _ in range(2):
+            nz = rng.exponential(size=(T_pad, 8)).astype(np.float32)
+            for m in models:
+                m.sample_epoch(noise=lambda t, s, m=m: torch.from_numpy(
+                    nz).to(m.mesh.device))
+            drops.append((models[0].last_dropped, models[1].last_dropped))
+        for k in ("Ndk", "Nwk", "Nk", "z_grid"):
+            if not np.array_equal(getattr(models[0], k).cpu().numpy(),
+                                  getattr(models[1], k).numpy()):
+                fail(f"LDA pushpull {kw}: {k} on the card differs from the "
+                     "CPU under the same draws")
+        if any(a != b for a, b in drops):
+            fail(f"LDA pushpull {kw}: drops {drops} differ")
+    print("LDA pushpull 96 docs x 64 words, 8 topics, 2 sweeps: card == CPU "
+          "bit for bit under injected exprace draws (dedup on/off, caps 3 "
+          "and 8 that drop)")
+
+    # -- benchmark at the LDA benchmark width ---------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    out = LD.benchmark(LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_TPD, LDA_EPOCHS,
+                       algo="pushpull")
+    peak = torch.cuda.max_memory_allocated()
+    if out["dropped_tokens"] != 0 or not np.isfinite(out["log_likelihood"]):
+        fail(f"LDA pushpull benchmark: {out}")
+    print(f"LDA benchmark pushpull ({LDA_DOCS} docs x {LDA_VOCAB} words x "
+          f"{LDA_TOPICS} topics x {LDA_TPD} tokens, chunk 8192, dedup, cap = "
+          f"chunk): {out['tokens_per_sec_per_chip']:.6e} tokens/s per card, "
+          f"{out['sec_per_epoch']:.6f} s/epoch, prep {out['prep_sec']:.3f} s, "
+          f"log-likelihood {out['log_likelihood']:.6f}, dropped_tokens "
+          f"{out['dropped_tokens']}, peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB [{card}]")
+
+    # -- suggest_pull_cap, invariants, the split of a chunk -------------------
+    model = LD.LDA(LDA_DOCS, LDA_VOCAB, LD.LDAConfig(n_topics=LDA_TOPICS,
+                                                     algo="pushpull"), seed=1)
+    model.set_tokens(*LD.benchmark_corpus(LDA_DOCS, LDA_VOCAB, LDA_TPD, 0))
+    t0 = time.perf_counter()
+    cap = model.suggest_pull_cap(apply=True)
+    t_cap = time.perf_counter() - t0
+    sweep = _pushpull_split(model, card)  # one sweep at the suggested cap
+    n_tok = LDA_DOCS * LDA_TPD
+    ndk_sum = int(model.Ndk.sum(dtype=torch.int64))
+    if not (model.last_dropped == 0
+            and torch.equal(model.Nwk.sum(0), model.Nk)
+            and ndk_sum == n_tok == model.n_tokens
+            and float(model.Nwk.min()) >= 0):
+        fail(f"LDA pushpull at suggest_pull_cap {cap}: dropped "
+             f"{model.last_dropped}, sum Ndk {ndk_sum}, tokens {n_tok}, or "
+             "Nwk.sum(0) != Nk")
+    print(f"LDA pushpull suggest_pull_cap: {cap} (of chunk 8192; {t_cap:.2f} "
+          f"s on the host), the split's sweep at it {sweep:.4f} s, 0 dropped; "
+          f"Nwk.sum(0) == Nk and sum Ndk == {n_tok} tokens [{card}]")
+    del model
+    # device busy and idle share of a sweep at the same chunk shape (a
+    # tenth of the docs: 123 chunks, ~26k kernels in the trace)
+    small = LD.LDA(LDA_DOCS // 10, LDA_VOCAB, LD.LDAConfig(
+        n_topics=LDA_TOPICS, algo="pushpull"), seed=1)
+    small.set_tokens(*LD.benchmark_corpus(LDA_DOCS // 10, LDA_VOCAB, LDA_TPD,
+                                          0))
+    small.sample_epoch()
+    t0 = time.perf_counter()
+    small.sample_epoch()
+    bare = time.perf_counter() - t0
+    profile_epoch(small, card, "LDA pushpull", "sample_epoch", bare)
+    del small
+    crow = run_cli("lda", "--algo", "pushpull", "--epochs", "1")
+    if crow["dropped_tokens"] != 0 or not np.isfinite(crow["log_likelihood"]):
+        fail(f"LDA pushpull CLI row: {crow}")
+
+
+def kmeans_hier_phase(dev, card: str, gen) -> int:
+    """Phase 32: models.kmeans.fit at 1M x 300, k = 100, int8, with
+    psum_schedule="hier" (K1 once an iteration), bit-equal to one_shot on
+    one card; returns K1's launches on the hier fit."""
+    import numpy as np
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+
+    pts = blobs(N, D, K, gen, dev)[0].cpu().numpy()
+    one = KM.fit(pts, k=K, iters=ITERS, seed=0, quantize="int8")
+    KK.reset_launches()  # the hier arm's run starts here
+    t0 = time.perf_counter()
+    c, inertia = KM.fit(pts, k=K, iters=ITERS, seed=0, quantize="int8",
+                        psum_schedule="hier")
+    wall = time.perf_counter() - t0
+    launches = KK.LAUNCHES["kmeans_partials_int8"]  # ... and ends here
+    if launches != ITERS:
+        fail(f"KMeans hier: K1 launches {launches}, expected {ITERS}")
+    if not (np.array_equal(c, one[0]) and inertia == one[1]):
+        fail("KMeans hier: not bit-equal to one_shot on one card")
+    print(f"KMeans fit int8 psum_schedule=hier at {N} x {D}, k={K}: {ITERS} "
+          f"iterations, {wall:.3f} s incl. host prep, K1 launches "
+          f"{launches}, bit-equal to one_shot (inertia {inertia:.6e}) "
+          f"[{card}]")
+    return launches
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -2229,7 +2573,20 @@ def main() -> int:
         north_star_launches=north_star_launches)
     rows["kmeans_partials"].update(k2_chunk)
 
-    # -- 29. result ----------------------------------------------------------
+    # -- 29-32. verbs, tables, LDA push/pull, KMeans hier --------------------
+    for name, phase in (("verbs", lambda: verbs_phase(dev, card)),
+                        ("tables", lambda: tables_phase(dev, card)),
+                        ("LDA pushpull", lambda: lda_pushpull_phases(dev,
+                                                                     card)),
+                        ("KMeans hier", lambda: rows[
+                            "kmeans_partials_int8"].update(
+                                hier_launches=kmeans_hier_phase(dev, card,
+                                                                gen)))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+    # -- 33. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",

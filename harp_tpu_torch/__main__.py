@@ -8,12 +8,16 @@
     python -m harp_tpu_torch mfsgd --users 2000 --items 500 --nnz 50000 --device cpu
     python -m harp_tpu_torch lda --algo pallas
     python -m harp_tpu_torch lda --docs 96 --vocab 64 --topics 8 --d-tile 16 --w-tile 16 --entry-cap 64 --algo pallas --device cpu
+    python -m harp_tpu_torch lda --algo pushpull
+    python -m harp_tpu_torch lda --algo pushpull --docs 96 --vocab 64 --topics 8 --device cpu
     python -m harp_tpu_torch rf --hist-algo pallas
     python -m harp_tpu_torch rf --n 2000 --features 8 --trees 4 --depth 3 --hist-algo pallas --device cpu
     python -m harp_tpu_torch svm --algo pallas
     python -m harp_tpu_torch svm --n 2000 --d 16 --algo pallas --device cpu
     python -m harp_tpu_torch wdamds --algo pallas
     python -m harp_tpu_torch wdamds --n 128 --algo pallas --device cpu
+    python -m harp_tpu_torch bench --max-mb 256
+    python -m harp_tpu_torch bench --device cpu
     python -m harp_tpu_torch --list
 """
 
@@ -30,13 +34,15 @@ APPS = {
     "mfsgd": ("harp_tpu_torch.models.mfsgd",
               "MF-SGD with model rotation (rotate)"),
     "lda": ("harp_tpu_torch.models.lda",
-            "LDA-CGS with model rotation (rotate + Nk allreduce)"),
+            "LDA-CGS: model rotation, or push/pull of a row-sharded table"),
     "rf": ("harp_tpu_torch.models.rf",
            "Random Forest, level-wise histograms (allgather)"),
     "svm": ("harp_tpu_torch.models.svm",
             "linear SVM with a support-vector exchange (reshard)"),
     "wdamds": ("harp_tpu_torch.models.wdamds",
                "WDA-MDS by SMACOF (reshard + stress allreduce)"),
+    "bench": ("harp_tpu_torch.benchmark",
+              "collective micro-benchmarks (edu.iu.benchmark)"),
 }
 
 

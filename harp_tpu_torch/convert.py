@@ -59,8 +59,8 @@ def lda_state_from_numpy(pack: dict, device) -> dict:
     ``pack`` holds ``"Ndk"`` [docs, K] (f32 or int16), ``"Nwk"`` [words, K]
     f32, ``"Nk"`` [K] f32, ``"z_grid"`` (int32, shaped like the first token
     array) and ``"tokens"``: ``(ed, ew, od, ow)`` for the tiled algos or
-    ``(bd, bw, bm)`` for scatter, in the global storage layout, which is the
-    port's too.  Returns the same keys (``tokens`` a tuple) with the shapes
+    ``(bd, bw, bm)`` for scatter (``(pd, pw, pm)`` for pushpull), in the
+    global storage layout, which is the port's too.  Returns the same keys (``tokens`` a tuple) with the shapes
     checked; ``models.lda.LDA`` shards them."""
     Ndk, Nwk = np.asarray(pack["Ndk"]), np.asarray(pack["Nwk"], np.float32)
     if Ndk.dtype not in (np.float32, np.int16):

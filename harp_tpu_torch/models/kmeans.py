@@ -23,9 +23,12 @@ digits and would move assignments.
 The streaming form (``models.kmeans_stream``) takes its chunk partials from
 :func:`chunk_partials`, with the same routing.
 
+``psum_schedule="hier"`` sums the partials in two stages
+(``collective.allreduce_hier``: within groups of workers, then across
+them); on one worker both schedules are the identity.
+
 Not ported yet (ROADMAP.md, Queue 1): ``fit``'s checkpoint/fault path
-(``ckpt_dir``, ``fault``; item 5) and ``psum_schedule="hier"`` (item 2)
-raise ``NotImplementedError``.
+(``ckpt_dir``, ``fault``; item 5) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ class KMeansConfig:
     use_pallas: bool | None = None
     # opt-in int8 points: per-feature symmetric scales, exact int32 sums
     quantize: str | None = None
-    # the partials allreduce's schedule; "hier" is not ported yet
+    # the partials allreduce's schedule: one allreduce, or "hier", the
+    # two-stage allreduce_hier (floats reassociate across its stages)
     psum_schedule: str = "one_shot"
 
     def __post_init__(self):
@@ -81,11 +85,7 @@ class KMeansConfig:
             raise ValueError(
                 f"variant must be 'allreduce' or 'regroupallgather', "
                 f"got {self.variant!r}")
-        if self.psum_schedule == "hier":
-            raise NotImplementedError(
-                "psum_schedule='hier' (allreduce_hier) is "
-                + _NOT_PORTED.format(item=2))
-        if self.psum_schedule != "one_shot":
+        if self.psum_schedule not in ("one_shot", "hier"):
             raise ValueError(
                 f"psum_schedule must be 'one_shot' or 'hier', "
                 f"got {self.psum_schedule!r}")
@@ -274,7 +274,9 @@ def _combine_partials(sums, counts, partial_inertia, centroids, cfg, nw):
         new_centroids = C.pull(_normalize_centroids(my_sums, my_counts,
                                                     cent_blk))
         return new_centroids, C.allreduce(partial_inertia)
-    sums, counts, inertia = C.allreduce((sums, counts, partial_inertia))
+    allreduce = C.allreduce_hier if cfg.psum_schedule == "hier" \
+        else C.allreduce
+    sums, counts, inertia = allreduce((sums, counts, partial_inertia))
     return _normalize_centroids(sums, counts, centroids), inertia
 
 
@@ -474,8 +476,8 @@ def main(argv=None):
                         "runs kernel K1)")
     p.add_argument("--psum-schedule", choices=["one_shot", "hier"],
                    default="one_shot",
-                   help="partials-allreduce schedule ('hier' is not "
-                        "ported yet)")
+                   help="partials-allreduce schedule: one allreduce "
+                        "(default) or the two-stage allreduce_hier")
     p.add_argument("--bench", action="store_true",
                    help="synthetic benchmark mode (points drawn on the device)")
     p.add_argument("--device", default=None,

@@ -1,5 +1,5 @@
-"""LDA via collapsed Gibbs sampling with model rotation — the port of
-``harp_tpu.models.lda`` (its rotation algos).
+"""LDA via collapsed Gibbs sampling — the port of ``harp_tpu.models.lda``:
+model rotation, and Harp's push/pull variant.
 
 Harp's ``edu.iu.lda`` (rotation variant): tokens are partitioned into the
 (doc range × word slice) grid of :func:`~harp_tpu_torch.models.mfsgd.
@@ -11,7 +11,7 @@ rotation step a worker resamples the tokens of its block that touch the
 resident chunk.  The topic totals Nk are synchronised every step with an
 allreduce of the step's deltas.  Parallel CGS is approximate by
 construction; within one worker the port's chain is the reference's chain.
-Three algos (``LDAConfig.algo``):
+Three rotation algos (``LDAConfig.algo``):
 
 - ``"pallas"`` (the config's default): kernel K4
   (:func:`harp_tpu_torch.ops.lda_kernel.cgs_step`), one call per rotation
@@ -22,6 +22,19 @@ Three algos (``LDAConfig.algo``):
   snapshot (the reference's XLA path), with gathers and ``index_add_``;
 - ``"scatter"``: fixed-size token chunks over ``partition_ratings`` blocks
   against the whole local tables, the readable reference formulation.
+
+``"pushpull"`` is Harp's other ``edu.iu.lda`` variant: nothing rotates.
+Tokens go to the worker that owns their doc
+(:func:`partition_tokens_by_doc`); the word-topic table stays row-sharded
+(worker ``w`` owns words ``[w · w_own, (w + 1) · w_own)``) and each
+``chunk`` of tokens pulls the word rows it touches
+(:func:`harp_tpu_torch.table.pull_rows_sparse`, or its ``_dedup`` form),
+samples, and pushes its deltas back (``push_rows_sparse``), then
+allreduces its topic-total deltas.  The exchange travels in ``[nw,
+pull_cap, K]`` buffers; a token whose request drops past ``pull_cap``
+keeps its topic that sweep (a skipped Gibbs site) and is counted in
+``last_dropped``.  :func:`suggest_pull_cap` gives the exact zero-drop cap.
+The path is plain PyTorch, as the reference's is.
 
 The tables are updated in place, through views of the tile rows: the
 reference's ``carry_db`` (keeping a doc tile resident across its run of
@@ -37,10 +50,11 @@ rbg), but both ``rng_impl`` values draw from the port's
 the reference documents for its own two generators.  ``sample_epoch(noise=
 ...)`` injects draws instead (the tests hand in the reference's).
 
-Not ported yet: ``algo="pushpull"`` (ROADMAP.md, Queue 1, item 3),
-``fit``'s checkpoint/fault path, the CLI's ``--ckpt-dir``/``--resume`` and
-``--input`` (item 5), ``--elastic``/``--max-worker-loss`` (item 8) and
-``benchmark(pack_cache=...)`` (item 4); each raises ``NotImplementedError``.
+Not ported yet: ``fit``'s checkpoint/fault path, the CLI's
+``--ckpt-dir``/``--resume`` and ``--input`` (ROADMAP.md, Queue 1, item 5),
+``--elastic``/``--max-worker-loss`` (item 8) and
+``benchmark(pack_cache=...)`` (item 4); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from harp_tpu_torch.models.mfsgd import (_ceil_div, _dense_bounds,
                                          algo_kwargs, partition_ratings,
                                          partition_ratings_tiles,
                                          rotate_chunks_resolved)
+from harp_tpu_torch import table as T
 from harp_tpu_torch.ops import lda_kernel as K4
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
@@ -83,9 +98,12 @@ class LDAConfig:
     d_tile: int = 512   # dense/pallas: doc-topic tile rows
     w_tile: int = 512   # dense/pallas: word-topic tile rows
     entry_cap: int = 2048  # dense/pallas: max tokens per tile entry
-    chunk: int = 8192   # scatter: tokens sampled per count snapshot
-    pull_cap: int | None = None   # pushpull only
-    dedup_pulls: bool = True      # pushpull only
+    chunk: int = 8192   # scatter/pushpull: tokens sampled per snapshot
+    # pushpull: request slots per (worker, owner) pair and chunk; None =
+    # chunk, which never drops (suggest_pull_cap: the exact zero-drop cap)
+    pull_cap: int | None = None
+    # pushpull: duplicate word rows of a chunk share one wire slot
+    dedup_pulls: bool = True
     # tiled algos; None = on for pallas (carry_db_resolved).  The port's
     # chain does not depend on it (module docstring)
     carry_db: bool | None = None
@@ -138,10 +156,6 @@ class LDAConfig:
             raise ValueError(
                 f"pull_cap must be >= 1, got {self.pull_cap} (0 would "
                 "silently fall back to the full-chunk default)")
-        if self.algo == "pushpull":
-            raise NotImplementedError(
-                "algo='pushpull' (table pull/push and regroup) is "
-                + _ITEM.format(3))
 
 
 def carry_db_resolved(cfg: LDAConfig) -> bool:
@@ -192,6 +206,41 @@ def _sample_chunk(Ndk, Nwk, Nk, z, chunk, noise, cfg: LDAConfig,
     return delta.sum(0), z_new
 
 
+def _sample_chunk_pushpull(Ndk, Nwk_shard, Nk, z, chunk, noise,
+                           cfg: LDAConfig, vocab_size):
+    """Pull → sample → push for one token chunk (the pushpull algo).
+
+    ``Nwk_shard`` is this worker's row block of the global word-topic
+    table; the chunk's word rows arrive by ``pull_rows_sparse`` (or its
+    ``_dedup`` form) and its deltas return by ``push_rows_sparse``.  A
+    token whose request dropped keeps its topic and so has a zero delta.
+    Updates ``Ndk`` in place; returns ``(Nwk_shard, dNk, z_new,
+    tok_drop)``, ``tok_drop`` the tokens skipped in this chunk over all
+    workers."""
+    d, w, m = chunk  # worker-local doc rows, GLOBAL word ids, valid mask
+    K = cfg.n_topics
+    cap = cfg.pull_cap if cfg.pull_cap is not None else d.shape[0]
+    pull = T.pull_rows_sparse_dedup if cfg.dedup_pulls else T.pull_rows_sparse
+    push = T.push_rows_sparse_dedup if cfg.dedup_pulls else T.push_rows_sparse
+    real = m > 0
+    # padding tokens send no request and take no slot
+    rows, ok, _ = pull(Nwk_shard, w, capacity=cap, valid=real)
+    tok_drop = C.allreduce((real & ~ok).sum().to(torch.int32))
+    live = real & ok
+    d = d.long()
+    oh_old = _one_hot(z, K, live)
+    ndk = Ndk[d].to(torch.float32) - oh_old
+    nwk = rows - oh_old
+    nk = Nk[None, :] - oh_old
+    z_new = _cgs_resample(ndk, nwk, nk, z, live, noise, cfg, vocab_size)
+    delta = _one_hot(z_new, K, live) - oh_old
+    Ndk.index_add_(0, d, delta.to(Ndk.dtype))
+    # the push takes the pull's mask: a dropped token's slot carries a
+    # zero delta either way
+    Nwk_shard, _ = push(Nwk_shard, w, delta, capacity=cap, valid=real)
+    return Nwk_shard, delta.sum(0), z_new, tok_drop
+
+
 def _sample_entry_tiles(Db, Wb, Nk_eff, z, cd, cw, noise, cfg: LDAConfig,
                         vocab_size):
     """Whole-entry-snapshot resample of one entry against tile views
@@ -219,7 +268,8 @@ def _sample_entry_tiles(Db, Wb, Nk_eff, z, cd, cw, noise, cfg: LDAConfig,
 
 #: ``noise(t, s)`` → the draws of rotation step ``t`` on block row ``s``:
 #: pallas uniforms [NE, C, K]; dense Exp(1) or Gumbel draws [NE, C, K];
-#: scatter the same per token of the block, [B, K]
+#: scatter the same per token of the block, [B, K]; pushpull (one step,
+#: one block: ``noise(0, 0)``) per token of this worker, [T_pad, K]
 NoiseFn = Callable[[int, int], torch.Tensor]
 
 
@@ -246,6 +296,10 @@ class LDA:
                 n_docs, vocab_size, n, self._n_slices,
                 self.cfg.d_tile, self.cfg.w_tile)
             self.w_bound = nc * wbc
+        elif self.cfg.algo == "pushpull":
+            self.d_bound = self.d_own = _ceil_div(n_docs, n)
+            # the word-topic rows this worker owns of the row-sharded table
+            self.w_bound = self.w_own = _ceil_div(vocab_size, n)
         else:
             self.d_bound = self.d_own = _ceil_div(n_docs, n)
             self.w_bound = nc * _ceil_div(vocab_size, self._n_slices)
@@ -256,9 +310,28 @@ class LDA:
         self._gen.manual_seed(seed * 65_537 + self.mesh.rank)
         self._tokens = None
         self.last_work = None
+        # pushpull: tokens skipped by pull_cap drops in the last
+        # sample_epoch/sample_epochs call, over all workers
+        self.last_dropped = 0
         self.cc = None  # pallas: K4's chunk width, set by set_tokens
 
     # -- corpus ---------------------------------------------------------------
+
+    def suggest_pull_cap(self, apply=False) -> int:
+        """The exact zero-drop ``pull_cap`` of the loaded corpus (pushpull
+        only; :func:`suggest_pull_cap`).  ``apply=True`` installs it in the
+        config for the next sweeps."""
+        if self.cfg.algo != "pushpull":
+            raise ValueError("suggest_pull_cap applies to algo='pushpull'")
+        if self._tokens is None:
+            raise RuntimeError("call set_tokens() before suggest_pull_cap()")
+        _, pw, pm = self._tokens_host
+        cap = suggest_pull_cap(pw, pm, self.mesh.num_workers,
+                               self.cfg.chunk, self.vocab_size,
+                               dedup=self.cfg.dedup_pulls)
+        if apply:
+            self.cfg.pull_cap = cap
+        return cap
 
     def set_tokens(self, doc_ids, word_ids):
         """Load the token corpus (one entry per token occurrence; every
@@ -307,6 +380,12 @@ class LDA:
                     ez = np.pad(ez, pad, constant_values=0.0)
             z_grid = ez.astype(np.int32)
             tokens = (ed, ew, od, ow)
+        elif self.cfg.algo == "pushpull":
+            pd, pw, pz, pm, db = partition_tokens_by_doc(
+                doc_ids, word_ids, z0, self.n_docs, n, self.cfg.chunk)
+            assert db == self.d_bound
+            z_grid = pz.reshape(-1)
+            tokens = (pd.reshape(-1), pw.reshape(-1), pm.reshape(-1))
         else:
             bd, bw, bz, bm, db, wbc = partition_ratings(
                 doc_ids, word_ids, z0, self.n_docs, self.vocab_size, n,
@@ -379,6 +458,10 @@ class LDA:
         """Grid-local → global storage (doc, word) rows + valid mask (the
         reference's, on the global token arrays)."""
         n = self.mesh.num_workers
+        if self.cfg.algo == "pushpull":
+            pd, pw, pm = (np.asarray(a) for a in tokens)
+            gd = pd + np.arange(n).repeat(pd.shape[0] // n) * self.d_bound
+            return gd, pw, pm > 0  # word ids are global already
         ns = self._n_slices
         db = self.d_bound
         wbc = self.w_bound // rotate_chunks_resolved(self.cfg)
@@ -449,6 +532,30 @@ class LDA:
             z[sl] = z_new
         return dNk
 
+    def _pushpull_epoch(self, noise: NoiseFn | None = None):
+        """One push/pull sweep: pull → sample → push for each ``chunk`` of
+        this worker's tokens, ``Nk += allreduce(dNk)`` after each.  Returns
+        (the per-worker token counts [n], the tokens dropped over all
+        workers), both left on the device."""
+        cfg, V = self.cfg, self.vocab_size
+        d, w, m = self._tokens
+        z = self.z_grid
+        c = min(cfg.chunk, d.shape[0])
+        draws = noise(0, 0) if noise is not None else None
+        drop = torch.zeros((), dtype=torch.int32, device=d.device)
+        for lo in range(0, d.shape[0], c):
+            sl = slice(lo, lo + c)
+            nz = draws[sl] if draws is not None else self._draw(
+                (c, cfg.n_topics))
+            self.Nwk, dNk, z_new, tok_drop = _sample_chunk_pushpull(
+                self.Ndk, self.Nwk, self.Nk, z[sl], (d[sl], w[sl], m[sl]), nz,
+                cfg, V)
+            self.Nk = self.Nk + C.allreduce(dNk)
+            drop = drop + tok_drop
+            z[sl] = z_new
+        work = C.allgather((m > 0).sum().to(torch.float32)[None])
+        return work, drop
+
     def _epoch(self, noise: NoiseFn | None = None) -> torch.Tensor:
         """One rotation epoch: every token resampled once.  Ndk and z_grid
         change in place; returns the per-worker token counts [n] (the
@@ -473,14 +580,31 @@ class LDA:
         if self._tokens is None:
             raise RuntimeError(f"call set_tokens() before {what}()")
 
+    def _sweeps(self, epochs: int, noise: NoiseFn | None = None) -> None:
+        """``epochs`` sweeps with one readback at the end: the work vector
+        and, for pushpull, the drop count summed over the sweeps."""
+        work, drop = None, None
+        for _ in range(epochs):
+            if self.cfg.algo == "pushpull":
+                work, d = self._pushpull_epoch(noise)
+                drop = d if drop is None else drop + d
+            else:
+                work = self._epoch(noise)
+        if drop is not None:  # one stacked readback
+            stats = torch.cat([drop.to(torch.float32)[None], work]).cpu()
+            self.last_dropped = int(stats[0])
+            self.last_work = stats[1:].numpy()
+        elif work is not None:
+            self.last_work = work.cpu().numpy()
+
     def sample_epoch(self, noise: NoiseFn | None = None):
-        """One Gibbs sweep, ending in one readback (the work vector).
-        ``noise``: the step draws to use instead of the generator's
-        (:data:`NoiseFn`)."""
+        """One Gibbs sweep, ending in one readback (the work vector, and
+        the drop count for pushpull).  ``noise``: the step draws to use
+        instead of the generator's (:data:`NoiseFn`)."""
         self._require_tokens("sample_epoch")
         with telemetry.span("lda.epoch"), \
                 telemetry.ledger.run("lda.epochs", steps=1):
-            self.last_work = self._epoch(noise).cpu().numpy()
+            self._sweeps(1, noise)
 
     def sample_epochs(self, epochs: int):
         """``epochs`` sweeps as a Python loop that never waits for the
@@ -488,11 +612,7 @@ class LDA:
         self._require_tokens("sample_epochs")
         with telemetry.span("lda.epochs", epochs=epochs), \
                 telemetry.ledger.run("lda.epochs", steps=epochs):
-            work = None
-            for _ in range(epochs):
-                work = self._epoch()
-            if work is not None:
-                self.last_work = work.cpu().numpy()
+            self._sweeps(epochs)
 
     def fit(self, epochs: int, ckpt_dir: str | None = None, *,
             ckpt_every: int = 5, max_restarts: int = 3, fault=None):
@@ -536,6 +656,9 @@ class LDA:
         gd, gw, gm = self._global_token_ids(self._tokens_host)
         gz = self._global(self.z_grid).reshape(-1)
         d_st, w_st, z = gd[gm], gw[gm], gz[gm]
+        if self.cfg.algo == "pushpull":
+            # unpadded doc storage (d_bound == d_own), global word ids
+            return d_st, w_st, z
         wbc = self.w_bound // rotate_chunks_resolved(self.cfg)
         d_ext = (d_st // self.d_bound) * self.d_own + d_st % self.d_bound
         w_ext = (w_st // wbc) * self.w_own + w_st % wbc
@@ -588,6 +711,56 @@ def benchmark_corpus(n_docs, vocab_size, tokens_per_doc, seed):
     return d_ids, w_ids
 
 
+def partition_tokens_by_doc(doc_ids, word_ids, z0, n_docs, n_workers,
+                            chunk):
+    """Tokens to the worker that owns their doc (the pushpull layout; the
+    reference's, bit for bit).
+
+    Worker ``w`` owns docs ``[w · d_bound, (w + 1) · d_bound)``.  Returns
+    ``(d [n, T_pad] worker-local doc rows, w [n, T_pad] global word ids,
+    z [n, T_pad], m [n, T_pad] mask, d_bound)``, ``T_pad`` a multiple of
+    ``chunk``; padding slots hold doc and word 0 and mask 0."""
+    d_bound = _ceil_div(n_docs, n_workers)
+    owner = np.asarray(doc_ids) // d_bound
+    per = [np.flatnonzero(owner == wk) for wk in range(n_workers)]
+    t_max = max((len(p) for p in per), default=0)
+    T_pad = max(chunk, _ceil_div(t_max, chunk) * chunk) if t_max else chunk
+    d = np.zeros((n_workers, T_pad), np.int32)
+    w = np.zeros((n_workers, T_pad), np.int32)
+    z = np.zeros((n_workers, T_pad), np.int32)
+    m = np.zeros((n_workers, T_pad), np.float32)
+    for wk, idx in enumerate(per):
+        t = len(idx)
+        d[wk, :t] = np.asarray(doc_ids)[idx] - wk * d_bound
+        w[wk, :t] = np.asarray(word_ids)[idx]
+        z[wk, :t] = np.asarray(z0)[idx]
+        m[wk, :t] = 1.0
+    return d, w, z, m, d_bound
+
+
+def suggest_pull_cap(word_ids, mask, n_workers, chunk, vocab_size,
+                     dedup=True) -> int:
+    """The EXACT zero-drop ``pull_cap`` of a :func:`partition_tokens_by_doc`
+    layout: over every (worker, chunk), the most requests one owner
+    receives — distinct word rows with ``dedup`` (the ``dedup_pulls``
+    wire), tokens without.  One host pass over the corpus."""
+    w = np.asarray(word_ids).reshape(n_workers, -1)
+    m = np.asarray(mask).reshape(n_workers, -1) > 0
+    rows_local = _ceil_div(vocab_size, n_workers)
+    c = min(chunk, w.shape[1])
+    cap = 1
+    for wk in range(n_workers):
+        ww, mm = w[wk].reshape(-1, c), m[wk].reshape(-1, c)
+        for j in range(ww.shape[0]):
+            ids = ww[j][mm[j]]
+            if dedup:
+                ids = np.unique(ids)
+            if ids.size:
+                cap = max(cap, int(np.bincount(ids // rows_local,
+                                               minlength=n_workers).max()))
+    return cap
+
+
 def _make_cfg(n_topics, algo="dense", chunk=None, d_tile=None, w_tile=None,
               entry_cap=None, pull_cap=None, ndk_dtype="float32",
               dedup_pulls=None, sampler=None, rng_impl=None,
@@ -624,7 +797,8 @@ def benchmark(n_docs=100_000, vocab_size=50_000, n_topics=1000,
     """Tokens/s per card on the reference's enwiki-scaled corpus (graded
     config #3).  Host prep (corpus, pack, device tables) is ``prep_sec``;
     one untimed sweep runs first; the timed window is
-    ``sample_epochs(epochs)``, ending in its readback."""
+    ``sample_epochs(epochs)``, ending in its readback.  pushpull adds
+    ``dropped_tokens``, the timed sweeps' ``last_dropped``."""
     if pack_cache is not None:
         raise NotImplementedError("benchmark(pack_cache=...) is not ported "
                                   "yet (ROADMAP.md, Queue 1, item 4)")
@@ -651,6 +825,8 @@ def benchmark(n_docs=100_000, vocab_size=50_000, n_topics=1000,
     }
     if n_tok <= 20_000_000:  # host-side numpy over every token
         out["log_likelihood"] = model.log_likelihood()
+    if algo == "pushpull":
+        out["dropped_tokens"] = model.last_dropped  # pull_cap overflow
     return out
 
 
@@ -670,13 +846,20 @@ def main(argv=None):
                                       "pallas"], default="dense",
                    help="pallas: kernel K4; dense: whole-entry snapshots "
                         "(default); scatter: chunked gather/index_add "
-                        "reference; pushpull: not ported yet")
+                        "reference; pushpull: row-sharded word-topic "
+                        "table, sparse pull/push of the rows a chunk "
+                        "touches")
     p.add_argument("--chunk", type=int, default=None,
-                   help="scatter: tokens per count snapshot (default 8192)")
+                   help="scatter/pushpull: tokens per count snapshot "
+                        "(default 8192)")
     p.add_argument("--pull-cap", type=int, default=None,
-                   help="pushpull only (not ported yet)")
+                   help="pushpull only: request slots per (worker, owner) "
+                        "pair and chunk (default: the chunk, never drops; "
+                        "LDA.suggest_pull_cap gives the exact zero-drop "
+                        "cap)")
     p.add_argument("--no-dedup-pulls", action="store_true",
-                   help="pushpull only (not ported yet)")
+                   help="pushpull only: one wire slot per token instead of "
+                        "one per distinct word row of a chunk")
     p.add_argument("--sampler", choices=["gumbel", "exprace"], default=None)
     p.add_argument("--rng-impl", choices=["threefry", "rbg"], default=None)
     p.add_argument("--ndk-dtype", choices=["float32", "int16"],

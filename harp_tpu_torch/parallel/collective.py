@@ -22,7 +22,14 @@ regroup         ``all_to_all_single`` on a contiguous staging buffer:
                 block *j* of ``split_dim`` to worker *j*, the received
                 blocks joined along ``concat_dim`` in source order
 barrier         ``barrier``
+allreduce_hier  two ``all_reduce`` stages over cached subgroups: within
+                contiguous groups of ``group_size`` workers, then across
 ==============  =======================================================
+
+The quantized twins (``allreduce_quantized``, ``push_quantized``,
+``rotate_quantized``, ``regroup_quantized``) narrow every float leaf to a
+bf16 or int8 wire, and ``reshard`` moves a tree between two
+:class:`ShardSpec` layouts by the cheapest of those moves.
 
 On a one-worker group each verb is the identity (up to the combiner's
 dtype rules), and still records its bytes on the CommLedger.  Inputs are
@@ -39,8 +46,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import re
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -165,6 +174,33 @@ def reduce(tree: Any, op: "Combiner | str" = Combiner.ADD, root: int = 0):
     return tree_map(red, tree)
 
 
+def _push_leaf(x: torch.Tensor, comb: Combiner, scatter_dim: int
+               ) -> torch.Tensor:
+    """This worker's combined block ``worker_id()`` of ``scatter_dim``."""
+    if x.dtype == torch.bool:
+        return _push_leaf(x.to(torch.int32), comb, scatter_dim).to(torch.bool)
+    nw, size = num_workers(), x.shape[scatter_dim]
+    if size % nw:
+        raise ValueError(
+            f"push: scatter dimension size {size} must be divisible by "
+            f"the worker count {nw}")
+    block = size // nw
+    if comb in (Combiner.ADD, Combiner.AVG):
+        y = x.movedim(scatter_dim, 0).contiguous()
+        if nw == 1:
+            out = y.clone()
+        else:
+            out = torch.empty((block, *y.shape[1:]), dtype=y.dtype,
+                              device=y.device)
+            _REDUCE_SCATTER(out, y, dist.ReduceOp.SUM)
+        out = out.movedim(0, scatter_dim).contiguous()
+        return out / nw if comb is Combiner.AVG else out
+    # MAX/MIN have no reduce-scatter on every backend: reduce, then keep
+    # our own block
+    total = comb.reduce(x)
+    return total.narrow(scatter_dim, worker_id() * block, block).contiguous()
+
+
 def push(tree: Any, op: "Combiner | str" = Combiner.ADD, *,
          scatter_dim: int = 0):
     """Local contributions → combined owner blocks — Harp ``push``.
@@ -174,33 +210,7 @@ def push(tree: Any, op: "Combiner | str" = Combiner.ADD, *,
     the workers."""
     comb = _as_combiner(op)
     record_comm("push", tree, combiner=comb.value)
-
-    def do_push(x):
-        if x.dtype == torch.bool:
-            return do_push(x.to(torch.int32)).to(torch.bool)
-        nw, size = num_workers(), x.shape[scatter_dim]
-        if size % nw:
-            raise ValueError(
-                f"push: scatter dimension size {size} must be divisible by "
-                f"the worker count {nw}")
-        block = size // nw
-        if comb in (Combiner.ADD, Combiner.AVG):
-            y = x.movedim(scatter_dim, 0).contiguous()
-            if nw == 1:
-                out = y.clone()
-            else:
-                out = torch.empty((block, *y.shape[1:]), dtype=y.dtype,
-                                  device=y.device)
-                _REDUCE_SCATTER(out, y, dist.ReduceOp.SUM)
-            out = out.movedim(0, scatter_dim).contiguous()
-            return out / nw if comb is Combiner.AVG else out
-        # MAX/MIN have no reduce-scatter on every backend: reduce, then
-        # keep our own block
-        total = comb.reduce(x)
-        return total.narrow(scatter_dim, worker_id() * block,
-                            block).contiguous()
-
-    return tree_map(do_push, tree)
+    return tree_map(lambda x: _push_leaf(x, comb, scatter_dim), tree)
 
 
 def pull(tree: Any, *, concat_dim: int = 0):
@@ -327,29 +337,102 @@ def regroup(tree: Any, *, split_dim: int = 0, concat_dim: int | None = None):
 _WIRE_DTYPES = (torch.bfloat16, torch.int8)
 
 
-def _quantized_move(tree: Any, wire_dtype: torch.dtype, move) -> Any:
-    """``move`` on a narrow wire, rounding once per call: bf16 is one cast
-    each way; int8 quantizes every float leaf against a worker-shared
-    |max| (all leaves' |max| in ONE stacked MAX allreduce, so sender and
-    receiver dequantize with the same scale and no scale rides the wire),
-    error at most ``|max| / 254`` an element.  Non-float leaves move
-    exact."""
-    leaves = tree_leaves(tree)
+def _check_wire_dtype(wire_dtype) -> None:
+    if wire_dtype not in _WIRE_DTYPES:
+        raise ValueError(f"unsupported wire_dtype {wire_dtype!r} "
+                         "(use torch.bfloat16 or torch.int8)")
+
+
+def _shared_amaxes(leaves: list):
+    """An iterator over the float leaves' |max|, shared by the workers: all
+    of them in ONE stacked MAX allreduce, so sender and receiver quantize
+    with the same scale and no scale rides the wire; None without float
+    leaves."""
     floats = [x for x in leaves if x.is_floating_point()]
-    amaxes = None
-    if wire_dtype == torch.int8 and floats:
-        amax = torch.stack([x.abs().amax().to(torch.float32) for x in floats])
-        amaxes = iter(Combiner.MAX.reduce(amax).unbind(0))
+    if not floats:
+        return None
+    amax = torch.stack([x.abs().amax().to(torch.float32) for x in floats])
+    return iter(Combiner.MAX.reduce(amax).unbind(0))
+
+
+def _narrow_move(x: torch.Tensor, wire_dtype, move, amax=None):
+    """``move`` of one leaf on a wire (``None`` exact, ``torch.bfloat16`` or
+    ``torch.int8``), rounding once: bf16 is one cast each way, int8
+    quantizes against ``amax`` and dequantizes.  Non-float leaves move
+    exact.  The reference divides in f32 whatever the leaf's float type,
+    so the leaf is widened first."""
+    if wire_dtype is None or not x.is_floating_point():
+        return move(x)
+    if wire_dtype == torch.bfloat16:
+        return move(x.to(torch.bfloat16)).to(x.dtype)
+    q, scale = quantize_to_int8(x.to(torch.float32), amax)
+    return (move(q).to(torch.float32) * scale).to(x.dtype)
+
+
+def _quantized_move(tree: Any, wire_dtype, move) -> Any:
+    """``move`` on a wire (``None`` exact), rounding once per call: bf16 is
+    one cast each way; int8 quantizes every float leaf against a
+    worker-shared |max| (:func:`_shared_amaxes`), error at most ``|max| /
+    254`` an element.  Non-float leaves move exact."""
+    amaxes = (_shared_amaxes(tree_leaves(tree)) if wire_dtype == torch.int8
+              else None)
+
+    def one(x):
+        amax = next(amaxes) if amaxes is not None and \
+            x.is_floating_point() else None
+        return _narrow_move(x, wire_dtype, move, amax)
+
+    return tree_map(one, tree)
+
+
+def _quantized_reduce(tree: Any, wire_dtype: torch.dtype, verb: str,
+                      reduce_float, reduce_exact) -> Any:
+    """The engine of :func:`allreduce_quantized` and :func:`push_quantized`:
+    bf16 casts, reduces and accumulates in bf16 (the error grows with the
+    worker count); int8 quantizes each float leaf against the shared
+    |max| and reduces the int8 values in exact int32, so each worker adds
+    at most ``scale / 2`` an element.  Non-float leaves take
+    ``reduce_exact``.  Recorded once at the wire's width (ADD only)."""
+    _check_wire_dtype(wire_dtype)
+    record_comm(verb, tree, combiner="add", wire_dtype=wire_dtype)
+    amaxes = (_shared_amaxes(tree_leaves(tree)) if wire_dtype == torch.int8
+              else None)
 
     def one(x):
         if not x.is_floating_point():
-            return move(x)
+            return reduce_exact(x)
         if wire_dtype == torch.bfloat16:
-            return move(x.to(torch.bfloat16)).to(x.dtype)
-        q, scale = quantize_to_int8(x, next(amaxes))
-        return (move(q).to(torch.float32) * scale).to(x.dtype)
+            return reduce_float(x.to(torch.bfloat16)).to(x.dtype)
+        q, scale = quantize_to_int8(x.to(torch.float32), next(amaxes))
+        total = reduce_float(q.to(torch.int32))
+        return (total.to(torch.float32) * scale).to(x.dtype)
 
     return tree_map(one, tree)
+
+
+def allreduce_quantized(tree: Any, *,
+                        wire_dtype: torch.dtype = torch.bfloat16):
+    """ADD-:func:`allreduce` on a quantized wire (``torch.bfloat16`` or
+    ``torch.int8``): half or a quarter of the bytes for bandwidth-bound
+    gradient sums.  bf16 reduces in bf16 (not one rounding: the error grows
+    with the worker count); int8 rounds each contribution once against a
+    worker-shared scale (``max / 127``) and sums exactly in int32.  Int
+    leaves are exact and bool stays bool (ADD is any)."""
+    return _quantized_reduce(
+        tree, wire_dtype, "allreduce_quantized",
+        lambda x: _all_reduce(x, dist.ReduceOp.SUM), Combiner.ADD.reduce)
+
+
+def push_quantized(tree: Any, *, wire_dtype: torch.dtype = torch.bfloat16,
+                   scatter_dim: int = 0):
+    """ADD-:func:`push` (reduce-scatter) on a quantized wire, with
+    :func:`allreduce_quantized`'s rules per wire.  ADD only: divide by the
+    worker count for AVG."""
+    def scatter(x):
+        return _push_leaf(x, Combiner.ADD, scatter_dim)
+
+    return _quantized_reduce(tree, wire_dtype, "push_quantized", scatter,
+                             scatter)
 
 
 def rotate_quantized(tree: Any, shift: int = 1, *,
@@ -357,11 +440,20 @@ def rotate_quantized(tree: Any, shift: int = 1, *,
     """:func:`rotate` on a quantized wire (``torch.bfloat16`` or
     ``torch.int8``): half or a quarter of the bytes per hop, one rounding
     per call whatever the ring size — on one worker too."""
-    if wire_dtype not in _WIRE_DTYPES:
-        raise ValueError(f"unsupported wire_dtype {wire_dtype!r} "
-                         "(use torch.bfloat16 or torch.int8)")
+    _check_wire_dtype(wire_dtype)
     record_comm("rotate_quantized", tree, wire_dtype=wire_dtype)
     return _quantized_move(tree, wire_dtype, lambda x: _ring_move(x, shift))
+
+
+def regroup_quantized(tree: Any, *, wire_dtype: torch.dtype = torch.bfloat16,
+                      split_dim: int = 0, concat_dim: int | None = None):
+    """:func:`regroup` on a quantized wire, with :func:`rotate_quantized`'s
+    one-rounding rule: the shuffle moves data and never accumulates."""
+    cd = split_dim if concat_dim is None else concat_dim
+    _check_wire_dtype(wire_dtype)
+    record_comm("regroup_quantized", tree, wire_dtype=wire_dtype)
+    return _quantized_move(tree, wire_dtype,
+                           lambda x: _all_to_all(x, split_dim, cd))
 
 
 #: ring payload formats of :func:`ring_hop` (and of the rotation pipeline)
@@ -382,8 +474,6 @@ def ring_hop(tree: Any, shift: int = 1, wire: str = "exact"):
         return tree
     wd = RING_WIRES[wire]
     record_comm("reshard", tree, wire_dtype=wd)
-    if wd is None:
-        return tree_map(lambda x: _ring_move(x, shift), tree)
     return _quantized_move(tree, wd, lambda x: _ring_move(x, shift))
 
 
@@ -443,6 +533,59 @@ def _spec_leaves(tree: Any, spec) -> list:
     return tree_leaves(spec)
 
 
+def _leaf_paths(tree: Any, prefix: tuple = ()) -> list:
+    """(key path, leaf) pairs in :func:`tree_leaves` order: dict keys and
+    sequence indices, as the reference names a leaf's path."""
+    if isinstance(tree, (tuple, list)):
+        return [p for i, x in enumerate(tree)
+                for p in _leaf_paths(x, prefix + (str(i),))]
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], prefix + (str(k),))]
+    return [(prefix, tree)]
+
+
+def match_reshard_rules(rules, tree):
+    """Regex rules → a nest of :class:`ShardSpec` shaped like ``tree``.
+
+    ``rules``: ordered ``[(regex, ShardSpec), ...]``; each leaf's
+    '/'-joined key path (dict keys, sequence indices) is matched with
+    ``re.search`` and the first hit wins.  A scalar leaf (rank 0 or one
+    element) is replicated whatever the rules say.  An unmatched leaf
+    raises: a table left unsharded by accident is what the rules exist to
+    prevent."""
+    def spec_for(path, leaf) -> ShardSpec:
+        shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
+        if len(shape) == 0 or int(np.prod(shape)) == 1:
+            return ShardSpec.replicated()
+        name = "/".join(path)
+        for rule, spec in rules:
+            if re.search(rule, name) is not None:
+                return spec
+        raise ValueError(f"no reshard rule matches leaf {name!r}")
+
+    specs = iter([spec_for(p, x) for p, x in _leaf_paths(tree)])
+    return tree_map(lambda _: next(specs), tree)
+
+
+def _block_size(x: torch.Tensor, dim: int, n: int, what: str) -> int:
+    if dim >= x.dim():
+        raise ValueError(
+            f"reshard: {what} dim {dim} out of range for rank-{x.dim()} leaf")
+    if x.shape[dim] % n:
+        raise ValueError(
+            f"reshard: leaf dim {dim} of size {x.shape[dim]} does not "
+            f"split into {n} worker blocks")
+    return x.shape[dim] // n
+
+
+def _own_block(x: torch.Tensor, dim: int, shift: int, n: int) -> torch.Tensor:
+    """Global block ``(worker_id() - shift) % n`` of a whole ``x`` along
+    ``dim``: this worker's block of ``blocked(dim, shift)``."""
+    bs = _block_size(x, dim, n, "dst")
+    return x.narrow(dim, ((worker_id() - shift) % n) * bs, bs).clone()
+
+
 def _gather_along(x: torch.Tensor, dim: int, shift: int) -> torch.Tensor:
     """Every worker's block of ``x``, joined along ``dim`` in rank order and
     rolled back by ``shift`` blocks: the whole array on every worker."""
@@ -455,56 +598,221 @@ def _gather_along(x: torch.Tensor, dim: int, shift: int) -> torch.Tensor:
     return full
 
 
-def reshard(tree: Any, src_spec, dst_spec, *, wire: str = "exact"):
+def _record_rotate_dim(x: torch.Tensor, src: ShardSpec) -> int:
+    """The dim a chunked rotation splits: the spec's sharded dim; a leaf of
+    lower rank cannot chunk."""
+    dim = 0 if src.dim is None else src.dim
+    if dim >= x.dim():
+        raise ValueError(
+            f"reshard: cannot chunk a rank-{x.dim()} leaf along dim {dim}")
+    return dim
+
+
+def _chunked_ring_move(x: torch.Tensor, dim: int, n_chunks: int, move):
+    """A ring move in ``n_chunks`` hops: ``x`` split along ``dim`` into equal
+    sub-chunks, each moved in turn and joined again.  The bytes are the
+    one-hop move's, so the result is bit-equal to it."""
+    if x.shape[dim] % n_chunks:
+        raise ValueError(
+            f"reshard: n_chunks={n_chunks} does not divide leaf dim "
+            f"{dim} of size {x.shape[dim]}")
+    return torch.cat([move(c) for c in x.chunk(n_chunks, dim)], dim)
+
+
+def _moves_bytes(plan: tuple) -> bool:
+    return plan[0] not in ("identity", "slice")
+
+
+def reshard(tree: Any, src_spec, dst_spec, *, wire: str = "exact",
+            n_chunks: int = 1):
     """Move a tree from one :class:`ShardSpec` layout to another.
 
     ``src_spec`` / ``dst_spec``: one spec for every leaf, or a matching nest
-    of specs.  Ported lowerings: equal layouts (the identity, no wire) and
-    blocked → replicated (an all-gather along the blocked dim, then a roll
-    for a shifted source).  ``wire`` ("exact" | "bf16" | "int8") narrows
-    every moving floating leaf, labels and masks included, with one rounding
-    per call, on one worker too; the int8 wire quantizes against a |max|
-    shared by the workers (one stacked MAX allreduce for all leaves).  The
+    of specs (:func:`match_reshard_rules`).  Each leaf takes the cheapest
+    legal move, the reference's decision table:
+
+    ==============================  =====================================
+    (src, dst)                      lowering
+    ==============================  =====================================
+    equal layouts                   identity (no wire)
+    replicated → blocked            local slice (no wire)
+    same dim, shifts differ         ring rotation (``_ring_move``)
+    blocked dim a → blocked dim b   one all-to-all (both shifts 0)
+    blocked → replicated            all-gather, then a roll for a shift
+    anything else                   all-gather, then the local slice
+    ==============================  =====================================
+
+    ``wire`` ("exact" | "bf16" | "int8") narrows every moving floating
+    leaf, labels and masks included, with one rounding per call, on one
+    worker too; the int8 wire quantizes against a |max| shared by the
+    workers (one stacked MAX allreduce for all moving leaves).
+    ``n_chunks > 1`` moves a ring rotation in that many sub-chunk hops
+    (rotations only; the sharded dim must split evenly).  Every lowering
+    on the exact wire is bit-equal to :func:`reshard_reference`.  The
     moving leaves are recorded once under the verb ``reshard`` at the
-    wire's width."""
+    wire's width; a chunked rotation records one sub-chunk, the payload of
+    one hop, as the reference does."""
     if wire not in RESHARD_WIRES:
         raise ValueError(f"wire must be one of {RESHARD_WIRES}, got {wire!r}")
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     n = num_workers()
+    wd = RING_WIRES[wire]
     leaves = tree_leaves(tree)
     src_l, dst_l = _spec_leaves(tree, src_spec), _spec_leaves(tree, dst_spec)
     if not len(leaves) == len(src_l) == len(dst_l):
         raise ValueError("reshard: spec trees do not match the data tree")
     plans = [_reshard_plan(s, d, n) for s, d in zip(src_l, dst_l)]
-    for p in plans:
-        if p[0] not in ("identity", "gather"):
-            raise NotImplementedError(
-                f"reshard lowering {p[0]!r}: only the identity and blocked "
-                "-> replicated are ported (ROADMAP.md, Queue 1, item 2)")
-    moving = [x for x, p in zip(leaves, plans) if p[0] == "gather"]
+    moving = []
+    for x, src, plan in zip(leaves, src_l, plans):
+        if not _moves_bytes(plan):
+            continue
+        if n_chunks > 1 and plan[0] != "rotate":
+            raise ValueError("reshard: n_chunks applies to ring rotations "
+                             f"only (this leaf lowers to {plan[0]!r})")
+        if n_chunks > 1:
+            dim = _record_rotate_dim(x, src)
+            shape = list(x.shape)
+            shape[dim] //= n_chunks
+            x = torch.empty(shape, dtype=x.dtype, device="meta")
+        moving.append(x)
     if moving:
-        record_comm("reshard", tuple(moving), wire_dtype=RING_WIRES[wire])
+        record_comm("reshard", tuple(moving), wire_dtype=wd)
     amaxes = None
     if wire == "int8":
-        flt = [x for x in moving if x.is_floating_point()]
-        if flt:
-            amax = torch.stack([x.abs().amax().to(torch.float32)
-                                for x in flt])
-            amaxes = iter(Combiner.MAX.reduce(amax).unbind(0))
+        amaxes = _shared_amaxes([x for x, p in zip(leaves, plans)
+                                 if _moves_bytes(p)])
 
-    plan_of = iter(plans)
+    out = []
+    for x, src, plan in zip(leaves, src_l, plans):
+        kind = plan[0]
+        if kind == "identity":
+            out.append(x)
+            continue
+        if kind == "slice":
+            out.append(_own_block(x, plan[1], plan[2], n))
+            continue
+        amax = next(amaxes) if amaxes is not None and \
+            x.is_floating_point() else None
+        if kind == "rotate":
+            def move(y, delta=plan[1], src=src):
+                def hop(c):
+                    return _ring_move(c, delta)
+                if n_chunks > 1:
+                    return _chunked_ring_move(
+                        y, _record_rotate_dim(y, src), n_chunks, hop)
+                return hop(y)
+        elif kind == "a2a":
+            _, sd, dd = plan
+            _block_size(x, dd, n, "dst")
+
+            def move(y, sd=sd, dd=dd):
+                return _all_to_all(y, dd, sd)
+        else:  # gather / gather_slice: replicate, roll, maybe slice
+            def move(y, dim=plan[1], s=plan[2]):
+                return _gather_along(y, dim, s)
+        y = _narrow_move(x, wd, move, amax)
+        if kind == "gather_slice":
+            y = _own_block(y, plan[3], plan[4], n)
+        out.append(y)
+    moved = iter(out)
+    return tree_map(lambda _: next(moved), tree)
+
+
+def reshard_reference(tree: Any, src_spec, dst_spec):
+    """The naive lowering every :func:`reshard` path reproduces bit for bit
+    on the exact wire: replicate (all-gather and roll), then slice the
+    destination block.  A test oracle: unrecorded, and it always moves the
+    whole array."""
+    n = num_workers()
+    src_l = iter(_spec_leaves(tree, src_spec))
+    dst_l = iter(_spec_leaves(tree, dst_spec))
 
     def one(x):
-        plan = next(plan_of)
-        if plan[0] == "identity":
-            return x
-        _, dim, s = plan
-        if wire == "exact" or not x.is_floating_point():
-            return _gather_along(x, dim, s)
-        if wire == "bf16":
-            return _gather_along(x.to(torch.bfloat16), dim, s).to(x.dtype)
-        # the reference divides in f32 whatever the leaf's float type
-        q, scale = quantize_to_int8(x.to(torch.float32), next(amaxes))
-        return (_gather_along(q, dim, s).to(torch.float32)
-                * scale).to(x.dtype)
+        src, dst = next(src_l), next(dst_l)
+        full = x
+        if src.dim is not None:
+            full = _gather_along(x, src.dim, src.shift % n)
+        if dst.dim is None:
+            return full.clone() if full is x else full
+        return _own_block(full, dst.dim, dst.shift, n)
 
     return tree_map(one, tree)
+
+
+# ---- allreduce_hier: a two-stage ADD over subgroups -------------------------
+
+#: the subgroups of the current world, by group size:
+#: {"world": the default group they belong to, "groups": {g: (intra, inter)}}
+_HIER = {"world": None, "groups": {}}
+
+
+def _hier_groups(group_size: int) -> tuple:
+    """(intra, inter) process groups of this worker: contiguous groups of
+    ``group_size`` workers, and the groups of their equal ranks.  ``None``
+    stands for the default group and ``False`` for a stage whose groups
+    are single workers (nothing to reduce).  Creating a group is a
+    collective of every worker, so the groups are made once per world and
+    size, every worker creating every group in the same order."""
+    n, me = num_workers(), worker_id()
+    if group_size == 1:
+        return False, None
+    if group_size == n:
+        return None, False
+    if _HIER["world"] is not dist.group.WORLD:
+        _HIER["world"], _HIER["groups"] = dist.group.WORLD, {}
+    if group_size not in _HIER["groups"]:
+        mine = []
+        for ranks in ([list(range(g * group_size, (g + 1) * group_size))
+                       for g in range(n // group_size)],
+                      [list(range(i, n, group_size))
+                       for i in range(group_size)]):
+            made = [dist.new_group(r) for r in ranks]
+            mine.append(next(g for g, r in zip(made, ranks) if me in r))
+        _HIER["groups"][group_size] = tuple(mine)
+    return _HIER["groups"][group_size]
+
+
+def allreduce_hier(tree: Any, *, group_size: int | None = None):
+    """ADD-allreduce in two stages — the reference's ``hier_psum`` schedule:
+    stage 1 sums within contiguous groups of ``group_size`` workers (the
+    fast link class), stage 2 sums the group totals across groups (the slow
+    one), so the payload crosses the slow links once per group.  On a flat
+    ring it moves about twice the one-shot allreduce's bytes.
+
+    ADD only; bool reduces through int32 (any); ints are exact and floats
+    reassociate across the stages.  ``group_size`` must divide the worker
+    count; ``None`` picks the largest divisor ≤ √n.  Both stages are
+    recorded, a degenerate split (1 or n) included."""
+    n = num_workers()
+    if group_size is None:
+        group_size = next(g for g in range(int(n ** 0.5), 0, -1)
+                          if n % g == 0)
+    if group_size < 1 or n % group_size:
+        raise ValueError(
+            f"group_size={group_size} must divide the axis size {n}")
+    record_comm("allreduce_hier", (tree, tree), combiner="add")
+    stages = _hier_groups(group_size) if n > 1 else (False, False)
+
+    def two_stage(x):
+        y = (x.to(torch.int32) if x.dtype == torch.bool else x).clone()
+        for group in stages:
+            if group is not False:
+                dist.all_reduce(y, dist.ReduceOp.SUM, group=group)
+        return y.to(x.dtype)
+
+    return tree_map(two_stage, tree)
+
+
+def host_op(mesh, verb, **verb_kwargs):
+    """``verb`` as a callable on this worker's block: the argument (a tensor,
+    a numpy array or a nest of them) moves to ``mesh.device`` and every
+    worker of the group calls the result together.
+
+    The reference compiles a verb into a program over a global array
+    sharded on its mesh; with one process a worker there is no global
+    array, so each process passes its own block and gets its own result."""
+    def op(x):
+        return verb(tree_map(mesh.replicated, x), **verb_kwargs)
+
+    return op

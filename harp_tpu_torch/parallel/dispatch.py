@@ -19,7 +19,8 @@ def bucket_by_destination(dest: torch.Tensor, payloads, capacity: int,
     """Pack items into per-destination capacity buckets.
 
     Args:
-      dest: [n] int, the destination id of each item (0 <= dest < n_dest).
+      dest: [n] int, the destination id of each item (0 <= dest < n_dest
+        for every valid item; an invalid item's id may be anything).
       payloads: tuple of tensors with leading dim n (any trailing shape).
       capacity: slots per destination bucket.
       n_dest: number of destinations.
@@ -50,12 +51,16 @@ def bucket_by_destination(dest: torch.Tensor, payloads, capacity: int,
     slot = torch.where(keep, pos.to(torch.int64),
                        torch.full_like(dest, capacity))  # the trash slot
 
+    # a skipped item may name no destination at all (an out-of-range row
+    # id that its caller counts as a drop): it lands in bucket 0's trash
+    # slot, as the reference's scatter drops an out-of-bounds write
+    row = torch.where(keep, dest, torch.zeros_like(dest))
     bufs = []
     for p in payloads:
         buf = torch.zeros((n_dest, capacity + 1) + tuple(p.shape[1:]),
                           dtype=p.dtype, device=p.device)
         masked = p * keep.reshape((n,) + (1,) * (p.dim() - 1)).to(p.dtype)
-        buf[dest, slot] = masked
+        buf[row, slot] = masked
         bufs.append(buf[:, :capacity])
     dropped = (~keep & valid).sum().to(torch.int32)
     return tuple(bufs), keep, slot, dropped

@@ -256,6 +256,44 @@ def test_world_ledger_sheets(world):
             "allreduce": 4}
         assert sheets["regroupallgather-k3"] == {
             "allreduce": 3 * d * 4 + 3 * 4 + 4}
+        # two stages of the whole partials tree
+        assert sheets["hier"] == sheets["int8-hier"] == {
+            "allreduce_hier": 2 * (k * d * 4 + k * 4 + 4)}
+
+
+@pytest.mark.parametrize("q", [None, "int8"])
+def test_world_hier_matches_one_shot(world, q):
+    """The reference's test_kmeans_hier_psum_matches_one_shot on the port:
+    the two-stage sum reassociates floats only (int8's int32 sums are
+    exact)."""
+    _, res = world
+    a = res[0]["int8-allreduce" if q else "allreduce"]
+    b = res[0]["int8-hier" if q else "hier"]
+    assert abs(a["inertia"] - b["inertia"]) <= 1e-5 * abs(a["inertia"])
+    np.testing.assert_allclose(a["centroids"], b["centroids"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [{}, {"quantize": "int8"},
+                                {"variant": "regroupallgather"}],
+                         ids=["f32", "int8", "regroupallgather"])
+def test_hier_on_one_worker_is_bit_equal_to_one_shot(kw):
+    """One worker: both schedules are the identity (regroupallgather keeps
+    its own path, as in the reference)."""
+    pts = blobs(n_per=64, k=4, d=5, seed=9)
+    a = KM.fit(pts, k=4, iters=3, mesh=CPU, seed=1, **kw)
+    b = KM.fit(pts, k=4, iters=3, mesh=CPU, seed=1, psum_schedule="hier",
+               **kw)
+    np.testing.assert_array_equal(a[0], b[0])
+    assert a[1] == b[1]
+
+
+def test_cli_takes_the_hier_schedule(capsys):
+    assert KM.main(["--n", "512", "--d", "4", "--k", "4", "--iters", "2",
+                    "--psum-schedule", "hier", "--device", "cpu"]) in (0,
+                                                                       None)
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["backend"] == "cpu" and np.isfinite(row["inertia"])
 
 
 def test_config_validation():
@@ -269,8 +307,7 @@ def test_config_validation():
         KM.KMeansConfig(k=0)
     with pytest.raises(ValueError, match="psum_schedule"):
         KM.KMeansConfig(k=2, psum_schedule="ring")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KM.KMeansConfig(k=2, psum_schedule="hier")
+    assert KM.KMeansConfig(k=2, psum_schedule="hier").psum_schedule == "hier"
 
 
 def test_use_pallas_auto_per_path():
@@ -281,9 +318,8 @@ def test_use_pallas_auto_per_path():
     assert KM._use_pallas(KM.KMeansConfig(use_pallas=True))
 
 
-@pytest.mark.parametrize("kw", [{"ckpt_dir": "x"}, {"fault": object()},
-                                {"psum_schedule": "hier"}],
-                         ids=["ckpt_dir", "fault", "hier"])
+@pytest.mark.parametrize("kw", [{"ckpt_dir": "x"}, {"fault": object()}],
+                         ids=["ckpt_dir", "fault"])
 def test_unported_options_raise_naming_the_roadmap(kw):
     pts = blobs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -418,15 +418,13 @@ def dataclass_defaults(cls):
     return {f.name: f.default for f in dataclasses.fields(cls)}
 
 
-@pytest.mark.parametrize("what", ["pushpull", "fit-ckpt", "fit-fault",
+@pytest.mark.parametrize("what", ["fit-ckpt", "fit-fault",
                                   "pack_cache", "--ckpt-dir", "--resume",
                                   "--input", "--elastic",
                                   "--max-worker-loss"])
 def test_unported_options_raise_naming_the_roadmap(what):
     with pytest.raises(NotImplementedError, match=r"ROADMAP.*item"):
-        if what == "pushpull":
-            L.LDAConfig(algo="pushpull")
-        elif what.startswith("fit"):
+        if what.startswith("fit"):
             _small().fit(1, **({"ckpt_dir": "x"} if what == "fit-ckpt"
                                else {"fault": object()}))
         elif what == "pack_cache":

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from harp_tpu_torch import benchmark as BM
 from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import kmeans_stream as KS
@@ -24,7 +25,6 @@ from harp_tpu_torch.models import svm as SV
 from harp_tpu_torch.models import wdamds as WD
 from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
-from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel import mesh as M
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -84,7 +84,8 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.ingest", "harp_tpu_torch.fileformat",
             "harp_tpu_torch.models.kmeans_stream",
             "harp_tpu_torch.native.build",
-            "harp_tpu_torch.native.datasource"} <= set(mods)
+            "harp_tpu_torch.native.datasource", "harp_tpu_torch.table",
+            "harp_tpu_torch.benchmark"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -109,7 +110,10 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
                                    "longctx-main", "stream-fit",
                                    "stream-local", "stream-files",
                                    "stream-benchmark", "stream-ingest",
-                                   "stream-cli"])
+                                   "stream-cli", "lda-pushpull-LDA",
+                                   "lda-pushpull-benchmark",
+                                   "lda-pushpull-cli", "kmeans-hier",
+                                   "bench-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -166,6 +170,19 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
         elif entry == "lda-cli":
             LD.main(["--docs", "16", "--vocab", "8", "--topics", "4",
                      "--tokens-per-doc", "2", "--epochs", "1"])
+        elif entry == "lda-pushpull-LDA":
+            LD.LDA(16, 8, LD.LDAConfig(n_topics=4, algo="pushpull"))
+        elif entry == "lda-pushpull-benchmark":
+            LD.benchmark(n_docs=16, vocab_size=8, n_topics=4,
+                         tokens_per_doc=2, epochs=1, algo="pushpull")
+        elif entry == "lda-pushpull-cli":
+            LD.main(["--docs", "16", "--vocab", "8", "--topics", "4",
+                     "--tokens-per-doc", "2", "--epochs", "1", "--algo",
+                     "pushpull"])
+        elif entry == "kmeans-hier":
+            KM.fit(pts, k=2, iters=1, psum_schedule="hier")
+        elif entry == "bench-cli":
+            BM.main(["--verbs", "allreduce", "--max-mb", "1"])
         else:
             MF.main(["--users", "16", "--items", "8", "--nnz", "32",
                      "--rank", "4", "--epochs", "1"])
@@ -247,8 +264,6 @@ _PTS = np.zeros((16, 4), np.float32)
 #: (what, a call that is not ported yet, a phrase of the ROADMAP item that
 #: its message must name)
 UNPORTED = [
-    ("kmeans-hier", lambda: KM.KMeansConfig(psum_schedule="hier"),
-     "allreduce_hier"),
     ("kmeans-ckpt", lambda: KM.fit(_PTS, k=2, iters=1, device="cpu",
                                    ckpt_dir="x"), "fit(ckpt_dir"),
     ("stream-ckpt", lambda: KS.fit_streaming(_PTS, k=2, iters=1,
@@ -257,14 +272,11 @@ UNPORTED = [
     ("stream-elastic", lambda: KS.main(["--elastic", "--device", "cpu"]),
      "`elastic/`"),
     ("parquet", lambda: DS.load_csv("x.parquet"), "Parquet"),
-    ("reshard", lambda: C.reshard(torch.zeros(4, 2), C.ShardSpec.blocked(0),
-                                  C.ShardSpec.blocked(1)), "`reshard`"),
     ("wdamds-weights", lambda: WD.mds(np.zeros((8, 8), np.float32),
                                       device="cpu",
                                       weights=np.ones((8, 8))),
      "weighted path"),
     ("svm-sparse", lambda: SV.make_train_fn_ell(), "fit_sparse"),
-    ("lda-pushpull", lambda: LD.LDAConfig(algo="pushpull"), "pushpull"),
     ("lda-pack_cache", lambda: LD.benchmark(
         n_docs=16, vocab_size=8, n_topics=4, tokens_per_doc=2,
         pack_cache="x", device="cpu"), "pack_cache"),

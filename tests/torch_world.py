@@ -179,6 +179,8 @@ KMEANS_CASES = [
                                "variant": "regroupallgather"}),
     ("pallas-regroupallgather", {"k": 8, "use_pallas": True,
                                  "variant": "regroupallgather"}),
+    ("hier", {"k": 8, "psum_schedule": "hier"}),
+    ("int8-hier", {"k": 8, "quantize": "int8", "psum_schedule": "hier"}),
 ]
 
 
@@ -464,6 +466,7 @@ def run_reshard_cases(rank: int, world: int) -> dict:
                              wire="int8")
             out["identity"] = all(a is b for a, b in zip(same, tree))
         out["ledger"] = telemetry.ledger.summary()
+    run_reshard_pairs(rank, world, C, out)
     return out
 
 
@@ -841,4 +844,368 @@ def run_stream_cases(rank: int, world: int, pts: np.ndarray,
     for init in ("random", "kmeans++"):
         out[f"init-{init}"] = KS.fit_streaming_local(
             mine, k=s["k"], iters=0, mesh=mesh, seed=1, init=init)[0]
+    return out
+
+
+# ---- quantized verbs -------------------------------------------------------------
+
+QUANT_WIRES = ("bf16", "int8")
+
+
+def quantized_inputs(world: int = WORLD) -> dict:
+    """Every worker's leaves for the quantized verbs: [world, ...] arrays
+    ("h" travels as a bf16 leaf)."""
+    rng = np.random.default_rng(31)
+    return {
+        "x": (3 * rng.normal(size=(world, 4 * world, 6))).astype(np.float32),
+        "i": rng.integers(-50, 51, size=(world, 4 * world, 2)).astype(
+            np.int32),
+        "b": rng.random((world, 4 * world)) < 0.3,
+        "h": rng.normal(size=(world, world, 5)).astype(np.float32),
+        "c": rng.normal(size=(world, 3, 4 * world)).astype(np.float32),
+        "six": (rng.normal(size=(world, 6, 4))
+                * np.arange(1, 7)[None, :, None]).astype(np.float32),
+    }
+
+
+def quantized_cases() -> list[tuple[str, str, dict, tuple]]:
+    """(case id, verb, kwargs, the leaves of its tree)."""
+    cases = []
+    for wire in QUANT_WIRES:
+        cases += [
+            (f"allreduce-{wire}", "allreduce_quantized", {},
+             ("x", "i", "b", "h")),
+            (f"push-{wire}", "push_quantized", {}, ("x", "i", "b")),
+            (f"push-dim1-{wire}", "push_quantized", {"scatter_dim": 1},
+             ("c",)),
+            (f"regroup-{wire}", "regroup_quantized", {},
+             ("x", "i", "b", "h")),
+            (f"regroup-1to0-{wire}", "regroup_quantized",
+             {"split_dim": 1, "concat_dim": 0}, ("c",)),
+            (f"rotate-{wire}", "rotate_quantized", {"shift": 1},
+             ("x", "h", "i")),
+        ]
+    return cases
+
+
+def quantized_tree(lib, leaves: dict, names: tuple, bf16) -> tuple:
+    """The case's tree of ``leaves`` (numpy for the reference, tensors for
+    the port), "h" cast to bf16."""
+    def one(k):
+        if k != "h":
+            return leaves[k]
+        return (lib.asarray(leaves[k]).astype(bf16) if lib is not None
+                else leaves[k].to(bf16))
+    return tuple(one(k) for k in names)
+
+
+def as_numpy(x) -> np.ndarray:
+    """A port leaf as numpy (bf16 widened to f32)."""
+    import torch
+
+    return (x.to(torch.float32) if x.dtype == torch.bfloat16 else x).numpy()
+
+
+def run_quantized_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.utils import telemetry
+
+    inp = {k: torch.from_numpy(a[rank].copy())
+           for k, a in quantized_inputs(world).items()}
+    out = {}
+    with telemetry.scope():
+        for cid, verb, kw, names in quantized_cases():
+            wd = torch.bfloat16 if cid.endswith("bf16") else torch.int8
+            tree = quantized_tree(None, inp, names, torch.bfloat16)
+            with telemetry.ledger.run(cid):
+                got = getattr(C, verb)(tree, wire_dtype=wd, **kw)
+            out[cid] = [as_numpy(g) for g in got]
+            out[cid + "/dtypes"] = [str(g.dtype) for g in got]
+        out["ledger"] = telemetry.ledger.summary()
+    # the int8 scales of a six-leaf tree ride ONE stacked MAX allreduce
+    maxes = []
+    inner = C._all_reduce
+
+    def counting(x, op):
+        if op == torch.distributed.ReduceOp.MAX:
+            maxes.append(tuple(x.shape))
+        return inner(x, op)
+
+    C._all_reduce = counting
+    try:
+        six = {chr(97 + j): inp["six"][j] for j in range(6)}
+        got = C.allreduce_quantized(six, wire_dtype=torch.int8)
+        out["six"] = {k: v.numpy() for k, v in got.items()}
+    finally:
+        C._all_reduce = inner
+    out["six-maxes"] = maxes
+    return out
+
+
+# ---- reshard: every pair, chunked rotations, allreduce_hier --------------------
+
+#: every layout of the [8·world, world] pair array: (dim, shift)
+PAIR_SPECS = {"R": (None, 0), "S0": (0, 0), "S0s1": (0, 1), "S0s3": (0, 3),
+              "S1": (1, 0), "S1s2": (1, 2)}
+WIRE_PAIRS = [("S0", "S0s1"), ("S0", "S1"), ("S0s1", "S1s2"),
+              ("R", "S0s1"), ("S1", "R"), ("S1s2", "S0")]
+HIER_SIZES = (None, 1, 2, 4)
+
+
+def pair_global(world: int = WORLD, kind: str = "arange") -> np.ndarray:
+    if kind == "arange":
+        return np.arange(world * 8 * world, dtype=np.float32).reshape(
+            world * 8, world)
+    rng = np.random.default_rng(13)
+    return (3 * rng.normal(size=(world * 8, world))).astype(np.float32)
+
+
+def pair_block(x: np.ndarray, spec: tuple, rank: int, world: int
+               ) -> np.ndarray:
+    """Worker ``rank``'s view of the global ``x`` under ``spec``: global
+    block ``(rank - shift) % world`` along ``dim``, or all of it."""
+    dim, shift = spec
+    if dim is None:
+        return x.copy()
+    bs = x.shape[dim] // world
+    blk = (rank - shift) % world
+    return np.ascontiguousarray(
+        np.take(x, range(blk * bs, (blk + 1) * bs), axis=dim))
+
+
+def hier_inputs(world: int = WORLD) -> dict:
+    rng = np.random.default_rng(17)
+    return {"i": rng.integers(-1000, 1000, size=(world, 5)).astype(np.int32),
+            "f": rng.normal(size=(world, 7)).astype(np.float32),
+            "b": rng.random((world, 6)) < 0.2}
+
+
+def _error_text(fn) -> str:
+    try:
+        fn()
+    except (ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def run_reshard_pairs(rank: int, world: int, C, out: dict) -> None:
+    """The pair matrix, the narrow wires, chunked rotations and
+    allreduce_hier, into ``out`` (called from :func:`run_reshard_cases`)."""
+    import torch
+
+    from harp_tpu_torch.utils import telemetry
+
+    S = C.ShardSpec
+
+    def spec(name):
+        d, s = PAIR_SPECS[name]
+        return S.replicated() if d is None else S.blocked(d, s)
+
+    def view(x, name):
+        return torch.from_numpy(pair_block(x, PAIR_SPECS[name], rank, world))
+
+    g = pair_global(world)
+    for a in PAIR_SPECS:
+        for b in PAIR_SPECS:
+            x = view(g, a)
+            out[f"pair-{a}-{b}"] = (
+                C.reshard(x, spec(a), spec(b)).numpy(),
+                C.reshard_reference(x, spec(a), spec(b)).numpy())
+    gr = pair_global(world, "normal")
+    for wire in ("bf16", "int8"):
+        for a, b in WIRE_PAIRS:
+            x = view(gr, a)
+            out[f"wire-{wire}-{a}-{b}"] = [y.numpy() for y in C.reshard(
+                (x, x.to(torch.int32)), spec(a), spec(b), wire=wire)]
+    xr = view(gr, "S0")
+    for wire in ("exact", "int8"):
+        for n_chunks in (1, 2, 4):
+            out[f"chunks-{wire}-{n_chunks}"] = C.reshard(
+                xr, S.blocked(0), S.blocked(0, 1), wire=wire,
+                n_chunks=n_chunks).numpy()
+    out["errors"] = {
+        "n_chunks-3": _error_text(lambda: C.reshard(
+            xr, S.blocked(0), S.blocked(0, 1), n_chunks=3)),
+        "n_chunks-gather": _error_text(lambda: C.reshard(
+            xr, S.blocked(0), S.replicated(), n_chunks=2)),
+        "out-of-range": _error_text(lambda: C.reshard(
+            xr, S.blocked(0), S.blocked(5))),
+        "indivisible": _error_text(lambda: C.reshard(
+            torch.zeros(2, 3), S.blocked(0), S.blocked(1))),
+        "hier-3": _error_text(lambda: C.allreduce_hier(
+            torch.zeros(2), group_size=3)),
+    }
+    with telemetry.scope():
+        for kw in ({}, {"n_chunks": 4}, {"wire": "int8"}, {"wire": "bf16"}):
+            tag = "probe-" + "-".join(f"{k}{v}" for k, v in kw.items())
+            with telemetry.ledger.run(tag):
+                C.reshard(xr, S.blocked(0), S.blocked(0, 1), **kw)
+        h = {k: torch.from_numpy(a[rank].copy())
+             for k, a in hier_inputs(world).items()}
+        for gs in HIER_SIZES:
+            with telemetry.ledger.run(f"hier-{gs}"):
+                got = C.allreduce_hier(h, group_size=gs)
+            out[f"hier-{gs}"] = {k: v.numpy() for k, v in got.items()}
+        out["hier-oneshot"] = {k: v.numpy() for k, v in
+                               C.allreduce(h).items()}
+        out["ledger-pairs"] = telemetry.ledger.summary()
+
+
+# ---- tables ------------------------------------------------------------------------
+
+TABLE_SHAPE = {"rows_local": 16, "k": 3, "m": 40, "keys": 20, "pairs": 24}
+#: request slots per owner: 3 drops under the Zipf stream, 40 never does
+TABLE_CAPS = (3, 10, 40)
+KV_COMBINERS = ("add", "max", "min", "avg", "multiply")
+
+
+def table_inputs(world: int = WORLD) -> dict:
+    """Every worker's inputs for the table verbs: a row-sharded f32 table, a
+    Zipf-skewed id stream with two out-of-range ids and two padding slots,
+    float and integer-valued deltas, and (key, value) pairs."""
+    s = TABLE_SHAPE
+    rng = np.random.default_rng(41)
+    n_rows = world * s["rows_local"]
+    ids = ((rng.zipf(1.3, size=(world, s["m"])) - 1) % n_rows).astype(
+        np.int32)
+    ids[:, 0], ids[:, 1] = -1, n_rows + 5
+    valid = np.ones((world, s["m"]), bool)
+    valid[:, 2:4] = False
+    return {
+        "table": rng.normal(size=(n_rows, s["k"])).astype(np.float32),
+        "ids": ids, "valid": valid,
+        "deltas": rng.normal(size=(world, s["m"], s["k"])).astype(np.float32),
+        "ideltas": rng.integers(-3, 4, size=(world, s["m"], s["k"])).astype(
+            np.float32),
+        "keys": rng.integers(0, s["keys"], size=(world, s["pairs"])).astype(
+            np.int32),
+        "values": rng.integers(1, 5, size=(world, s["pairs"], 2)).astype(
+            np.float32),
+        "dense_ids": rng.integers(0, n_rows, size=(world, 12)).astype(
+            np.int32),
+    }
+
+
+def kv_tables(lib_table, world: int, combiner: str) -> list:
+    """Each worker's KVTable of the (key, value) pairs (an Int2Float table
+    for the typed family)."""
+    inp = table_inputs(world)
+    out = []
+    for r in range(world):
+        t = lib_table.Int2FloatKVTable(combiner, num_partitions=world)
+        for k, v in zip(inp["keys"][r].tolist(), inp["values"][r, :, 0]):
+            t.add(k, v)
+        out.append(t)
+    return out
+
+
+def run_table_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch import benchmark as B
+    from harp_tpu_torch import table as T
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+
+    s = TABLE_SHAPE
+    inp = table_inputs(world)
+    lo = rank * s["rows_local"]
+    shard = torch.from_numpy(inp["table"][lo:lo + s["rows_local"]].copy())
+    mine = {k: torch.from_numpy(inp[k][rank].copy())
+            for k in ("ids", "valid", "deltas", "ideltas", "keys", "values",
+                      "dense_ids")}
+    ids, valid = mine["ids"], mine["valid"]
+    out = {}
+
+    def np_all(t):
+        return [x.numpy() if isinstance(x, torch.Tensor) else x for x in t]
+
+    for cap in TABLE_CAPS:
+        for v in (None, valid):
+            tag = f"{cap}-{'valid' if v is not None else 'all'}"
+            out[f"pull-{tag}"] = np_all(T.pull_rows_sparse(
+                shard, ids, capacity=cap, valid=v))
+            out[f"pull-dedup-{tag}"] = np_all(T.pull_rows_sparse_dedup(
+                shard, ids, capacity=cap, valid=v))
+            out[f"push-{tag}"] = np_all(T.push_rows_sparse(
+                shard, ids, mine["deltas"], capacity=cap, valid=v))
+            out[f"push-dedup-{tag}"] = np_all(T.push_rows_sparse_dedup(
+                shard, ids, mine["ideltas"], capacity=cap, valid=v))
+            out[f"push-raw-int-{tag}"] = np_all(T.push_rows_sparse(
+                shard, ids, mine["ideltas"], capacity=cap, valid=v))
+    for cap in (2, s["pairs"]):
+        got = T.regroup_by_key(mine["keys"], mine["values"], capacity=cap)
+        out[f"regroup-{cap}"] = np_all(got)
+        out[f"combine-{cap}"] = {
+            op: T.combine_by_key(got[0], got[1], s["keys"], op).numpy()
+            for op in KV_COMBINERS}
+    out["pull_rows"] = T.pull_rows(shard, mine["dense_ids"]).numpy()
+    out["push_rows"] = T.push_rows(shard, mine["dense_ids"],
+                                   mine["ideltas"][:12]).numpy()
+    for op in KV_COMBINERS:
+        t = kv_tables(T, world, op)[rank]
+        merged = T.kv_allreduce(t)
+        out[f"kv-{op}"] = [type(merged).__name__, *merged.to_arrays()]
+    out["sweep"] = [(r["dist"], r["capacity"], r["requests_per_worker"],
+                     r["dropped"], r["drop_rate"])
+                    for r in B.sweep_sparse_capacity(
+                        WorkerMesh("cpu"), m=64, d=8, reps=1, label="cpu")]
+    return out
+
+
+# ---- LDA push/pull -----------------------------------------------------------------
+
+#: (case id, LDAConfig kwargs) of the push/pull world: dedup on and off, at
+#: the default cap and at caps that drop, both samplers
+LDA_PP_CASES = [
+    ("dedup", {"algo": "pushpull", "chunk": 64}),
+    ("raw-gumbel", {"algo": "pushpull", "chunk": 64, "dedup_pulls": False,
+                    "sampler": "gumbel", "rng_impl": "threefry"}),
+    ("dedup-cap2", {"algo": "pushpull", "chunk": 64, "pull_cap": 2}),
+    ("raw-cap8", {"algo": "pushpull", "chunk": 64, "dedup_pulls": False,
+                  "pull_cap": 8}),
+]
+
+
+def run_lda_pushpull_cases(rank: int, world: int, noises: dict) -> dict:
+    """Every push/pull case on this worker: two ``sample_epoch`` under the
+    injected draws ``noises[case][epoch][rank]``, then the ledger of a
+    third sweep on the generator; and a sweep at ``suggest_pull_cap``."""
+    import torch
+
+    from harp_tpu_torch.models import lda as L
+    from harp_tpu_torch.utils import telemetry
+
+    s = LDA_SHAPE
+    d, w = lda_corpus()
+    out = {}
+    for cid, kw in LDA_PP_CASES:
+        cfg = L.LDAConfig(n_topics=s["n_topics"], **kw)
+        m = L.LDA(s["n_docs"], s["vocab_size"], cfg, device="cpu",
+                  seed=s["seed"])
+        m.set_tokens(d, w)
+        dropped = []
+        for nz in noises[cid]:
+            m.sample_epoch(noise=lambda t, _s, a=nz[rank]: torch.from_numpy(a))
+            dropped.append(m.last_dropped)
+        res = {"Ndk": m.Ndk.numpy().copy(), "Nwk": m.Nwk.numpy().copy(),
+               "Nk": m.Nk.numpy().copy(), "z_grid": m.z_grid.numpy().copy(),
+               "dropped": dropped, "work": m.last_work.tolist(),
+               "doc_topic": m.doc_topic_table(),
+               "word_topic": m.word_topic_table(),
+               "token_state": m.token_state(),
+               "log_likelihood": m.log_likelihood()}
+        with telemetry.scope():
+            m.sample_epoch()
+            res["ledger"] = telemetry.ledger.summary()["lda.epochs"]
+        out[cid] = res
+    for dedup in (True, False):
+        m = L.LDA(s["n_docs"], s["vocab_size"], L.LDAConfig(
+            n_topics=s["n_topics"], algo="pushpull", chunk=64,
+            dedup_pulls=dedup), device="cpu", seed=s["seed"])
+        m.set_tokens(d, w)
+        cap = m.suggest_pull_cap(apply=True)
+        m.sample_epochs(2)
+        out[f"suggest-{dedup}"] = (cap, m.cfg.pull_cap, m.last_dropped)
     return out
