@@ -2206,6 +2206,19 @@ def tables_phase(dev, card: str) -> None:
         ms = cuda_ms(lambda: fn(table, ids, deltas, capacity=m), reps=10)
         print(f"tables: {name} of [{m}, {k}] +-1 deltas: {ms:.4f} ms a "
               f"call; equal to np.add.at [{card}]")
+    # a chunk of padding only (a worker with fewer tokens than the busiest
+    # one on a multi-card run): nothing pulled, pushed or dropped
+    none = torch.zeros(m, dtype=torch.bool, device=dev)
+    for name in ("push_rows_sparse", "push_rows_sparse_dedup"):
+        got, dropped = getattr(T, name)(table, ids, deltas, capacity=m,
+                                        valid=none)
+        if not (torch.equal(got, table) and int(dropped) == 0):
+            fail(f"tables: {name} with no valid id changed the table")
+    got, ok, dropped = T.pull_rows_sparse_dedup(table, ids, capacity=m,
+                                                valid=none)
+    if bool(ok.any()) or bool(got.any()) or int(dropped) != 0:
+        fail("tables: pull_rows_sparse_dedup with no valid id served rows")
+    print("tables: push/pull with no valid id leave the table unchanged")
 
 
 def _pushpull_split(model, card: str) -> float:

@@ -50,10 +50,6 @@ def modulo_partitioner(num_workers: int) -> Callable[[int], int]:
     return owner
 
 
-def _as_combiner(op: "Combiner | str") -> Combiner:
-    return op if isinstance(op, Combiner) else Combiner(op)
-
-
 class Table:
     """Host-side table of partitions with Harp's combiner semantics.
 
@@ -63,7 +59,7 @@ class Table:
     :meth:`from_stacked` rebuilds a table from one."""
 
     def __init__(self, combiner: Combiner | str = Combiner.ADD):
-        self.combiner = _as_combiner(combiner)
+        self.combiner = C._as_combiner(combiner)
         self._parts: dict[int, Any] = {}
         self._counts: dict[int, int] = {}  # contributions per id (for AVG)
 
@@ -163,7 +159,7 @@ class KVTable:
 
     def __init__(self, combiner: Combiner | str = Combiner.ADD,
                  num_partitions: int = 1, dtype=None):
-        self.combiner = _as_combiner(combiner)
+        self.combiner = C._as_combiner(combiner)
         self.num_partitions = int(num_partitions)
         self.dtype = np.float64 if self.combiner is Combiner.AVG \
             and dtype is not None \
@@ -357,7 +353,7 @@ def combine_by_key(keys: torch.Tensor, values: torch.Tensor, num_keys: int,
     worker's device: ``[num_keys, ...]``, segment ``k`` the combined
     values of key ``k``.  Keys outside ``[0, num_keys)`` (the -1 padding of
     :func:`regroup_by_key`) are dropped; AVG of an empty key is 0."""
-    comb = _as_combiner(op)
+    comb = C._as_combiner(op)
     if comb is Combiner.ADD:
         return _segment(values, keys, num_keys, "sum")
     if comb is Combiner.MAX:
@@ -571,6 +567,10 @@ def push_rows_sparse_dedup(global_shard: torch.Tensor, row_ids: torch.Tensor,
     d_sorted = deltas[order]
     if valid is not None:
         d_sorted = d_sorted * _expand(valid[order], d_sorted)
+    # a call with no valid id has run == -1 everywhere; its (zeroed)
+    # padding deltas go to run 0 and no slot is marked first, so it adds
+    # nothing, as segment_sum's dropped -1 ids do in the reference
+    run = run.clamp_min(0)
     summed = torch.zeros_like(d_sorted).index_add_(0, run, d_sorted)
     d_push = summed[run] * _expand(first, d_sorted)
     return push_rows_sparse(global_shard, wire_ids, d_push,

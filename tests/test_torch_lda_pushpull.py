@@ -108,9 +108,9 @@ def corpus():
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory, jmesh4, corpus):
-    d, w = corpus
     noises, refs = {}, {}
     for cid, kw in LDA_PP_CASES:
+        d, w = lda_corpus(ragged=True) if "ragged" in cid else corpus
         ref, pack, dropped = _reference(jmesh4, kw, d, w)
         T_pad = pack["tokens"][0].shape[0] // WORLD
         noises[cid] = sweep_noises(ref.cfg, T_pad, WORLD, S["seed"])
@@ -147,7 +147,7 @@ def test_four_worker_invariants_and_drops(world):
     for cid, _ in LDA_PP_CASES:
         Nwk = np.concatenate([r[cid]["Nwk"] for r in res])
         Ndk = np.concatenate([r[cid]["Ndk"] for r in res])
-        n_tok = S["n_docs"] * S["tokens_per_doc"]
+        n_tok = len(lda_corpus(ragged="ragged" in cid)[0])
         assert Ndk.sum() == Nwk.sum() == n_tok
         np.testing.assert_array_equal(Nwk.sum(0), res[0][cid]["Nk"])
     # the raw wire drops more than the deduped one at a tighter cap

@@ -222,6 +222,36 @@ def test_one_worker_sparse_verbs_match_reference():
             np.testing.assert_array_equal(np.asarray(g).reshape(r.shape), r)
 
 
+@pytest.mark.parametrize("ids_kind", ["padding", "in-range"])
+def test_dedup_verbs_with_no_valid_id_change_nothing(ids_kind):
+    """A call whose every slot is padding (a worker with whole chunks of
+    padding in LDA push/pull) pulls zeros, pushes nothing and drops
+    nothing, as the reference does."""
+    jm = JaxMesh(jax.devices()[:1])
+    inp = table_inputs(1)
+    ids = inp["ids"] if ids_kind == "in-range" else np.full_like(
+        inp["ids"], -1)
+    valid = np.zeros_like(inp["valid"])
+    shard = torch.from_numpy(inp["table"])
+    t_ids, t_valid = torch.from_numpy(ids[0]), torch.from_numpy(valid[0])
+    for cap in TABLE_CAPS:
+        ref = _spmd(jm, lambda t, i, d, v: JT.push_rows_sparse_dedup(
+            t, i, d, capacity=cap, valid=v),
+            [inp["table"], ids, inp["deltas"], valid], 2)
+        got = T.push_rows_sparse_dedup(shard, t_ids, torch.from_numpy(
+            inp["deltas"][0]), capacity=cap, valid=t_valid)
+        np.testing.assert_array_equal(got[0].numpy(), inp["table"])
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(np.asarray(g).reshape(r.shape), r)
+        ref = _spmd(jm, lambda t, i, v: JT.pull_rows_sparse_dedup(
+            t, i, capacity=cap, valid=v), [inp["table"], ids, valid], 3)
+        got = T.pull_rows_sparse_dedup(shard, t_ids, capacity=cap,
+                                       valid=t_valid)
+        assert not got[1].any() and not got[0].any() and int(got[2]) == 0
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(np.asarray(g).reshape(r.shape), r)
+
+
 def test_bucket_dispatch_skips_ids_that_name_no_destination():
     """An invalid item's destination may lie outside the buckets (a bad
     row id): it takes no slot and writes nothing, instead of failing the

@@ -367,12 +367,22 @@ LDA_SHAPE = {"n_docs": 96, "vocab_size": 64, "n_topics": 8,
              "tokens_per_doc": 50, "seed": 3}
 
 
-def lda_corpus():
+def lda_corpus(ragged: bool = False):
+    """The LDA test corpus; ``ragged`` keeps 50 - 5·(d mod 5) tokens of doc
+    ``d`` and only 10 of each doc in the last quarter, so the workers own
+    uneven token counts and the last one whole chunks of padding."""
     from harp_tpu_torch.models import lda as L
 
     s = LDA_SHAPE
-    return L.synthetic_corpus(s["n_docs"], s["vocab_size"], 4,
+    d, w = L.synthetic_corpus(s["n_docs"], s["vocab_size"], 4,
                               s["tokens_per_doc"], seed=0)
+    if not ragged:
+        return d, w
+    keep_len = np.where(np.arange(s["n_docs"]) >= 3 * s["n_docs"] // 4, 10,
+                        50 - 5 * (np.arange(s["n_docs"]) % 5))
+    pos = np.arange(d.shape[0]) % s["tokens_per_doc"]
+    keep = pos < keep_len[d]
+    return d[keep], w[keep]
 
 
 def run_lda_cases(rank: int, world: int, noises: dict) -> dict:
@@ -1165,6 +1175,8 @@ LDA_PP_CASES = [
     ("dedup-cap2", {"algo": "pushpull", "chunk": 64, "pull_cap": 2}),
     ("raw-cap8", {"algo": "pushpull", "chunk": 64, "dedup_pulls": False,
                   "pull_cap": 8}),
+    ("dedup-ragged", {"algo": "pushpull", "chunk": 64}),
+    ("raw-ragged", {"algo": "pushpull", "chunk": 64, "dedup_pulls": False}),
 ]
 
 
@@ -1184,7 +1196,7 @@ def run_lda_pushpull_cases(rank: int, world: int, noises: dict) -> dict:
         cfg = L.LDAConfig(n_topics=s["n_topics"], **kw)
         m = L.LDA(s["n_docs"], s["vocab_size"], cfg, device="cpu",
                   seed=s["seed"])
-        m.set_tokens(d, w)
+        m.set_tokens(*lda_corpus(ragged="ragged" in cid))
         dropped = []
         for nz in noises[cid]:
             m.sample_epoch(noise=lambda t, _s, a=nz[rank]: torch.from_numpy(a))
