@@ -159,7 +159,26 @@ fatal when it fails (exit code != 0 and no result line):
 32. models.kmeans.fit at 1M x 300, k = 100, int8 with psum_schedule="hier"
    (K1 once an iteration), bit-equal to one_shot on one card
    (kmeans_hier_phase);
-33. one JSON line of the kernels, the card's name and power limit, and
+33. subgraph counting (no kernel of ours): the card against the CPU bit
+   for bit on a 64-vertex hub graph (u5 and u7 trees, both overflow
+   algos, which agree), u7-tree on K7 exactly 7!, benchmark at the graded
+   1M-vertex power-law shape (u5-tree, average degree 8, max_degree 16)
+   for both algos (vertices/s, host prep and device DP seconds, the algos
+   within rtol 1e-5), the CLI, u7-tree at 50k vertices, and
+   torch.profiler over one trial (subgraph_phase);
+34. the MLP trainers (no kernel of ours): the card against the CPU on a
+   small input (the three gradient wires, ZeRO-1 adam, momentum; rtol
+   1e-4), benchmark at MNIST width (784, 512, 256, 10), 60,000 samples,
+   batch 8192, for the f32, bf16 and int8 wires and ZeRO-1 adam
+   (samples/s), TPMLPTrainer on a 1 x 1 mesh_2d against MLPTrainer with a
+   falling loss, fit for 2 epochs through the CLI (python -m
+   harp_tpu_torch mlp --train), and torch.profiler over ten steps
+   (mlp_phase);
+35. CCD++ (no kernel of ours): the card against the CPU on a small input
+   (rtol 1e-4), benchmark at MovieLens-20M width, rank 32, 2 epochs
+   (seconds an epoch, a falling RMSE), and the CLI at its defaults
+   (ccd_phase);
+36. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -227,6 +246,14 @@ STREAM_HOST_N, STREAM_NPY_N, STREAM_CSV_FILES, STREAM_CSV_ROWS = 2_000_000, 1_00
 # rope_theta 10000); the sequence length is the depth knob
 MIS_HEADS, MIS_KV, MIS_DIM, MIS_WINDOW = 32, 8, 128, 4096
 MIS_SEQ, MIS_TRAIN_SEQ, MIS_TRAIN_STEPS, MIS_FWD_REPS = 8192, 4096, 3, 5
+
+# subgraph counting at the graded scale (scripts/measure_all.py's
+# subgraph_1m: u5-tree on 1M power-law vertices, average degree 8,
+# max_degree 16), and u7-tree at 50k vertices
+SUB_N, SUB_DEG, SUB_MAX_DEG, SUB_U7_N = 1_000_000, 8, 16, 50_000
+# the MLP at MNIST width (graded config #4: sizes (784, 512, 256, 10),
+# 60,000 samples, batch 8192), CCD++ at MF-SGD's MovieLens-20M width
+MLP_N, MLP_BATCH, CCD_RANK = 60_000, 8192, 32
 
 
 def fail(msg: str) -> None:
@@ -2389,6 +2416,235 @@ def kmeans_hier_phase(dev, card: str, gen) -> int:
     return launches
 
 
+def subgraph_phase(dev, card: str) -> None:
+    """Phase 33: subgraph counting (no kernel of ours): the card against
+    the CPU bit for bit on a hub graph for both overflow algos (u5 and u7
+    trees), the exact count on a complete graph, benchmark at the graded
+    1M-vertex power-law shape for both algos (host prep and device DP
+    seconds beside vertices/s), the CLI, u7-tree at 50k vertices, and
+    torch.profiler over one trial."""
+    import math
+
+    import numpy as np
+
+    from harp_tpu_torch.models import subgraph as SG
+    from harp_tpu_torch.parallel.mesh import current_mesh
+
+    rng = np.random.default_rng(9)
+    n = 64
+    edges = np.asarray([(0, i) for i in range(1, n)]
+                       + [(1, i) for i in range(2, 40)]
+                       + [(int(a), int(b)) for a, b in zip(
+                           rng.integers(0, n, 120), rng.integers(0, n, 120))])
+    for tpl in ("u5-tree", "u7-tree"):
+        trials = {}
+        for algo in ("segment", "onehot"):
+            cfg = SG.SubgraphConfig(template=tpl, n_trials=4, trial_chunk=2,
+                                    seed=5, max_degree=4, overflow_algo=algo,
+                                    overflow_row_tile=8,
+                                    overflow_entry_tile=16)
+            card_t = SG.count_template(edges, n, cfg)[1]
+            cpu_t = SG.count_template(edges, n, cfg, device="cpu")[1]
+            if card_t != cpu_t:
+                fail(f"subgraph {tpl} {algo}: card {card_t} != CPU {cpu_t}")
+            trials[algo] = card_t
+        if trials["segment"] != trials["onehot"]:
+            fail(f"subgraph {tpl}: segment {trials['segment']} != onehot "
+                 f"{trials['onehot']}")
+    s = 7
+    k7 = [(a, b) for a in range(s) for b in range(a + 1, s)]
+    mesh = current_mesh()
+    colors = np.zeros(16, np.int32)
+    colors[:s] = np.arange(s)
+    nbr, msk, ovf = SG.pad_csr(k7, 16, s)
+    o = SG._partition_overflow(ovf, 16, 1)
+    t = [mesh.replicated(a) for a in (nbr, msk, *o, colors[None, :])]
+    out = SG.make_colorful_count_fn(SG.TEMPLATES["u7-tree"], s, mesh)(
+        t[0].long(), t[1], t[2].long(), t[3].long(), t[4], t[5])
+    if float(out[0]) != math.factorial(s):
+        fail(f"subgraph u7-tree on K7: {float(out[0])} != 7!")
+    print("subgraph: card == CPU bit for bit on a 64-vertex hub graph "
+          "(u5-tree, u7-tree; max_degree 4, both overflow algos, which "
+          "agree), u7-tree on K7 exactly 7! rooted colorful maps")
+
+    # -- the graded shape: 1M power-law vertices (scripts/measure_all.py) ---
+    est = {}
+    for algo in ("segment", "onehot"):
+        r = SG.benchmark(SUB_N, SUB_DEG, "u5-tree", graph="powerlaw",
+                         max_degree=SUB_MAX_DEG, overflow_algo=algo)
+        if not (np.isfinite(r["estimate"]) and r["estimate"] > 0):
+            fail(f"subgraph benchmark {algo}: {r}")
+        est[algo] = r["estimate"]
+        print(f"subgraph benchmark u5-tree {algo}, {SUB_N} power-law "
+              f"vertices, avg degree {SUB_DEG}, max_degree {SUB_MAX_DEG}: "
+              f"{r['vertices_per_sec']:.6e} vertices/s, "
+              f"{r['sec_per_trial']:.4f} s a trial (host prep "
+              f"{r['prep_sec']:.4f} s, device DP {r['dp_sec']:.4f} s), "
+              f"overflow_share {r['overflow_share']:.4f}, estimate "
+              f"{r['estimate']:.6e} [{card}]")
+    # above 2^24 the f32 sums round, and index_add_'s order varies
+    if abs(est["segment"] - est["onehot"]) > 1e-5 * abs(est["segment"]):
+        fail(f"subgraph benchmark: segment {est['segment']} and onehot "
+             f"{est['onehot']} differ by more than rtol 1e-5")
+    row = run_cli("subgraph", "--vertices", str(SUB_N), "--avg-degree",
+                  str(SUB_DEG), "--max-degree", str(SUB_MAX_DEG), "--graph",
+                  "powerlaw")
+    if abs(row["estimate"] - est["segment"]) > 1e-5 * est["segment"]:
+        fail(f"subgraph CLI estimate {row['estimate']} != benchmark's")
+    r = SG.benchmark(SUB_U7_N, SUB_DEG, "u7-tree", graph="powerlaw",
+                     max_degree=SUB_MAX_DEG)
+    if not np.isfinite(r["estimate"]):
+        fail(f"subgraph u7-tree benchmark: {r}")
+    print(f"subgraph benchmark u7-tree, {SUB_U7_N} power-law vertices: "
+          f"{r['vertices_per_sec']:.6e} vertices/s (host prep "
+          f"{r['prep_sec']:.4f} s, device DP {r['dp_sec']:.4f} s), "
+          f"estimate {r['estimate']:.6e} [{card}]")
+
+    # -- device time of one trial --------------------------------------------
+    rng = np.random.default_rng(0)
+    n_edges = SUB_N * SUB_DEG // 2
+    edges = np.stack([(rng.zipf(1.3, n_edges).astype(np.int64) - 1) % SUB_N,
+                      rng.integers(0, SUB_N, n_edges)], 1)
+    cfg = SG.SubgraphConfig(template="u5-tree", max_degree=SUB_MAX_DEG)
+    SG.count_template(edges, SUB_N, cfg)
+    split: dict = {}
+    t0 = time.perf_counter()
+    SG.count_template(edges, SUB_N, cfg, split=split)
+    bare = time.perf_counter() - t0
+    print(f"subgraph one trial: host prep {split['prep_sec']:.4f} s, device "
+          f"DP {split['dp_sec']:.4f} s of {bare:.4f} s [{card}]")
+    profile_run(lambda: SG.count_template(edges, SUB_N, cfg), card,
+                "subgraph", "u5-tree trial (count_template whole)", bare)
+
+
+def mlp_phase(dev, card: str) -> None:
+    """Phase 34: the MLP trainers (no kernel of ours): the card against the
+    CPU on a small input (three wires, ZeRO-1 adam, TP on 1 x 1), benchmark
+    at MNIST width for the three wires and ZeRO-1 adam, a falling loss, TP
+    on a 1 x 1 mesh_2d against the DP trainer at that width, fit for 2
+    epochs through the CLI, and torch.profiler over ten steps."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import mlp as ML
+    from harp_tpu_torch.parallel.mesh import mesh_2d
+    from harp_tpu_torch.utils.timing import device_sync
+
+    x, y = ML.synthetic_mnist(n=64, d=16, classes=4, seed=1)
+    for kw in ({}, {"grad_wire": "bf16"}, {"grad_wire": "int8"},
+               {"optimizer": "adam", "zero1": True},
+               {"optimizer": "momentum"}):
+        cfg = ML.MLPConfig(sizes=(16, 32, 24, 4), lr=0.05, **kw)
+        params = ML.init_params(cfg, torch.Generator().manual_seed(3))
+        got = []
+        for make in (lambda: ML.MLPTrainer(cfg, state={"params": params}),
+                     lambda: ML.MLPTrainer(cfg, device="cpu",
+                                           state={"params": params})):
+            tr = make()
+            hist = [tr.train_batch(x, y) for _ in range(5)]
+            got.append((np.asarray(hist), torch.cat(
+                [p.reshape(-1) for p in ML._leaves(tr.params)]).cpu().numpy()))
+        if not (np.allclose(got[0][0], got[1][0], rtol=1e-4, atol=1e-6)
+                and np.allclose(got[0][1], got[1][1], rtol=1e-4, atol=1e-6)):
+            fail(f"MLP {kw}: the card and the CPU disagree on a small input")
+    print("MLP: card == CPU (rtol 1e-4) over 5 steps at (16, 32, 24, 4) for "
+          "the f32/bf16/int8 wires, ZeRO-1 adam and momentum")
+
+    cfg = ML.MLPConfig()
+    for name, c in (("f32", cfg), ("bf16", ML.MLPConfig(grad_wire="bf16")),
+                    ("int8", ML.MLPConfig(grad_wire="int8")),
+                    ("zero1 adam", ML.MLPConfig(optimizer="adam",
+                                                zero1=True))):
+        torch.cuda.reset_peak_memory_stats()
+        r = ML.benchmark(n=MLP_N, batch=MLP_BATCH, cfg=c)
+        # a trained model beats a uniform guess over the 10 classes
+        if not (np.isfinite(r["loss"]) and r["loss"] < math.log(10)):
+            fail(f"MLP benchmark {name}: loss {r['loss']}")
+        print(f"MLP benchmark {name} wire, sizes {tuple(c.sizes)}, {MLP_N} "
+              f"samples, batch {MLP_BATCH}: {r['samples_per_sec']:.6e} "
+              f"samples/s (host loop {r['samples_per_sec_hostloop']:.6e}), "
+              f"{r['steps_per_sec']:.3f} steps/s, loss {r['loss']:.6f}, "
+              f"train_acc {r['train_acc']:.4f}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+
+    xs, ys = ML.synthetic_mnist(n=MLP_BATCH, seed=2)
+    params = ML.init_params(cfg, torch.Generator().manual_seed(0))
+    dp = ML.MLPTrainer(cfg, state={"params": params})
+    tp = ML.TPMLPTrainer(cfg, mesh_2d(1, 1), state={"params": params})
+    h_dp = [dp.train_batch(xs, ys) for _ in range(5)]
+    h_tp = [tp.train_batch(xs, ys) for _ in range(5)]
+    if not np.allclose(h_dp, h_tp, rtol=1e-5, atol=1e-6):
+        fail(f"MLP TP 1x1 {h_tp} != DP {h_dp}")
+    if not h_dp[-1][0] < h_dp[0][0]:
+        fail(f"MLP loss does not fall over 5 steps: {h_dp}")
+    print(f"MLP TPMLPTrainer on a 1 x 1 mesh_2d == MLPTrainer over 5 steps "
+          f"at batch {MLP_BATCH}: loss {h_dp[0][0]:.6f} -> {h_dp[-1][0]:.6f}")
+    row = run_cli("mlp", "--train")
+    if not row["last_loss"] < row["first_loss"]:
+        fail(f"MLP fit CLI: {row}")
+
+    # -- device time of a step ----------------------------------------------
+    xb, yb = dp._shard(xs, ys)
+
+    def steps(k=10):
+        for _ in range(k):
+            dp.params, dp.opt_state, loss, _ = dp._step(dp.params,
+                                                        dp.opt_state, xb, yb)
+        return device_sync(loss)
+
+    steps()
+    t0 = time.perf_counter()
+    steps()
+    bare = time.perf_counter() - t0
+    print(f"MLP step at batch {MLP_BATCH}: {bare / 10 * 1e3:.4f} ms "
+          f"({6 * MLP_BATCH * ML.param_count(cfg) / (bare / 10) / 1e12:.2f} "
+          f"TFLOP/s of the 6·batch·params model) [{card}]")
+    profile_run(steps, card, "MLP", f"10 f32 steps at batch {MLP_BATCH}",
+                bare)
+
+
+def ccd_phase(dev, card: str) -> None:
+    """Phase 35: CCD++ (no kernel of ours): the card against the CPU on a
+    small input, benchmark at MovieLens-20M width (a falling RMSE, seconds
+    an epoch), and the CLI at its defaults."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import ccd as CD
+    from harp_tpu_torch.models.mfsgd import synthetic_ratings
+
+    u, i, v = synthetic_ratings(130, 96, 8000, rank=4, noise=0.05, seed=0)
+    gen = torch.Generator().manual_seed(0)
+    state = {"W": torch.rand((130, 8), generator=gen),
+             "H": torch.rand((96, 8), generator=gen)}
+    got = []
+    for device in (None, "cpu"):
+        m = CD.CCD(130, 96, CD.CCDConfig(rank=8, reg=0.05), device=device,
+                   state=state)
+        m.set_ratings(u, i, v)
+        got.append((m.train_epochs(3), m.W.cpu().numpy(), m.H.cpu().numpy()))
+    if not all(np.allclose(a, b, rtol=1e-4, atol=1e-6)
+               for a, b in zip(got[0], got[1])):
+        fail("CCD: the card and the CPU disagree on a small input")
+    print(f"CCD: card == CPU (rtol 1e-4) over 3 epochs at 130 x 96, rank 8 "
+          f"(RMSE {got[0][0][0]:.6f} -> {got[0][0][-1]:.6f})")
+    torch.cuda.reset_peak_memory_stats()
+    r = CD.benchmark(ML_USERS, ML_ITEMS, ML_NNZ, rank=CCD_RANK, epochs=2)
+    if not (np.isfinite(r["rmse_final"]) and r["rmse_final"] < r["rmse_first"]):
+        fail(f"CCD benchmark: {r}")
+    print(f"CCD benchmark at {ML_USERS} x {ML_ITEMS}, {ML_NNZ} ratings, rank "
+          f"{CCD_RANK}: {r['sec_per_epoch']:.6f} s an epoch, "
+          f"{r['coord_updates_per_sec']:.6e} coordinate updates/s, RMSE "
+          f"{r['rmse_first']:.6f} -> {r['rmse_final']:.6f}, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"[{card}]")
+    row = run_cli("ccd")
+    if not row["rmse_final"] < row["rmse_first"]:
+        fail(f"CCD CLI row: {row}")
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -2599,7 +2855,14 @@ def main() -> int:
         phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
-    # -- 33. result ----------------------------------------------------------
+    # -- 33-35. subgraph, MLP, CCD++ ---------------------------------------
+    for name, phase in (("subgraph", subgraph_phase), ("MLP", mlp_phase),
+                        ("CCD", ccd_phase)):
+        t0 = time.perf_counter()
+        phase(dev, card)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # -- 36. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",

@@ -16,6 +16,12 @@
     python -m harp_tpu_torch svm --n 2000 --d 16 --algo pallas --device cpu
     python -m harp_tpu_torch wdamds --algo pallas
     python -m harp_tpu_torch wdamds --n 128 --algo pallas --device cpu
+    python -m harp_tpu_torch subgraph --vertices 1000000 --avg-degree 8 --max-degree 16 --graph powerlaw
+    python -m harp_tpu_torch subgraph --vertices 2000 --template u5-tree --device cpu
+    python -m harp_tpu_torch mlp --train
+    python -m harp_tpu_torch mlp --n 2048 --batch 512 --steps 5 --device cpu
+    python -m harp_tpu_torch ccd
+    python -m harp_tpu_torch ccd --nnz 50000 --rank 8 --device cpu
     python -m harp_tpu_torch bench --max-mb 256
     python -m harp_tpu_torch bench --device cpu
     python -m harp_tpu_torch --list
@@ -41,6 +47,12 @@ APPS = {
             "linear SVM with a support-vector exchange (reshard)"),
     "wdamds": ("harp_tpu_torch.models.wdamds",
                "WDA-MDS by SMACOF (reshard + stress allreduce)"),
+    "subgraph": ("harp_tpu_torch.models.subgraph",
+                 "subgraph counting by color coding (allgather a DP level)"),
+    "mlp": ("harp_tpu_torch.models.mlp",
+            "MLP, data-parallel gradient allreduce (or ZeRO-1, or TP)"),
+    "ccd": ("harp_tpu_torch.models.ccd",
+            "CCD++ matrix factorization (a column allreduce)"),
     "bench": ("harp_tpu_torch.benchmark",
               "collective micro-benchmarks (edu.iu.benchmark)"),
 }

@@ -175,3 +175,68 @@ def moe_params_from_numpy(state: dict, device, expert: int | None = None
             a[k] = a[k][expert]
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in a.items()}
+
+
+def _layers_of(tree) -> list:
+    """The leaves of a list of ``{"w", "b"}`` layer dicts in the reference's
+    flattening order (sorted keys: ``b`` before ``w``)."""
+    return [np.asarray(layer[k], np.float32) for layer in tree
+            for k in sorted(layer)]
+
+
+def mlp_params_from_numpy(state: dict, device) -> dict:
+    """The reference MLP's parameters and optimizer state → the port's
+    tensors on ``device``, for ``models.mlp.MLPTrainer(state=...)`` (and
+    ``TPMLPTrainer``, which takes the params alone).
+
+    ``state["params"]`` is the reference's list of ``{"w": [fan_in,
+    fan_out], "b": [fan_out]}`` layers.  ``state["opt_state"]``, when
+    given, is ``{}`` (sgd), ``{"trace": ...}`` (momentum) or ``{"count",
+    "mu", "nu"}`` (adam), where each of ``trace``, ``mu``, ``nu`` is either
+    a list of layer dicts shaped like the params (the replicated layout) or
+    one [nw · L] vector (the ZeRO-1 layout, which the trainer cuts to each
+    worker's slice).  Returns ``{"params": [...], "opt_state": {...}}``
+    with the state's vectors as lists in the params' leaf order."""
+    params = []
+    for layer in state["params"]:
+        w = np.asarray(layer["w"], np.float32)
+        b = np.asarray(layer["b"], np.float32)
+        if w.ndim != 2 or b.shape != (w.shape[1],):
+            raise ValueError(f"a layer needs w [fan_in, fan_out] and b "
+                             f"[fan_out], got {w.shape} and {b.shape}")
+        params.append({"w": torch.from_numpy(w.copy()).to(device),
+                       "b": torch.from_numpy(b.copy()).to(device)})
+    out = {"params": params, "opt_state": None}
+    opt = state.get("opt_state")
+    if opt is not None:
+        conv = {}
+        for key, val in opt.items():
+            if key == "count":
+                conv[key] = torch.tensor(int(np.asarray(val)),
+                                         dtype=torch.int32, device=device)
+                continue
+            arrays = ([np.asarray(val, np.float32)]
+                      if isinstance(val, np.ndarray) and val.ndim == 1
+                      else _layers_of(val))
+            conv[key] = [torch.from_numpy(a.copy()).to(device)
+                         for a in arrays]
+        out["opt_state"] = conv
+    return out
+
+
+def ccd_state_from_numpy(state: dict, device) -> dict:
+    """The reference CCD++'s factors (the global ``"W"`` [u_bound · n,
+    rank], rows padded per worker range, and the replicated ``"H"``
+    [n_items, rank]) → f32 tensors on ``device``, for
+    ``models.ccd.CCD(state=...)``, which checks the shapes and shards W."""
+    out = {}
+    for key in ("W", "H"):
+        a = np.asarray(state[key], dtype=np.float32)
+        if a.ndim != 2:
+            raise ValueError(f"{key} must be [rows, rank], got shape "
+                             f"{a.shape}")
+        out[key] = torch.from_numpy(a.copy()).to(device)
+    if out["W"].shape[1] != out["H"].shape[1]:
+        raise ValueError(f"W and H ranks differ: {out['W'].shape[1]} vs "
+                         f"{out['H'].shape[1]}")
+    return out

@@ -1,1 +1,1 @@
-"""Harp apps on PyTorch: KMeans so far."""
+"""The Harp apps on PyTorch, one module an app."""

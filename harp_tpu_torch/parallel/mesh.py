@@ -20,6 +20,7 @@ harp_tpu_torch      Harp (``edu.iu.harp.worker.Workers``)
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 
 import numpy as np
@@ -115,6 +116,64 @@ class WorkerMesh:
     def __repr__(self) -> str:
         return (f"WorkerMesh(num_workers={self.num_workers}, "
                 f"rank={self.rank}, device={self.device})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """This worker's place in a (data × model) grid of ranks.
+
+    Rank ``r < n_data * n_model`` sits at ``(data_index, model_index) =
+    divmod(r, n_model)``, the reference's ``reshape(n_data, n_model)`` of
+    its devices.  ``data_group`` holds the ranks of this worker's column
+    (same model index: gradients average over it); ``model_group`` those of
+    its row (same data index: the tensor-parallel collectives).  With one
+    process both groups are ``None``, and a group of one moves nothing.  A
+    rank past the grid has no place (``data_index`` None)."""
+
+    n_data: int
+    n_model: int
+    data_index: int | None
+    model_index: int | None
+    data_group: object
+    model_group: object
+    device: torch.device
+
+
+#: the 2-D groups of the current world: {"world": the default group they
+#: belong to, "grids": {(n_data, n_model): (data groups, model groups)}}
+_GRIDS: dict = {"world": None, "grids": {}}
+
+
+def mesh_2d(n_data: int, n_model: int, device=None) -> Mesh2D:
+    """A 2-D (data × model) layout of the workers — the tensor-parallel
+    extension beyond Harp's single worker axis.
+
+    Every worker calls it with the same arguments: each data and model
+    group is made once per world and shape with ``dist.new_group``, by
+    every rank in the same order (a collective of the whole world)."""
+    nw, me = num_workers(), worker_id()
+    if n_data * n_model > nw:
+        raise ValueError(
+            f"mesh_2d({n_data}x{n_model}) needs {n_data * n_model} devices, "
+            f"have {nw}")
+    dev = resolve_device(device)
+    size = n_data * n_model
+    if nw == 1:
+        return Mesh2D(n_data, n_model, 0, 0, None, None, dev)
+    if _GRIDS["world"] is not dist.group.WORLD:
+        _GRIDS["world"], _GRIDS["grids"] = dist.group.WORLD, {}
+    key = (n_data, n_model)
+    if key not in _GRIDS["grids"]:
+        grid = np.arange(size).reshape(n_data, n_model)
+        cols = [grid[:, j].tolist() for j in range(n_model)]
+        rows = [grid[i].tolist() for i in range(n_data)]
+        _GRIDS["grids"][key] = ([dist.new_group(r) for r in cols],
+                                [dist.new_group(r) for r in rows])
+    data_groups, model_groups = _GRIDS["grids"][key]
+    if me >= size:
+        return Mesh2D(n_data, n_model, None, None, None, None, dev)
+    i, j = divmod(me, n_model)
+    return Mesh2D(n_data, n_model, i, j, data_groups[j], model_groups[i], dev)
 
 
 _CURRENT_MESH: WorkerMesh | None = None

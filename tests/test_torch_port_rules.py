@@ -17,10 +17,13 @@ import torch
 from harp_tpu_torch import benchmark as BM
 from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
+from harp_tpu_torch.models import ccd as CD
 from harp_tpu_torch.models import kmeans_stream as KS
 from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
+from harp_tpu_torch.models import mlp as ML
 from harp_tpu_torch.models import rf as RF
+from harp_tpu_torch.models import subgraph as SG
 from harp_tpu_torch.models import svm as SV
 from harp_tpu_torch.models import wdamds as WD
 from harp_tpu_torch.native import datasource as DS
@@ -85,7 +88,9 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.models.kmeans_stream",
             "harp_tpu_torch.native.build",
             "harp_tpu_torch.native.datasource", "harp_tpu_torch.table",
-            "harp_tpu_torch.benchmark"} <= set(mods)
+            "harp_tpu_torch.benchmark", "harp_tpu_torch.models.subgraph",
+            "harp_tpu_torch.models.mlp", "harp_tpu_torch.models.ccd"} <= set(
+                mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -113,7 +118,12 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
                                    "stream-cli", "lda-pushpull-LDA",
                                    "lda-pushpull-benchmark",
                                    "lda-pushpull-cli", "kmeans-hier",
-                                   "bench-cli"])
+                                   "bench-cli", "subgraph-count",
+                                   "subgraph-benchmark", "subgraph-cli",
+                                   "mlp-MLPTrainer", "mlp-TPMLPTrainer",
+                                   "mlp-mesh_2d", "mlp-benchmark", "mlp-cli",
+                                   "mlp-cli-train", "ccd-CCD",
+                                   "ccd-benchmark", "ccd-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -183,6 +193,33 @@ def test_entry_points_without_a_device_raise_without_cuda(entry):
             KM.fit(pts, k=2, iters=1, psum_schedule="hier")
         elif entry == "bench-cli":
             BM.main(["--verbs", "allreduce", "--max-mb", "1"])
+        elif entry == "subgraph-count":
+            SG.count_template([(0, 1), (1, 2)], 3,
+                              SG.SubgraphConfig(template="u3-path"))
+        elif entry == "subgraph-benchmark":
+            SG.benchmark(n_vertices=16, avg_degree=2, template="u3-path")
+        elif entry == "subgraph-cli":
+            SG.main(["--vertices", "16", "--avg-degree", "2", "--template",
+                     "u3-path"])
+        elif entry == "mlp-MLPTrainer":
+            ML.MLPTrainer(ML.MLPConfig(sizes=(4, 8, 2)))
+        elif entry == "mlp-TPMLPTrainer":
+            ML.TPMLPTrainer(ML.MLPConfig(sizes=(4, 8, 2)))
+        elif entry == "mlp-mesh_2d":
+            M.mesh_2d(1, 1)
+        elif entry == "mlp-benchmark":
+            ML.benchmark(n=16, batch=8, steps=1,
+                         cfg=ML.MLPConfig(sizes=(784, 8, 10)))
+        elif entry == "mlp-cli":
+            ML.main(["--n", "16", "--batch", "8", "--steps", "1"])
+        elif entry == "mlp-cli-train":
+            ML.main(["--n", "16", "--batch", "8", "--train"])
+        elif entry == "ccd-CCD":
+            CD.CCD(16, 8, CD.CCDConfig(rank=4))
+        elif entry == "ccd-benchmark":
+            CD.benchmark(n_users=16, n_items=8, nnz=32, rank=4, epochs=1)
+        elif entry == "ccd-cli":
+            CD.main(["--nnz", "32", "--rank", "4", "--epochs", "1"])
         else:
             MF.main(["--users", "16", "--items", "8", "--nnz", "32",
                      "--rank", "4", "--epochs", "1"])
@@ -284,6 +321,12 @@ UNPORTED = [
      "carry_w"),
     ("mfsgd-elastic", lambda: MF.main(["--elastic", "--device", "cpu"]),
      "`elastic/`"),
+    ("mlp-fit_ckpt", lambda: ML.MLPTrainer(ML.MLPConfig(sizes=(4, 8, 2)),
+                                           device="cpu").fit_ckpt(
+        _PTS, np.zeros(16, np.int32), 2, "x"), "fit_ckpt"),
+    ("ccd-ckpt", lambda: CD.CCD(16, 8, CD.CCDConfig(rank=4),
+                                device="cpu").fit(2, ckpt_dir="x"),
+     "fit(ckpt_dir"),
 ]
 
 

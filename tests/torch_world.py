@@ -1221,3 +1221,210 @@ def run_lda_pushpull_cases(rank: int, world: int, noises: dict) -> dict:
         m.sample_epochs(2)
         out[f"suggest-{dedup}"] = (cap, m.cfg.pull_cap, m.last_dropped)
     return out
+
+
+# ---- subgraph counting --------------------------------------------------------
+
+#: templates up to u7, plus two with more colors than vertices
+SUBGRAPH_TEMPLATES = [("u3-path", 0), ("u3-star", 0), ("u5-path", 0),
+                      ("u5-star", 0), ("u5-tree", 0), ("u7-tree", 0),
+                      ("u3-path", 5), ("u5-tree", 7)]
+SUBGRAPH_CASES = [(f"{t}-k{k}-{algo}", {"template": t, "n_colors": k,
+                                        "overflow_algo": algo})
+                  for t, k in SUBGRAPH_TEMPLATES
+                  for algo in ("segment", "onehot")]
+#: a hub-heavy graph: max_degree 4 puts most adjacency on the overflow tail
+SUBGRAPH_SHAPE = {"n": 50, "max_degree": 4, "n_trials": 3,
+                  "trial_chunk": 2, "seed": 5, "overflow_row_tile": 4,
+                  "overflow_entry_tile": 8}
+
+
+def subgraph_graph(seed: int = 9):
+    """Two hubs and random edges on SUBGRAPH_SHAPE["n"] vertices (ragged
+    over four workers: 50 pads to 52)."""
+    rng = np.random.default_rng(seed)
+    n = SUBGRAPH_SHAPE["n"]
+    edges = ([(0, i) for i in range(1, n)] + [(1, i) for i in range(2, 30)]
+             + [(int(a), int(b)) for a, b in zip(rng.integers(0, n, 90),
+                                                 rng.integers(0, n, 90))])
+    return np.asarray(edges, np.int64), n
+
+
+def subgraph_config_kwargs(kw: dict) -> dict:
+    s = SUBGRAPH_SHAPE
+    return {k: s[k] for k in ("max_degree", "n_trials", "trial_chunk",
+                              "seed", "overflow_row_tile",
+                              "overflow_entry_tile")} | kw
+
+
+def run_subgraph_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.models import subgraph as SG
+    from harp_tpu_torch.utils import telemetry
+
+    edges, n = subgraph_graph()
+    out = {}
+    for cid, kw in SUBGRAPH_CASES:
+        cfg = SG.SubgraphConfig(**subgraph_config_kwargs(kw))
+        with telemetry.scope():
+            est, trials, ovf = SG.count_template(edges, n, cfg, device="cpu")
+            led = telemetry.ledger.summary()["subgraph.count"]
+        out[cid] = {"estimate": est, "trials": trials, "overflow": ovf,
+                    "ledger": led}
+    return out
+
+
+# ---- MLP ----------------------------------------------------------------------
+
+MLP_SIZES = (16, 32, 24, 4)
+MLP_CASES = ([(f"{opt}-{wire}-{'zero1' if z else 'dp'}",
+               {"optimizer": opt, "grad_wire": wire, "zero1": z})
+              for opt in ("sgd", "momentum", "adam")
+              for wire in ("f32", "bf16", "int8") for z in (False, True)]
+             + [(f"{opt}-half", {"optimizer": opt, "half_precision": True})
+                for opt in ("sgd", "momentum", "adam")])
+MLP_STEPS = 5
+
+
+def mlp_data(n: int = 64, seed: int = 1):
+    """MNIST-shaped synthetic rows at MLP_SIZES (the reference's
+    generator)."""
+    rng = np.random.default_rng(seed)
+    d, classes = MLP_SIZES[0], MLP_SIZES[-1]
+    protos = rng.normal(size=(classes, d)).astype(np.float32)
+    y = rng.integers(0, classes, n).astype(np.int32)
+    x = 0.5 * protos[y] + rng.normal(size=(n, d)).astype(np.float32) * 0.8
+    return x, y
+
+
+def mlp_config_kwargs(kw: dict) -> dict:
+    lr = 0.01 if kw.get("optimizer") == "adam" else 0.05
+    return {"sizes": MLP_SIZES, "lr": lr, **kw}
+
+
+def _tree_np(params) -> list:
+    return [{k: v.detach().cpu().numpy().copy() for k, v in p.items()}
+            for p in params]
+
+
+def _state_np(state: dict) -> dict:
+    return {k: (v.cpu().numpy().copy() if k == "count"
+                else [t.cpu().numpy().copy() for t in v])
+            for k, v in state.items()}
+
+
+def run_mlp_cases(rank: int, world: int, states: dict, fit_params) -> dict:
+    """Every DP/ZeRO-1 case from the reference's state (``states[cid]``,
+    numpy), MLP_STEPS train_batch steps; fit_resident with one batch an
+    epoch and fit through the ingest pipeline; the TP trainer on 2 x 2
+    against the DP trainer; the TP validations."""
+    from harp_tpu_torch import convert
+    from harp_tpu_torch.models import mlp as M
+    from harp_tpu_torch.parallel.mesh import mesh_2d
+    from harp_tpu_torch.utils import telemetry
+
+    x, y = mlp_data()
+    out = {}
+    for cid, kw in MLP_CASES:
+        cfg = M.MLPConfig(**mlp_config_kwargs(kw))
+        tr = M.MLPTrainer(cfg, device="cpu",
+                          state=convert.mlp_params_from_numpy(states[cid],
+                                                              "cpu"))
+        with telemetry.scope():
+            with telemetry.ledger.run("mlp.step", steps=MLP_STEPS):
+                hist = [tr.train_batch(x, y) for _ in range(MLP_STEPS)]
+            led = telemetry.ledger.summary()["mlp.step"]
+        out[cid] = {"hist": hist, "params": _tree_np(tr.params),
+                    "opt_state": _state_np(tr.opt_state), "ledger": led}
+    # from the warm params alone (a fresh optimizer state): the test holds
+    # four workers to one on the full batch
+    for cid in ("sgd-f32-dp", "adam-f32-zero1"):
+        cfg = M.MLPConfig(**mlp_config_kwargs(dict(MLP_CASES)[cid]))
+        state = {"params": states[cid]["params"]}
+        tr = M.MLPTrainer(cfg, device="cpu",
+                          state=convert.mlp_params_from_numpy(state, "cpu"))
+        out[f"full-{cid}"] = {
+            "hist": [tr.train_batch(x, y) for _ in range(MLP_STEPS)],
+            "params": _tree_np(tr.params)}
+    # fit_resident, one batch an epoch (the order is then trivial), and
+    # fit through the ingest pipeline (numpy's batch order, as the
+    # reference's)
+    for opt in ("momentum", "adam"):
+        cfg = M.MLPConfig(**mlp_config_kwargs({"optimizer": opt}))
+        state = {"params": fit_params}
+        tr = M.MLPTrainer(cfg, device="cpu",
+                          state=convert.mlp_params_from_numpy(state, "cpu"))
+        tr.load_resident(x, y, batch_size=len(x))
+        out[f"resident-{opt}"] = {"hist": tr.fit_resident(epochs=4),
+                                  "params": _tree_np(tr.params)}
+        tr = M.MLPTrainer(cfg, device="cpu",
+                          state=convert.mlp_params_from_numpy(state, "cpu"))
+        out[f"fit-{opt}"] = {"hist": tr.fit(x, y, batch_size=16, epochs=2),
+                             "params": _tree_np(tr.params)}
+    # TP on 2 x 2 against the DP trainer, the same params and batches
+    cfg = M.MLPConfig(**mlp_config_kwargs({"optimizer": "momentum"}))
+    state = convert.mlp_params_from_numpy({"params": fit_params}, "cpu")
+    tp = M.TPMLPTrainer(cfg, mesh_2d(2, 2, "cpu"), state=state)
+    dp = M.MLPTrainer(cfg, device="cpu", state=state)
+    tp_hist = [tp.train_batch(x, y) for _ in range(3)]
+    dp_hist = [dp.train_batch(x, y) for _ in range(3)]
+    out["tp"] = {"hist": tp_hist, "params": tp.full_params(),
+                 "local_w0": tuple(tp.params[0]["w"].shape),
+                 "local_w1": tuple(tp.params[1]["w"].shape),
+                 "dp_hist": dp_hist, "dp_params": _tree_np(dp.params)}
+    # the default mesh: the largest model axis dividing the sharded dims
+    tpd = M.TPMLPTrainer(M.MLPConfig(sizes=(16, 32, 8)), device="cpu")
+    out["tp_default"] = {"shape": (tpd.mesh.n_data, tpd.mesh.n_model),
+                         "loss": tpd.train_batch(*mlp_data(64, 2))[0]}
+    errors = {}
+    for name, fn in (
+            ("divisible", lambda: M.TPMLPTrainer(
+                M.MLPConfig(sizes=(16, 10, 8)), mesh_2d(1, 4, "cpu"))),
+            ("batch", lambda: M.TPMLPTrainer(
+                M.MLPConfig(sizes=(16, 32, 8)), mesh_2d(2, 2, "cpu")
+            ).train_batch(*mlp_data(63))),
+            ("mesh", lambda: mesh_2d(4, 4, "cpu"))):
+        try:
+            fn()
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    out["zero1_len"] = M.zero1_shard_len(M.MLPConfig(sizes=MLP_SIZES), world)
+    return out
+
+
+# ---- CCD++ --------------------------------------------------------------------
+
+#: 130 users split ragged over four workers (u_bound 33, the last short)
+CCD_SHAPE = {"n_users": 130, "n_items": 96, "nnz": 8000, "rank": 8,
+             "reg": 0.05, "epochs": 3}
+
+
+def ccd_ratings():
+    """Low-rank ratings (the reference's synthetic_ratings) at CCD_SHAPE."""
+    s = CCD_SHAPE
+    rng = np.random.default_rng(0)
+    Wt = rng.normal(size=(s["n_users"], 4)) / np.sqrt(4)
+    Ht = rng.normal(size=(s["n_items"], 4)) / np.sqrt(4)
+    u = rng.integers(0, s["n_users"], s["nnz"])
+    i = rng.integers(0, s["n_items"], s["nnz"])
+    v = (Wt[u] * Ht[i]).sum(-1) + 0.05 * rng.normal(size=s["nnz"])
+    return u.astype(np.int32), i.astype(np.int32), v.astype(np.float32)
+
+
+def run_ccd_cases(rank: int, world: int, W0: np.ndarray,
+                  H0: np.ndarray) -> dict:
+    from harp_tpu_torch import convert
+    from harp_tpu_torch.models import ccd as CC
+    from harp_tpu_torch.utils import telemetry
+
+    s = CCD_SHAPE
+    m = CC.CCD(s["n_users"], s["n_items"],
+               CC.CCDConfig(rank=s["rank"], reg=s["reg"]), device="cpu",
+               state=convert.ccd_state_from_numpy({"W": W0, "H": H0}, "cpu"))
+    m.set_ratings(*ccd_ratings())
+    with telemetry.scope():
+        rmses = m.train_epochs(s["epochs"])
+        led = telemetry.ledger.summary()["ccd.epochs"]
+    return {"rmses": rmses, "W": m.W.numpy().copy(),
+            "H": m.H.numpy().copy(), "ledger": led}
