@@ -47,8 +47,9 @@ fatal when it fails (exit code != 0 and no result line):
    its plain version at the LDA benchmark width (100k docs x 50k words,
    1000 topics, 100 tokens a doc; 512 x 512 tiles, C = 768, cc from
    chunk_width): the first 256 entries of one rotation step with injected
-   uniforms for f32 and int16 Ndk, then the whole step on the Philox arm
-   for f32 and int16 Ndk; tables, topics and dNk bit-equal; launches a
+   uniforms for f32 and int16 Ndk, then the step's first entries that
+   span K4_PLAIN_CHUNKS chunks on the Philox arm for f32 and int16 Ndk;
+   tables, topics and dNk bit-equal; the whole step timed, launches a
    step (one), microseconds a chunk, and torch.profiler's split of the
    step into kernel time and the gaps between launches;
 10. K4's Philox arm on a flat tile: topic frequencies match the posterior;
@@ -178,7 +179,32 @@ fatal when it fails (exit code != 0 and no result line):
    (rtol 1e-4), benchmark at MovieLens-20M width, rank 32, 2 epochs
    (seconds an epoch, a falling RMSE), and the CLI at its defaults
    (ccd_phase);
-36. one JSON line of the kernels, the card's name and power limit, and
+36. the stats suite (no kernel of ours) on 10M x 64 f32 rows drawn on the
+   card: moments, covariance, PCA, linreg, ridge, TSQR, SVD and naive
+   Bayes (seconds, rows/s, peak memory), TSQR's residual below 1e-5, the
+   card against the CPU on 20,000 rows at the stats tolerances, the
+   covariance within 1e-5 of an f64 host Gram (TF32 off), and ALS at
+   MovieLens-1M's counts, rank 8, 3 iterations (seconds an iteration, a
+   falling RMSE, peak memory beside the reckoned one) (stats_phase);
+37. weighted WDA-MDS at n = 4096, dim 3, 30 iterations of 10 CG steps,
+   with a seeded 10 % of the pairs weighted 0 and their δ corrupted x5
+   (iters/s, weighted stress), unit weights against the unweighted stress
+   (rtol 1e-3), the card against the CPU at n = 256 (wmds_phase);
+38. SVM's sparse path on a seeded 500k x 128 libsvm file at 10 % density:
+   the native parser against the Python one (equal arrays), fit_sparse and
+   the --libsvm CLI on the card (samples/s, train_acc), the card against
+   the CPU on 2,000 rows (rtol 1e-3) (svm_sparse_phase);
+39. durable runs on the kernels, each recovered run bit-equal to an
+   uninterrupted one after an injected ckpt_write fault (one step
+   replayed) and a worker failure: KMeans 1M x 300, k = 100, 10 iterations,
+   ckpt_every 2, int8 on K1 and f32 use_pallas on K2 (launch counts show
+   the replay); MF-SGD on K3 and LDA on K4, 4 epochs; CCD++ (rtol 1e-4)
+   and the MLP's fit_ckpt (rtol 1e-5) beside the spread of two
+   uninterrupted CCD++ runs; streaming int8 at 2.5e6 x 300, k = 1000,
+   killed after two epochs and resumed by the CLI's --resume; the seconds
+   and bytes a checkpoint costs; a lone ckpt_write fault leaves its tmp.*
+   and no damage (durable_phase);
+40. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -190,6 +216,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -222,6 +249,9 @@ SFU_OPS_S = 16 * 132 * 1.98e9
 # 9.0) x 132 SMs x 1.98 GHz: at most one 4-byte atomic update per bank and
 # clock
 SMEM_UPDATES_S = 32 * 132 * 1.98e9
+# K4 against its plain version on the first entries of a rotation step that
+# span this many of its ~44,800 chunks (the plain whole step took 105-155 s)
+K4_PLAIN_CHUNKS = 4096
 
 # SVM, WDA-MDS and RF at the reference's benchmark() defaults
 SVM_N, SVM_D, SVM_K = 500_000, 128, 256
@@ -254,6 +284,29 @@ SUB_N, SUB_DEG, SUB_MAX_DEG, SUB_U7_N = 1_000_000, 8, 16, 50_000
 # the MLP at MNIST width (graded config #4: sizes (784, 512, 256, 10),
 # 60,000 samples, batch 8192), CCD++ at MF-SGD's MovieLens-20M width
 MLP_N, MLP_BATCH, CCD_RANK = 60_000, 8192, 32
+
+# the stats suite: 10M x 64 rows (the CLI's d at 100x its n) drawn on the
+# card, checked against the CPU on a 20,000-row slice; ALS at
+# MovieLens-1M's counts (6,040 users, 3,706 items, 1M ratings), rank 8
+STATS_N, STATS_D, STATS_CHECK_N = 10_000_000, 64, 20_000
+ALS_USERS, ALS_ITEMS, ALS_NNZ, ALS_RANK, ALS_ITERS = 6_040, 3_706, 1_000_000, 8, 3
+# weighted WDA-MDS at wdamds.benchmark's width (MDS_*), its CG steps, and
+# the card-against-CPU size
+WMDS_CG, WMDS_SMALL = 10, 256
+# SVM's sparse path at the dense benchmark's shape, 10 % of the features
+# set; the accuracy floor is the dense floor less the sparser signal's
+# margin (a row holds 12.8 features on average)
+SVMS_N, SVMS_D, SVMS_DENSITY, SVMS_SMALL, SVMS_ACC_FLOOR = (
+    500_000, 128, 0.10, 2000, 0.90)
+# durable runs: KMeans graded config #1 checkpointed every 2 iterations;
+# MF-SGD and CCD++ at MovieLens-20M width with 2M ratings, LDA at the
+# benchmark's vocabulary and topics with 20k docs; streaming int8 at
+# 2.5e6 x 300, k = 1000 (an epoch of real int8 data costs ~1 s a chunk of
+# host quantization: 1e7 rows took 39 s an epoch, over the time limit)
+DUR_EVERY, DUR_ML_NNZ, DUR_LDA_DOCS, DUR_EPOCHS = 2, 2_000_000, 20_000, 4
+DUR_STREAM_N, DUR_STREAM_EPOCHS = 2_500_000, 4
+# CCD++'s tolerance for another f32 order of its sums (tests/test_torch_ccd.py)
+CCD_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -824,8 +877,12 @@ def k4_split(step, card: str) -> None:
 
 
 def k4_phase(dev, card: str) -> dict:
-    """Phase 9: K4 against its plain version for one rotation step at the
-    LDA benchmark width; returns K4's row of the kernels line."""
+    """Phase 9: K4 against its plain version at the LDA benchmark width
+    (the first entries of a rotation step; the whole step timed); returns
+    K4's row of the kernels line, whose ``plain_ms`` is the plain version's
+    on ``plain_entries`` entries, beside the kernel's there
+    (``ms_plain_entries``)."""
+    import numpy as np
     import torch
 
     from harp_tpu_torch.models import lda as LD
@@ -889,32 +946,36 @@ def k4_phase(dev, card: str) -> dict:
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (ne, 2), dtype=torch.int32,
                           generator=gen, device=dev)
     full = (ed, ew, od, ow)
-    ka = [Ndk.clone(), Nwk.clone(), z0.clone()]
-    pa = [Ndk.clone(), Nwk.clone(), z0.clone()]
-    d1 = K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full, seeds=seeds, plan=plan,
-                     **kw)
+    # the plain version takes 105-155 s for the whole step: it is held to
+    # K4 on the step's first entries that span K4_PLAIN_CHUNKS chunks (every
+    # grid barrier of the kernel runs there), f32 and int16 Ndk
+    n_pre = min(int(np.searchsorted(np.cumsum(plan.n_chunks),
+                                    K4_PLAIN_CHUNKS)) + 1, ne)
+    pre = [a[:n_pre] for a in full]
+    pre_plan = K4.EntryPlan(plan.n_chunks[:n_pre].copy(), cc, plan.d_rows,
+                            plan.w_rows)
+    pa = [Ndk.clone(), Nwk.clone(), z0[:n_pre].clone()]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    d2 = K4.cgs_step_plain(pa[0], pa[1], Nk, pa[2], *full, seeds=seeds,
-                           **kw)
+    d2 = K4.cgs_step_plain(pa[0], pa[1], Nk, pa[2], *pre,
+                           seeds=seeds[:n_pre], **kw)
     end.record()
     end.synchronize()
     plain = start.elapsed_time(end)
-    for a, b in zip(ka + [d1], pa + [d2]):
-        err = max(err, float((a.float() - b.float()).abs().max()))
-        if not torch.equal(a, b):
-            fail("K4 (Philox arm) differs from its plain version on a "
-                 "whole rotation step")
-    # int16 Ndk over the whole step as well: its CAS atomics under the
-    # grid barriers
-    ki = [Ndk.to(torch.int16), Nwk.clone(), z0.clone()]
-    d3 = K4.cgs_step(ki[0], ki[1], Nk, ki[2], *full, seeds=seeds,
-                     plan=plan, **kw)
-    for a, b in zip(ki + [d3], pa + [d2]):
-        if not torch.equal(a.float(), b.float()):
-            fail("K4 (Philox arm, int16 Ndk) differs from its plain "
-                 "version on a whole rotation step")
-    del pa, ki
+    for dt in (torch.float32, torch.int16):
+        kb = [Ndk.to(dt, copy=True), Nwk.clone(), z0[:n_pre].clone()]
+        d1 = K4.cgs_step(kb[0], kb[1], Nk, kb[2], *pre, seeds=seeds[:n_pre],
+                         plan=pre_plan, **kw)
+        for a, b in zip(kb + [d1], pa + [d2]):
+            err = max(err, float((a.float() - b.float()).abs().max()))
+            if not torch.equal(a.float(), b.float()):
+                fail(f"K4 (Philox arm, {dt}) differs from its plain version "
+                     f"on the first {n_pre} entries of a rotation step")
+    del pa, kb
+    ms_pre = cuda_ms(lambda: K4.cgs_step(
+        Ndk.clone(), Nwk.clone(), Nk, z0[:n_pre].clone(), *pre,
+        seeds=seeds[:n_pre], plan=pre_plan, **kw), reps=3, warmup=1)
+    ka = [Ndk.clone(), Nwk.clone(), z0.clone()]
 
     def step():
         return K4.cgs_step(ka[0], ka[1], Nk, ka[2], *full, seeds=seeds,
@@ -926,16 +987,17 @@ def k4_phase(dev, card: str) -> dict:
     k4_split(step, card)
     b_ms, b_by = k4_bound_ms(work, Ndk.numel() * 4, Nwk.numel() * 4,
                              LDA_TOPICS)
-    print(f"K4 whole step, Philox arm: against the plain version bit-equal, "
-          f"f32 and int16 Ndk; plain {plain:.4f} ms/step; kernel {ms:.4f} "
-          f"ms/step ({per_step:g} K4 launches a step over 4 steps; "
-          f"{chunks} chunks, {ms * 1e3 / chunks:.3f} us a "
-          f"chunk), bound "
-          f"{b_ms:.4f} ms ({b_by}); first {n_sub} entries with injected "
-          f"uniforms: kernel {ms_sub:.4f} ms, plain {plain_sub:.4f} ms "
-          f"[{card}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by}
+    print(f"K4 Philox arm: bit-equal to the plain version on the first "
+          f"{n_pre} entries ({K4_PLAIN_CHUNKS}+ of the step's {chunks} "
+          f"chunks), f32 and int16 Ndk: plain {plain:.4f} ms, kernel "
+          f"{ms_pre:.4f} ms there; the whole step: kernel {ms:.4f} ms/step "
+          f"({per_step:g} K4 launches a step over 4 steps; "
+          f"{ms * 1e3 / chunks:.3f} us a chunk), bound {b_ms:.4f} ms "
+          f"({b_by}); first {n_sub} entries with injected uniforms: kernel "
+          f"{ms_sub:.4f} ms, plain {plain_sub:.4f} ms [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "plain_entries": n_pre, "ms_plain_entries": ms_pre,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def lda_phases(dev, card: str) -> tuple[dict, int]:
@@ -2645,6 +2707,600 @@ def ccd_phase(dev, card: str) -> None:
         fail(f"CCD CLI row: {row}")
 
 
+def stats_phase(dev, card: str) -> None:
+    """Phase 36: the stats suite (no kernel of ours) on 10M x 64 f32 rows
+    drawn on the card (moments, covariance, PCA, linreg, ridge, TSQR, SVD,
+    naive Bayes: seconds, rows/s, peak memory), the card against the CPU on
+    a 20,000-row slice, TSQR's residual, the TF32 check, and ALS at
+    MovieLens-1M's counts."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import stats as ST
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    # the test suite's rows (torch_world.stats_inputs): distinct column
+    # scales (separated eigenvalues) and a mean of 2, so no sum sits near 0
+    # where an f32 sum has no relative precision; the regressions take the
+    # centered rows, as there
+    z = torch.randn((STATS_N, STATS_D), generator=gen, device=dev)
+    z *= torch.linspace(0.5, 3.0, STATS_D, device=dev)
+    x = z + 2.0
+    w_true = torch.randn((STATS_D,), generator=gen, device=dev)
+    y = z @ w_true + 0.01 * torch.randn((STATS_N,), generator=gen,
+                                        device=dev) + 1.5
+    cls = torch.randint(0, 4, (STATS_N,), generator=gen, device=dev)
+    # multinomial NB reads counts: nonnegative rows, each class boosting its
+    # own quarter of the features (the CLI's task)
+    xa = z.abs() + 3.0 * (torch.arange(STATS_D, device=dev)[None, :] % 4
+                          == cls[:, None])
+    apps = {
+        "moments": lambda X, Y, C, d: ST.moments(X, device=d),
+        "covariance": lambda X, Y, C, d: ST.covariance(X, device=d),
+        "pca": lambda X, Y, C, d: ST.pca(X, device=d),
+        "linreg": lambda X, Y, C, d: ST.linear_regression(X, Y, device=d),
+        "ridge": lambda X, Y, C, d: ST.ridge_regression(X, Y, l2=1.0,
+                                                        device=d),
+        "tsqr": lambda X, Y, C, d: ST.tsqr(X, device=d),
+        "svd": lambda X, Y, C, d: ST.svd(X, device=d),
+        "naive_bayes": lambda X, Y, C, d: ST.naive_bayes_fit(X, C, 4,
+                                                             device=d)}
+    rows_of = {"naive_bayes": "xa", "linreg": "z", "ridge": "z"}
+    data = {"x": x, "z": z, "xa": xa}
+    full = {}
+    for name, fn in apps.items():
+        X = data[rows_of.get(name, "x")]
+        fn(X[:100_000], y[:100_000], cls[:100_000], None)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        full[name] = fn(X, y, cls, None)
+        dt = time.perf_counter() - t0
+        print(f"stats {name} at {STATS_N} x {STATS_D}: {dt:.4f} s, "
+              f"{STATS_N / dt:.6e} rows/s, peak device memory "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f} "
+              f"GiB above the {base / 2 ** 30:.3f} GiB of inputs [{card}]")
+    del X
+    q, r = full["tsqr"]
+    qd = torch.from_numpy(q).to(dev)
+    resid = float(torch.linalg.norm(qd @ torch.from_numpy(r).to(dev) - x)
+                  / torch.linalg.norm(x))
+    del qd
+    if not resid < 1e-5:
+        fail(f"stats tsqr: relative residual {resid} at {STATS_N} rows")
+    coef, icpt = full["linreg"]  # fitted on the centered rows z
+    if not (np.allclose(coef, w_true.cpu().numpy(), atol=1e-3)
+            and abs(float(icpt) - 1.5) < 1e-3):
+        fail(f"stats linreg: coefficients off the planted ones")
+    nb_acc = float((ST.naive_bayes_predict(
+        full["naive_bayes"], xa[:50_000].cpu().numpy())
+        == cls[:50_000].cpu().numpy()).mean())
+    print(f"stats: TSQR residual {resid:.3e}; linreg recovers the planted "
+          f"coefficients (atol 1e-3); NB train_acc {nb_acc:.4f} on 50k rows; "
+          f"top eigenvalues {np.round(full['pca'][1][:3], 6).tolist()}, "
+          f"singular values {np.round(full['svd'][1][:3], 3).tolist()}")
+    if nb_acc < 0.9:
+        fail(f"stats naive_bayes: train_acc {nb_acc}")
+
+    # the card against the CPU on a slice, at the stats tolerances
+    n = STATS_CHECK_N
+    sl = {"x": x[:n], "z": z[:n], "y": y[:n], "c": cls[:n], "xa": xa[:n]}
+    host = {k: v.cpu() for k, v in sl.items()}
+    tight = dict(rtol=1e-5, atol=1e-6)
+
+    def worst(pairs):
+        # (key, the largest |a - b| over rtol|b| + atol) of each pair
+        return max(((k, float((np.abs(np.asarray(u) - np.asarray(v)) / (
+            tight["atol"] + tight["rtol"] * np.abs(np.asarray(v)))).max()))
+            for k, u, v in pairs), key=lambda t: t[1])
+
+    for name, fn in apps.items():
+        rows = rows_of.get(name, "x")
+        a = fn(sl[rows], sl["y"], sl["c"], None)
+        b = fn(host[rows], host["y"], host["c"], "cpu")
+        if name in ("moments", "naive_bayes"):
+            key, r = worst([(k, a[k], b[k]) for k in b])
+            ok = r <= 1.0
+        elif name in ("covariance", "linreg", "ridge"):
+            key, r = worst([(str(i), u, v) for i, (u, v) in enumerate(zip(a,
+                                                                          b))])
+            ok = r <= 1.0
+        elif name == "pca":
+            ok = (np.allclose(a[1], b[1], rtol=1e-4) and np.allclose(
+                np.abs((a[0] * b[0]).sum(1)), 1.0, atol=1e-3))
+        elif name == "tsqr":
+            xs = host["x"].numpy()
+            ok = (np.linalg.norm(a[0] @ a[1] - xs) / np.linalg.norm(xs) < 1e-5
+                  and np.allclose(np.abs(a[1]), np.abs(b[1]), rtol=1e-4,
+                                  atol=1e-4 * np.abs(b[1]).max()))
+        else:
+            ok = np.allclose(a[1], b[1], rtol=1e-4)
+        if not ok:
+            detail = (f" (worst: {key}, {r:.3g} of the tolerance)"
+                      if name in ("moments", "naive_bayes", "covariance",
+                                  "linreg", "ridge") else "")
+            fail(f"stats {name}: the card and the CPU disagree on {n} "
+                 f"rows{detail}")
+    # TF32: the port's covariance (TF32 off) against an f64 host Gram, and
+    # the same Gram taken with TF32 on for contrast
+    xs = host["x"].numpy().astype(np.float64)
+    xc = xs - xs.mean(0)
+    c64 = xc.T @ xc / n
+    _, c32 = ST.covariance(sl["x"])
+    err = np.linalg.norm(c32 - c64) / np.linalg.norm(c64)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    xcd = sl["x"] - sl["x"].mean(0)
+    ctf = ((xcd.T @ xcd) / n).cpu().numpy()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err_tf = np.linalg.norm(ctf - c64) / np.linalg.norm(c64)
+    if not err <= 1e-5:
+        fail(f"stats covariance: {err} from the f64 host Gram (TF32 on?)")
+    print(f"stats: card == CPU on {n} rows for all 8 apps (rtol 1e-5 / atol "
+          f"1e-6; PCA, TSQR and SVD rtol 1e-4, vectors up to sign); "
+          f"covariance {err:.3e} from the f64 host Gram (the same Gram with "
+          f"TF32 on: {err_tf:.3e}) [{card}]")
+    del x, z, y, cls, xa, data, sl, xcd
+    torch.cuda.empty_cache()
+
+    # ALS at MovieLens-1M's counts, drawn as the CLI draws its ratings
+    rng = np.random.default_rng(0)
+    users = rng.integers(0, ALS_USERS, ALS_NNZ).astype(np.int32)
+    items = rng.integers(0, ALS_ITEMS, ALS_NNZ).astype(np.int32)
+    vals = rng.normal(size=ALS_NNZ).astype(np.float32)
+    m = int(np.bincount(users, minlength=ALS_USERS).max())
+    cells, r_ = ALS_USERS * m, ALS_RANK
+    # the [users, m] lists (int32 ids, their int64 copy, f32 ratings and
+    # mask), the W step's gathered [users, m, r] twice, the H step's
+    # [users*m, r, r] outer products and its [users*m, r] rows twice
+    reckon = cells * (4 + 8 + 4 + 4 + 2 * 4 * r_ + 4 * r_ * r_ + 2 * 4 * r_)
+    print(f"ALS: {ALS_USERS} users x {ALS_ITEMS} items, {ALS_NNZ} ratings, "
+          f"at most {m} a user: padded lists [{ALS_USERS}, {m}], reckoned "
+          f"peak {reckon / 2 ** 20:.1f} MiB")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _, _, hist = ST.als(users, items, vals, ALS_USERS, ALS_ITEMS,
+                        rank=ALS_RANK, iters=ALS_ITERS)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        fail(f"ALS: RMSE history {hist} not finite and falling")
+    print(f"ALS rank {ALS_RANK}, {ALS_ITERS} iterations: "
+          f"{dt / ALS_ITERS:.4f} s an iteration (host prep included), RMSE "
+          f"{[round(h, 6) for h in hist]}, peak device memory "
+          f"{peak / 2 ** 20:.1f} MiB (reckoned {reckon / 2 ** 20:.1f}) "
+          f"[{card}]")
+
+
+def wmds_phase(dev, card: str) -> None:
+    """Phase 37: weighted WDA-MDS (no kernel of ours) at wdamds.benchmark's
+    width: a seeded symmetric 10 % of the pairs weighted 0 with their δ
+    corrupted x5; iterations/s and the weighted stress; unit weights
+    against the unweighted stress; the card against the CPU at n = 256."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import wdamds as WD
+
+    def weighted(n, seed):
+        delta = WD.benchmark_delta(n, seed)
+        rng = np.random.default_rng(seed)
+        ii, jj = np.triu_indices(n, 1)
+        sel = rng.choice(len(ii), size=len(ii) // 10, replace=False)
+        w = np.ones((n, n), np.float32)
+        w[ii[sel], jj[sel]] = w[jj[sel], ii[sel]] = 0.0
+        bad = delta.copy()
+        bad[ii[sel], jj[sel]] *= 5.0
+        bad[jj[sel], ii[sel]] *= 5.0
+        return delta, bad, w
+
+    delta, bad, w = weighted(MDS_N, 0)
+    cfg = WD.MDSConfig(dim=MDS_DIM, iters=MDS_ITERS, cg_iters=WMDS_CG)
+    WD.mds(bad, cfg, weights=w)  # warm-up
+    t0 = time.perf_counter()
+    X, stress = WD.mds(bad, cfg, weights=w)
+    dt = time.perf_counter() - t0
+    Xu, stress_u = WD.mds(bad, cfg)
+
+    def true_stress(X):
+        d = np.sqrt(((X[:, None] - X[None]) ** 2).sum(-1))
+        return float(((delta - d) ** 2)[np.triu_indices(MDS_N, 1)].sum())
+
+    if not (np.isfinite(X).all() and np.isfinite(stress)):
+        fail("weighted MDS: non-finite result")
+    ts_w, ts_u = true_stress(X), true_stress(Xu)
+    if not ts_w < ts_u:
+        fail(f"weighted MDS: zero weights did not hide the corrupted δ "
+             f"({ts_w} vs unweighted {ts_u})")
+    _, s_u = WD.mds(delta, cfg)
+    _, s_1 = WD.mds(delta, cfg, weights=np.ones_like(delta))
+    if abs(s_1 - s_u) > 1e-3 * abs(s_u):
+        fail(f"weighted MDS: unit weights give {s_1}, unweighted {s_u}")
+    d_s, b_s, w_s = weighted(WMDS_SMALL, 1)
+    got = [WD.mds(b_s, cfg, weights=w_s, device=d) for d in (None, "cpu")]
+    if not (abs(got[0][1] - got[1][1]) <= 1e-3 * abs(got[1][1])
+            and np.allclose(got[0][0], got[1][0], atol=1e-3)):
+        fail("weighted MDS: the card and the CPU disagree at n = "
+             f"{WMDS_SMALL}")
+    print(f"weighted MDS at n = {MDS_N}, dim {MDS_DIM}, {MDS_ITERS} "
+          f"iterations x {WMDS_CG} CG steps: {MDS_ITERS / dt:.4f} iters/s "
+          f"({dt:.4f} s a run, H2D included), weighted stress {stress:.6e} "
+          f"(the unweighted solver's stress on the same δ {stress_u:.6e}); "
+          f"stress against the clean δ {ts_w:.6e} weighted vs {ts_u:.6e} "
+          f"unweighted; unit weights {s_1:.6e} vs unweighted {s_u:.6e}; "
+          f"card == CPU at n = {WMDS_SMALL} (rtol 1e-3) [{card}]")
+
+
+def write_libsvm(path, x, y) -> None:
+    """``x`` [n, d] dense rows with zeros, ``y`` labels: a 1-based libsvm
+    text file of the nonzeros."""
+    import numpy as np
+
+    r, c = np.nonzero(x)
+    vals = x[r, c].tolist()
+    cols = (c + 1).tolist()
+    ptr = np.searchsorted(r, np.arange(x.shape[0] + 1)).tolist()
+    with open(path, "w") as f:
+        for i in range(x.shape[0]):
+            a, b = ptr[i], ptr[i + 1]
+            f.write(f"{int(y[i])} " + " ".join(
+                f"{j}:{v:.6g}" for j, v in zip(cols[a:b], vals[a:b])) + "\n")
+
+
+def svm_sparse_phase(dev, card: str, tmp: str) -> None:
+    """Phase 38: SVM's sparse path (no kernel of ours: K5 takes dense rows)
+    on a seeded 500k x 128 libsvm file at 10 % density: the native parser
+    against the Python one, fit_sparse and the --libsvm CLI on the card
+    (samples/s, train_acc), and the card against the CPU on a small file."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import svm as SV
+    from harp_tpu_torch.native import datasource as DS
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((SVMS_N, SVMS_D), dtype=np.float32)
+         * (rng.random((SVMS_N, SVMS_D), dtype=np.float32) < SVMS_DENSITY))
+    y = np.sign(x @ rng.normal(size=SVMS_D).astype(np.float32)
+                + 0.1 * rng.normal(size=SVMS_N).astype(np.float32))
+    y[y == 0] = 1.0
+    path = os.path.join(tmp, "svm.libsvm")
+    t0 = time.perf_counter()
+    write_libsvm(path, x, y)
+    t1 = time.perf_counter()
+    native = DS.load_libsvm(path)
+    t2 = time.perf_counter()
+    load_native = DS.load_native
+    DS.load_native = lambda: None
+    try:
+        python = DS.load_libsvm(path)
+    finally:
+        DS.load_native = load_native
+    t3 = time.perf_counter()
+    if not all(np.array_equal(a, b) for a, b in zip(native[:4], python[:4])
+               ) or native[4] != python[4]:
+        fail("libsvm: the native parser and the Python parse disagree")
+    labels, indptr, indices, values, nf = native
+    ids, vals, mask = DS.csr_to_ell(indptr, indices, values)
+    print(f"libsvm {SVMS_N} x {SVMS_D} at {SVMS_DENSITY:.0%}: "
+          f"{len(values)} nonzeros, ELL width {ids.shape[1]}; written in "
+          f"{t1 - t0:.1f} s, native parse {t2 - t1:.3f} s, Python parse "
+          f"{t3 - t2:.3f} s, equal arrays")
+    yl = np.where(labels == 1.0, 1.0, -1.0).astype(np.float32)
+    SV.SVM().fit_sparse(ids[:4096], vals[:4096], mask[:4096], yl[:4096], nf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = SV.SVM().fit_sparse(ids, vals, mask, yl, nf)
+    dt = time.perf_counter() - t0
+    acc = float((np.sign((vals * model.w[ids] * mask).sum(1) + model.b)
+                 == yl).mean())
+    if acc < SVMS_ACC_FLOOR:
+        fail(f"SVM fit_sparse: train_acc {acc}")
+    row = run_cli("svm", "--libsvm", path)
+    if row["train_acc"] < SVMS_ACC_FLOOR or row["n"] != SVMS_N:
+        fail(f"SVM --libsvm CLI row: {row}")
+    sm = slice(0, SVMS_SMALL)
+    fits = [SV.SVM(device=d).fit_sparse(ids[sm], vals[sm], mask[sm], yl[sm],
+                                        nf) for d in (None, "cpu")]
+    if not (np.allclose(fits[0].w, fits[1].w, rtol=1e-3, atol=1e-5)
+            and abs(fits[0].b - fits[1].b) <= 1e-3 * abs(fits[1].b) + 1e-5):
+        fail("SVM fit_sparse: the card and the CPU disagree on "
+             f"{SVMS_SMALL} rows")
+    print(f"SVM fit_sparse at {SVMS_N} x {SVMS_D}: {SVMS_N / dt:.6e} "
+          f"samples/s ({dt:.3f} s a fit), train_acc {acc:.4f}; CLI "
+          f"--libsvm train_acc {row['train_acc']:.4f}; card == CPU on "
+          f"{SVMS_SMALL} rows (rtol 1e-3) [{card}]")
+    os.unlink(path)
+
+
+class timed_saves:
+    """Within the block, every CheckpointManager.save is timed and its
+    directory's bytes counted: (seconds, bytes) a save, in ``self.saves``."""
+
+    def __enter__(self):
+        from harp_tpu_torch.utils import checkpoint as CK
+
+        self._cls, self._orig, self.saves = CK.CheckpointManager, \
+            CK.CheckpointManager.save, []
+        orig = self._orig
+
+        def save(mgr, step, state):
+            t0 = time.perf_counter()
+            out = orig(mgr, step, state)
+            dt = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(out, f))
+                         for f in os.listdir(out))
+            self.saves.append((dt, nbytes))
+            return out
+
+        self._cls.save = save
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save = self._orig
+
+    def line(self) -> str:
+        if not self.saves:
+            return "no checkpoint written"
+        secs = [a for a, _ in self.saves]
+        return (f"{len(self.saves)} checkpoints, {sum(secs) / len(secs):.4f} "
+                f"s and {self.saves[-1][1]} bytes a checkpoint")
+
+
+def durable_phase(dev, card: str, tmp: str) -> dict:
+    """Phase 39: durable runs on the kernels.  Each recovered run takes an
+    injected ckpt_write fault on its second checkpoint (the step before it
+    is replayed) and a worker failure at iteration or chunk 2, and must end
+    on the uninterrupted run's bits: KMeans graded config #1 int8 (K1) and
+    f32 use_pallas (K2), MF-SGD on K3 and LDA on K4; CCD++ within its
+    tolerance for another f32 sum order (rtol 1e-4: its float index_add_
+    is not bit-deterministic on the card, so two uninterrupted runs
+    differ too) and the MLP within rtol 1e-5; streaming KMeans int8 at 2.5e6 x 300 killed after two epochs
+    and resumed through the CLI's --resume.  Returns each kernel's launches
+    on the recovered runs."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import ccd as CD
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.models import lda as LD
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.models import mlp as ML
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.ops import lda_kernel as K4
+    from harp_tpu_torch.ops import mfsgd_kernel as K3
+    from harp_tpu_torch.utils.checkpoint import CheckpointManager
+    from harp_tpu_torch.utils.fault import (FaultInjector, InjectedFault,
+                                            WorkerFailure)
+
+    def injector():
+        return FaultInjector(fail_at=(2,), fail={"ckpt_write": (2,)})
+
+    def recovered(run, name):
+        inj = injector()
+        with inj.arm(), timed_saves() as ts:
+            out = run(inj)
+        if inj.fired != [2] or inj.injected["ckpt_write"] != 1:
+            fail(f"{name}: the injected faults did not fire ({inj.fired}, "
+                 f"{inj.counters()})")
+        return out, ts.line()
+
+    launches = {}
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(K, D)).astype(np.float32) * 8.0
+    pts = centers[rng.integers(0, K, N)]
+    pts += rng.normal(size=(N, D)).astype(np.float32)
+    for name, kw, kernel in (("int8", {"quantize": "int8"},
+                              "kmeans_partials_int8"),
+                             ("f32 use_pallas", {"use_pallas": True},
+                              "kmeans_partials")):
+        KK.reset_launches()
+        clean = KM.fit(pts, k=K, iters=ITERS, seed=0, **kw)
+        n_clean = KK.LAUNCHES[kernel]
+        ck = os.path.join(tmp, f"kmeans-{kernel}")
+        KK.reset_launches()  # this path's run starts here
+        got, saves = recovered(lambda inj: KM.fit(
+            pts, k=K, iters=ITERS, seed=0, ckpt_dir=ck,
+            ckpt_every=DUR_EVERY, fault=inj, **kw), f"KMeans {name}")
+        launches[kernel] = KK.LAUNCHES[kernel]  # ... and ends here
+        if not (np.array_equal(got[0], clean[0]) and got[1] == clean[1]):
+            fail(f"KMeans {name}: the recovered centroids differ from the "
+                 "uninterrupted run's")
+        if (n_clean, launches[kernel]) != (ITERS, ITERS + DUR_EVERY):
+            fail(f"KMeans {name}: launches {n_clean} uninterrupted and "
+                 f"{launches[kernel]} recovered, expected {ITERS} and "
+                 f"{ITERS + DUR_EVERY} (one chunk replayed)")
+        print(f"durable KMeans {name} ({kernel}) at {N} x {D}, k={K}, "
+              f"{ITERS} iterations, ckpt_every {DUR_EVERY}: recovered "
+              f"centroids and inertia bit-equal to the uninterrupted fit; "
+              f"launches {n_clean} uninterrupted, {launches[kernel]} "
+              f"recovered (a chunk replayed); {saves} [{card}]")
+    # a ckpt_write fault alone: the write's tmp.* stays, no step is damaged
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt-write"))
+    mgr.save(0, {"centroids": clean[0]})
+    inj = FaultInjector(fail={"ckpt_write": (1,)})
+    with inj.arm():
+        try:
+            mgr.save(1, {"centroids": clean[0] + 1})
+            fail("ckpt_write: the injected fault did not fire")
+        except InjectedFault:
+            pass
+    left = sorted(os.listdir(mgr.root))
+    step, st = mgr.restore_latest()
+    if left != ["step_000000000000", "tmp.000000000001"] or step != 0 \
+            or not np.array_equal(st["centroids"], clean[0]):
+        fail(f"ckpt_write fault: left {left}, restored step {step}")
+    print(f"ckpt_write fault: left {left}; step 0 restores bit-equal")
+    del pts
+
+    # MF-SGD on K3, at MovieLens-20M width with fewer ratings
+    m = MF.MFSGD(ML_USERS, ML_ITEMS, MF.MFSGDConfig(rank=ML_RANK,
+                                                    algo="pallas"), seed=0)
+    m.set_ratings(*MF.synthetic_ratings(ML_USERS, ML_ITEMS, DUR_ML_NNZ,
+                                        seed=0))
+    W0, H0 = m.W.clone(), m.H.clone()
+    m.fit(DUR_EPOCHS)
+    clean = (m.W.clone(), m.H.clone())
+    m.W, m.H = W0.clone(), H0.clone()
+    K3.reset_launches()
+    _, saves = recovered(lambda inj: m.fit(
+        DUR_EPOCHS, os.path.join(tmp, "mfsgd"), ckpt_every=1, fault=inj),
+        "MF-SGD")
+    launches["sgd_tile_update"] = K3.LAUNCHES["sgd_tile_update"]
+    if not (torch.equal(m.W, clean[0]) and torch.equal(m.H, clean[1])):
+        fail("MF-SGD: the recovered factors differ from the uninterrupted "
+             "run's")
+    if launches["sgd_tile_update"] != 2 * (DUR_EPOCHS + 1):
+        fail(f"MF-SGD: {launches['sgd_tile_update']} K3 launches recovered")
+    print(f"durable MF-SGD (K3) at {ML_USERS} x {ML_ITEMS}, {DUR_ML_NNZ} "
+          f"ratings, rank {ML_RANK}, {DUR_EPOCHS} epochs, ckpt_every 1: W "
+          f"and H bit-equal to the uninterrupted fit; K3 launches "
+          f"{launches['sgd_tile_update']} (an epoch replayed); {saves} "
+          f"[{card}]")
+    del m, W0, H0, clean
+
+    # LDA on K4, at the benchmark's vocabulary and topics with fewer docs
+    lda = LD.LDA(DUR_LDA_DOCS, LDA_VOCAB, LD.LDAConfig(n_topics=LDA_TOPICS,
+                                                       algo="pallas"), seed=0)
+    lda.set_tokens(*LD.benchmark_corpus(DUR_LDA_DOCS, LDA_VOCAB, LDA_TPD, 0))
+    snap = (lda.Ndk.clone(), lda.Nwk.clone(), lda.Nk.clone(),
+            lda.z_grid.clone(), lda._gen.get_state())
+    lda.fit(DUR_EPOCHS)
+    clean = (lda.Ndk.clone(), lda.Nwk.clone(), lda.z_grid.clone())
+    lda.Ndk, lda.Nwk, lda.Nk, lda.z_grid = (t.clone() for t in snap[:4])
+    lda._gen.set_state(snap[4])
+    K4.reset_launches()
+    _, saves = recovered(lambda inj: lda.fit(
+        DUR_EPOCHS, os.path.join(tmp, "lda"), ckpt_every=1, fault=inj),
+        "LDA")
+    launches["cgs_entry_update"] = K4.LAUNCHES["cgs_entry_update"]
+    if not all(torch.equal(a, b) for a, b in zip(
+            (lda.Ndk, lda.Nwk, lda.z_grid), clean)):
+        fail("LDA: the recovered counts differ from the uninterrupted run's")
+    if launches["cgs_entry_update"] != 2 * (DUR_EPOCHS + 1):
+        fail(f"LDA: {launches['cgs_entry_update']} K4 launches recovered")
+    print(f"durable LDA (K4) at {DUR_LDA_DOCS} docs x {LDA_VOCAB} words, "
+          f"{LDA_TOPICS} topics, {DUR_EPOCHS} epochs, ckpt_every 1: Ndk, Nwk "
+          f"and z bit-equal to the uninterrupted chain; K4 launches "
+          f"{launches['cgs_entry_update']} (an epoch replayed); {saves} "
+          f"[{card}]")
+    del lda, snap, clean
+
+    # CCD++ and the MLP: float index_add_ on the card is not bit-
+    # deterministic, so two uninterrupted runs already differ; the
+    # recovered run is held to the app's tolerance for another f32 sum
+    # order, beside the spread of two uninterrupted runs
+    def rel(a, b, atol):
+        # the least rtol at which allclose(a, b, rtol, atol) holds
+        return max(float(((u - v).abs() - atol).clamp_min(0).div(
+            v.abs()).nan_to_num(0.0).max()) for u, v in zip(a, b))
+
+    c = CD.CCD(ML_USERS, ML_ITEMS, CD.CCDConfig(rank=CCD_RANK), seed=0)
+    c.set_ratings(*MF.synthetic_ratings(ML_USERS, ML_ITEMS, DUR_ML_NNZ,
+                                        seed=0))
+    W0, H0 = c.W.clone(), c.H.clone()
+    runs = []
+    for _ in range(2):
+        c.W, c.H = W0.clone(), H0.clone()
+        c.fit(DUR_EPOCHS)
+        runs.append((c.W.clone(), c.H.clone()))
+    c.W, c.H = W0.clone(), H0.clone()
+    _, saves = recovered(lambda inj: c.fit(
+        DUR_EPOCHS, os.path.join(tmp, "ccd"), ckpt_every=1, fault=inj),
+        "CCD")
+    spread = rel(runs[1], runs[0], 1e-6)
+    err = rel((c.W, c.H), runs[0], 1e-6)
+    print(f"durable CCD++ rank {CCD_RANK}, {DUR_ML_NNZ} ratings: recovered "
+          f"within rtol {err:.3e} (atol 1e-6) of the uninterrupted fit, two "
+          f"uninterrupted fits within rtol {spread:.3e} of each other; "
+          f"{saves} [{card}]")
+    if not (torch.allclose(c.W, runs[0][0], rtol=CCD_RTOL, atol=1e-6)
+            and torch.allclose(c.H, runs[0][1], rtol=CCD_RTOL, atol=1e-6)):
+        fail(f"CCD: the recovered factors are not within rtol {CCD_RTOL}")
+    del c, runs, W0, H0
+    x, yy = ML.synthetic_mnist(n=MLP_N, seed=0)
+    cfg = ML.MLPConfig(optimizer="momentum")
+    a = ML.MLPTrainer(cfg, seed=0)
+    a.fit_ckpt(x, yy, DUR_EPOCHS, batch_size=MLP_BATCH)
+    b = ML.MLPTrainer(cfg, seed=0)
+    _, saves = recovered(lambda inj: b.fit_ckpt(
+        x, yy, DUR_EPOCHS, os.path.join(tmp, "mlp"), batch_size=MLP_BATCH,
+        ckpt_every=1, fault=inj), "MLP")
+    err = rel([pb[k] for pb in b.params for k in pb],
+              [pa[k] for pa in a.params for k in pa], 1e-6)
+    print(f"durable MLP fit_ckpt at MNIST width, {MLP_N} samples, batch "
+          f"{MLP_BATCH}, momentum: recovered params within rtol {err:.3e} "
+          f"(atol 1e-6) of the uninterrupted run's; {saves} [{card}]")
+    if not all(torch.allclose(pa[k], pb[k], rtol=1e-5, atol=1e-6)
+               for pa, pb in zip(a.params, b.params) for k in pa):
+        fail("MLP fit_ckpt: the recovered params are not within rtol 1e-5")
+    del a, b, x, yy
+
+    # streaming KMeans int8 from a .npy, killed after two epochs and resumed
+    # through the CLI
+    path = os.path.join(tmp, "stream.npy")
+    t0 = time.perf_counter()
+    arr = np.lib.format.open_memmap(path, mode="w+", dtype=np.float16,
+                                    shape=(DUR_STREAM_N, STREAM_D))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cent = torch.randn((STREAM_K, STREAM_D), generator=gen, device=dev) * 4
+    step = 1_000_000
+    for lo in range(0, DUR_STREAM_N, step):
+        hi = min(lo + step, DUR_STREAM_N)
+        pick = torch.randint(0, STREAM_K, (hi - lo,), generator=gen,
+                             device=dev)
+        arr[lo:hi] = (cent[pick] + torch.randn((hi - lo, STREAM_D),
+                                                generator=gen, device=dev)
+                      ).half().cpu().numpy()
+    arr.flush()
+    del arr, cent
+    pts = np.load(path, mmap_mode="r")
+    kw = dict(k=STREAM_K, iters=DUR_STREAM_EPOCHS, chunk_points=STREAM_CHUNK,
+              quantize="int8", seed=0)
+    print(f"stream data: {DUR_STREAM_N} x {STREAM_D} f16 .npy written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    KK.reset_launches()
+    t0 = time.perf_counter()
+    c_clean, i_clean = KS.fit_streaming(pts, **kw)
+    t_clean = time.perf_counter() - t0
+    n_clean = KK.LAUNCHES["kmeans_partials_int8"]
+    ck = os.path.join(tmp, "stream-ckpt")
+    KK.reset_launches()
+    with timed_saves() as ts:
+        try:
+            KS.fit_streaming(pts, ckpt_dir=ck, ckpt_every=1, max_restarts=0,
+                             fault=FaultInjector(fail_at=(2,)), **kw)
+            fail("streaming: the injected failure did not stop the run")
+        except WorkerFailure:
+            pass
+    killed = KK.LAUNCHES["kmeans_partials_int8"]
+    launches["stream_kmeans_partials_int8"] = killed
+    if CheckpointManager(ck).latest_step() != 1:
+        fail("streaming: the killed run did not leave epoch 2's checkpoint")
+    row = run_cli("kmeans-stream", "--input", path, "--k", str(STREAM_K),
+                  "--iters", str(DUR_STREAM_EPOCHS), "--chunk",
+                  str(STREAM_CHUNK), "--quantize", "int8", "--ckpt-dir", ck,
+                  "--ckpt-every", "1", "--resume")
+    _, st = CheckpointManager(ck).restore_latest()
+    if not (row["resumed_from"] == 1 and row["inertia"] == i_clean
+            and np.array_equal(st["centroids"], c_clean)):
+        fail(f"streaming: the resumed run differs from the uninterrupted "
+             f"one (inertia {row['inertia']} vs {i_clean})")
+    print(f"durable streaming int8 at {DUR_STREAM_N} x {STREAM_D}, k="
+          f"{STREAM_K}, {DUR_STREAM_EPOCHS} epochs: uninterrupted "
+          f"{t_clean:.2f} s, {t_clean / DUR_STREAM_EPOCHS:.2f} s an epoch "
+          f"({n_clean} K1 launches); killed after 2 epochs "
+          f"({killed} K1 launches), resumed by the CLI's --resume: "
+          f"centroids and inertia bit-equal; {ts.line()} [{card}]")
+    del pts
+    os.unlink(path)
+    return launches
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -2862,7 +3518,29 @@ def main() -> int:
         phase(dev, card)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
 
-    # -- 36. result ----------------------------------------------------------
+    # -- 36-39. stats, weighted MDS, sparse SVM, durable runs ---------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        for name, phase in (("stats", lambda: stats_phase(dev, card)),
+                            ("weighted MDS", lambda: wmds_phase(dev, card)),
+                            ("SVM sparse",
+                             lambda: svm_sparse_phase(dev, card, tmp))):
+            t0 = time.perf_counter()
+            phase()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        rec = durable_phase(dev, card, tmp)
+        print(f"phase durable runs: {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("kmeans_partials_int8", "kmeans_partials",
+                 "sgd_tile_update", "cgs_entry_update"):
+        rows[name]["recovery_launches"] = rec[name]
+    rows["kmeans_partials_int8"]["stream_recovery_launches"] = rec[
+        "stream_kmeans_partials_int8"]
+
+    # -- 40. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",

@@ -22,6 +22,8 @@
     python -m harp_tpu_torch mlp --n 2048 --batch 512 --steps 5 --device cpu
     python -m harp_tpu_torch ccd
     python -m harp_tpu_torch ccd --nnz 50000 --rank 8 --device cpu
+    python -m harp_tpu_torch stats pca
+    python -m harp_tpu_torch stats als --n 20000 --device cpu
     python -m harp_tpu_torch bench --max-mb 256
     python -m harp_tpu_torch bench --device cpu
     python -m harp_tpu_torch --list
@@ -53,6 +55,9 @@ APPS = {
             "MLP, data-parallel gradient allreduce (or ZeRO-1, or TP)"),
     "ccd": ("harp_tpu_torch.models.ccd",
             "CCD++ matrix factorization (a column allreduce)"),
+    "stats": ("harp_tpu_torch.models.stats",
+              "classic analytics: moments, cov, PCA, NB, regression, QR, "
+              "SVD, ALS"),
     "bench": ("harp_tpu_torch.benchmark",
               "collective micro-benchmarks (edu.iu.benchmark)"),
 }

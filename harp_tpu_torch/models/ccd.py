@@ -17,8 +17,9 @@ Python loop over ``rank × sweeps`` coordinates that never waits for the
 device; the reference runs it as one program, so ``compile_epochs`` has
 nothing to compile here and only validates.
 
-Not ported yet (ROADMAP.md, Queue 1, item 5): ``fit(ckpt_dir=…)`` and
-``fault=`` (checkpoint/resume), which raise ``NotImplementedError``.
+``fit(epochs, ckpt_dir)`` checkpoints W and H through
+:func:`harp_tpu_torch.utils.fault.fit_epochs`; a checkpoint of another
+rank or shape refuses to restore.
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ import torch
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
 from harp_tpu_torch.utils import telemetry
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {})"
-
 
 @dataclasses.dataclass
 class CCDConfig:
@@ -178,14 +176,21 @@ class CCD:
 
     def fit(self, epochs: int, ckpt_dir: str | None = None, *,
             ckpt_every: int = 5, max_restarts: int = 3, fault=None):
-        """Train ``epochs`` epochs; returns their RMSEs.  Checkpoint and
-        resume (``ckpt_dir``, ``fault``) are not ported yet."""
-        if ckpt_dir is not None or fault is not None:
-            raise NotImplementedError(
-                "CCD.fit(ckpt_dir=..., fault=...) (checkpoint/resume) is "
-                + _NOT_PORTED.format(5))
+        """Train ``epochs`` epochs with optional checkpoint/resume (the
+        contract of MF-SGD's and LDA's ``fit``); returns the RMSEs of the
+        epochs this call ran."""
+        from harp_tpu_torch.utils.fault import (factor_state_io, fit_epochs,
+                                                to_device)
+
         self._check("fit")
-        return [self.train_epoch() for _ in range(epochs)]
+        rmses: list[float] = []
+        dev = self.mesh.device
+        get_state, set_state = factor_state_io(self, {
+            "W": lambda a: to_device(a, dev), "H": lambda a: to_device(a, dev)})
+        fit_epochs(lambda: rmses.append(self.train_epoch()), get_state,
+                   set_state, epochs, ckpt_dir, ckpt_every=ckpt_every,
+                   max_restarts=max_restarts, fault=fault, phase="ccd.epochs")
+        return rmses
 
 
 def benchmark(n_users=50_000, n_items=20_000, nnz=2_000_000, rank=32,

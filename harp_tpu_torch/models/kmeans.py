@@ -27,8 +27,12 @@ The streaming form (``models.kmeans_stream``) takes its chunk partials from
 (``collective.allreduce_hier``: within groups of workers, then across
 them); on one worker both schedules are the identity.
 
-Not ported yet (ROADMAP.md, Queue 1): ``fit``'s checkpoint/fault path
-(``ckpt_dir``, ``fault``; item 5) raises ``NotImplementedError``.
+``fit(ckpt_dir=...)`` runs the iterations in ``ckpt_every``-iteration
+chunks under :func:`harp_tpu_torch.utils.fault.run_with_recovery`, with the
+centroids checkpointed between chunks; a crashed run, or a rerun on the
+same directory, resumes from the latest chunk and ends on the same bits as
+an uninterrupted run (each chunk is the same iterations on the same
+operands).
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ from harp_tpu_torch.parallel.mesh import (WorkerMesh, num_workers,
 from harp_tpu_torch.utils import telemetry
 from harp_tpu_torch.utils.timing import device_sync
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {item})"
 
 
 @dataclasses.dataclass
@@ -331,7 +334,8 @@ def _hoisted_x2(points):
 def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
         dtype=torch.float32, block_points=0, use_pallas=None,
         variant="allreduce", quantize=None, init="random",
-        psum_schedule="one_shot", ckpt_dir: str | None = None, fault=None,
+        psum_schedule="one_shot", ckpt_dir: str | None = None,
+        ckpt_every: int = 5, max_restarts: int = 3, fault=None,
         device=None):
     """Host driver → (centroids [k, d] numpy f32, inertia float).
 
@@ -340,11 +344,17 @@ def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
     (``init``): "random" picks k distinct random rows with the integer
     ``seed``, or the first k points when ``seed=None``; "kmeans++" uses
     :func:`kmeanspp_init`.  Runs on this worker's card unless ``device``
-    (or ``mesh``) says otherwise; raises without a card."""
-    if ckpt_dir is not None or fault is not None:
-        raise NotImplementedError(
-            "fit's checkpoint/fault path (ckpt_dir, fault) is "
-            + _NOT_PORTED.format(item=5))
+    (or ``mesh``) says otherwise; raises without a card.
+
+    With ``ckpt_dir`` the iterations run in ``ckpt_every``-iteration
+    chunks, the centroids checkpointed after each (:func:`_fit_ckpt`);
+    ``fault`` (a :class:`~harp_tpu_torch.utils.fault.FaultInjector`)
+    needs ``ckpt_dir``."""
+    if fault is not None and ckpt_dir is None:
+        raise ValueError(
+            "fault injection requires ckpt_dir (recovery restarts from "
+            "checkpoints; without one the injector would be silently "
+            "ignored)")
     mesh = resolve_mesh(mesh, device)
     _exact_f32(mesh.device)
     variant = _effective_variant(variant, k, mesh.num_workers)
@@ -379,6 +389,10 @@ def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
         x2 = _hoisted_x2(pts)
     else:
         pts = mesh.shard_array(np.asarray(points, np.float32), 0).to(dtype)
+    if ckpt_dir is not None:
+        return _fit_ckpt(mesh, cfg, pts, centroids, x2, iters, ckpt_dir,
+                         ckpt_every=ckpt_every, max_restarts=max_restarts,
+                         fault=fault)
     inertia = torch.zeros((), dtype=torch.float32, device=mesh.device)
     with telemetry.span("kmeans.fit", iters=iters, k=k), \
             telemetry.ledger.run("kmeans.fit", steps=iters):
@@ -386,6 +400,39 @@ def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
             centroids, inertia = kmeans_step(pts, centroids, cfg, x2=x2)
         inertia_val = device_sync(inertia)
     return centroids.to(torch.float32).cpu().numpy(), inertia_val
+
+
+def _fit_ckpt(mesh, cfg, pts, centroids, x2, iters, ckpt_dir, *,
+              ckpt_every=5, max_restarts=3, fault=None):
+    """The recovery-looped fit: chunks of ``ckpt_every`` iterations under
+    :func:`~harp_tpu_torch.utils.fault.run_with_recovery`, the centroids
+    and the last inertia (so a resume with nothing left still reports it)
+    checkpointed after each chunk."""
+    from harp_tpu_torch.utils.checkpoint import CheckpointManager
+    from harp_tpu_torch.utils.fault import to_device, run_with_recovery
+
+    mgr = CheckpointManager(ckpt_dir)
+    lens = [min(ckpt_every, iters - s) for s in range(0, iters, ckpt_every)]
+    dev = mesh.device
+
+    def make_state():
+        return {"centroids": centroids,
+                "inertia": torch.zeros((), dtype=torch.float32, device=dev)}
+
+    def step(ci, state):
+        c = to_device(state["centroids"], dev, centroids.dtype)
+        inertia = state["inertia"]
+        for _ in range(lens[ci]):
+            c, inertia = kmeans_step(pts, c, cfg, x2=x2)
+        return {"centroids": c, "inertia": inertia}
+
+    with telemetry.span("kmeans.fit_ckpt", iters=iters, k=cfg.k), \
+            telemetry.ledger.run("kmeans.fit_ckpt", steps=iters):
+        final = run_with_recovery(make_state, step, len(lens), mgr,
+                                  ckpt_every=1, max_restarts=max_restarts,
+                                  fault=fault)
+    c = to_device(final["centroids"], "cpu", torch.float32)
+    return c.numpy(), float(to_device(final["inertia"], "cpu"))
 
 
 def benchmark(n=1_000_000, d=300, k=100, iters=10, mesh=None,
@@ -480,11 +527,27 @@ def main(argv=None):
                         "(default) or the two-stage allreduce_hier")
     p.add_argument("--bench", action="store_true",
                    help="synthetic benchmark mode (points drawn on the device)")
+    p.add_argument("--input", default=None, metavar="FILE_OR_GLOB",
+                   help="CSV/whitespace point files (one point per row) "
+                        "instead of synthetic points")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="fit with checkpoint/resume: iterations run in "
+                        "--ckpt-every chunks with the centroids "
+                        "checkpointed between them; a rerun on the same "
+                        "directory resumes from the latest chunk")
+    p.add_argument("--ckpt-every", type=int, default=5,
+                   help="iterations per checkpointed chunk")
+    p.add_argument("--resume", action="store_true",
+                   help="require a resume: --ckpt-dir must already hold a "
+                        "checkpoint")
     p.add_argument("--device", default=None,
                    help="torch device (default: this worker's card; 'cpu' "
                         "runs on the CPU)")
     args = p.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    from harp_tpu_torch.utils.fault import resolve_resume
+
+    resumed_from = resolve_resume(args.ckpt_dir, args.resume)
     mesh = WorkerMesh(args.device)
     if args.bench:
         out = benchmark(args.n, args.d, args.k, args.iters, mesh=mesh,
@@ -493,14 +556,25 @@ def main(argv=None):
                         psum_schedule=args.psum_schedule)
         print(benchmark_json("kmeans_bench", out, mesh.device))
     else:
-        rng = np.random.default_rng(0)
-        pts = rng.normal(size=(args.n, args.d)).astype(np.float32)
+        if args.input:
+            from harp_tpu_torch.native.datasource import load_csv_glob
+
+            try:
+                pts = load_csv_glob(args.input)
+            except ValueError as e:
+                raise SystemExit(str(e))
+        else:
+            rng = np.random.default_rng(0)
+            pts = rng.normal(size=(args.n, args.d)).astype(np.float32)
         _, inertia = fit(pts, args.k, args.iters, mesh=mesh, dtype=dtype,
                          variant=args.variant, quantize=args.quantize,
-                         init=args.init, psum_schedule=args.psum_schedule)
+                         init=args.init, psum_schedule=args.psum_schedule,
+                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
         print(benchmark_json("kmeans_cli", {
             "k": args.k, "iters": args.iters, "n": pts.shape[0],
-            "d": pts.shape[1], "inertia": inertia}, mesh.device))
+            "d": pts.shape[1], "inertia": inertia,
+            "ckpt_dir": args.ckpt_dir, "resumed_from": resumed_from},
+            mesh.device))
     return 0
 
 

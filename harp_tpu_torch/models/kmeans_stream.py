@@ -34,10 +34,15 @@ Peak device memory is set by ``chunk_points``: the chunk, its [chunk, k]
 score matrix and, on the f32 path, ``_partials_block``'s one-hot (measured
 on the card: ``PERF.md``).
 
-Not ported yet (ROADMAP.md, Queue 1): checkpoint/resume and fault
-injection (``ckpt_dir``, ``fault``; item 5), Parquet sources (item 5), the
-CLI's ``--elastic``/``--max-worker-loss`` and the flight-recorder budget
-around the chunk loop (item 8).  Each raises ``NotImplementedError``.
+``ckpt_dir`` puts the epoch loop on :func:`harp_tpu_torch.utils.fault.
+fit_epochs` (the centroids and the inertia history checkpointed every
+``ckpt_every`` epochs); a resumed run ends on the uninterrupted run's bits.
+``.parquet`` inputs stream through :class:`~harp_tpu_torch.native.
+datasource.ParquetPoints`.
+
+Not ported yet (ROADMAP.md, Queue 1, item 8): the CLI's
+``--elastic``/``--max-worker-loss`` and the flight-recorder budget around
+the chunk loop.  Each raises ``NotImplementedError`` or is left out.
 """
 
 from __future__ import annotations
@@ -84,13 +89,6 @@ class StreamConfig:
         if self.quantize not in (None, "int8"):
             raise ValueError(
                 f"quantize must be None or 'int8', got {self.quantize!r}")
-
-
-def _no_checkpoint(ckpt_dir, fault) -> None:
-    if ckpt_dir is not None or fault is not None:
-        raise NotImplementedError(
-            "streaming checkpoint/resume and fault injection (ckpt_dir, "
-            "fault) are " + _NOT_PORTED.format(item=5))
 
 
 def _validate_explicit_init(init, k, d):
@@ -282,10 +280,12 @@ def fit_streaming(points, k=1000, iters=10, chunk_points=262_144,
     ``sync_s`` (the device tail after the last chunk: one extra
     synchronize an epoch), ``epoch_s`` and the pipeline's stats.
 
+    ``ckpt_dir`` checkpoints the centroids every ``ckpt_every`` epochs and
+    resumes from the latest (``max_restarts``, ``fault``: the recovery
+    loop's, :func:`harp_tpu_torch.utils.fault.fit_epochs`).
+
     Runs on this worker's card unless ``device`` (or ``mesh``) says
-    otherwise; raises without a card.  ``ckpt_dir``/``fault`` (with
-    ``ckpt_every``, ``max_restarts``) are not ported yet."""
-    _no_checkpoint(ckpt_dir, fault)
+    otherwise; raises without a card."""
     mesh = resolve_mesh(mesh, device)
     _exact_f32(mesh.device)
     n, d = points.shape
@@ -322,7 +322,8 @@ def fit_streaming(points, k=1000, iters=10, chunk_points=262_144,
         pipe = _ring_pipeline(mesh, read_rows, cl, d, quantize, scales,
                               wire, prefetch, "kmeans_stream.ingest")
     return _stream_train(mesh, cfg, pipe, len(offsets), centroids, iters,
-                         return_history, instrument, col_scale)
+                         return_history, instrument, col_scale,
+                         ckpt=(ckpt_dir, ckpt_every, max_restarts, fault))
 
 
 def _init_only(init_c, return_history):
@@ -333,46 +334,67 @@ def _init_only(init_c, return_history):
 
 def _stream_train(mesh, cfg, pipe, n_chunks, centroids, iters,
                   return_history, instrument, col_scale=None,
-                  epoch_reset=None):
+                  epoch_reset=None, ckpt=(None, 5, 3, None)):
     """The blocked-epoch loop behind every ``fit_streaming*``: the chunk
     loop over ``pipe.stream(n_chunks)`` with this worker's partials on its
     card, one allreduce an epoch, and the history read back once at the
     end.  ``epoch_reset`` (file splits) rewinds the readers before each
-    sweep."""
+    sweep.  ``ckpt``: ``(ckpt_dir, ckpt_every, max_restarts, fault)`` of
+    :func:`harp_tpu_torch.utils.fault.fit_epochs`."""
+    from harp_tpu_torch.utils.fault import (check_restored_shapes,
+                                            fit_epochs, to_device)
+
     dev = mesh.device
     k, d = centroids.shape
     history: list = []
+
+    def train_one():
+        nonlocal centroids
+        ep0 = time.perf_counter()
+        sums = torch.zeros((k, d), device=dev)
+        counts = torch.zeros((k,), device=dev)
+        inertia = torch.zeros((), device=dev)
+        if epoch_reset is not None:
+            epoch_reset()
+        ops = epoch_operands(centroids, cfg.quantize, col_scale)
+        for shipped in pipe.stream(n_chunks):
+            x = shipped.get()
+            if cfg.quantize != "int8":
+                # a narrow wire widens here: exact, so bit-identical to the
+                # host cast
+                x = x.to(cfg.dtype)
+            s, c, i = chunk_partials(x, ops, cfg.quantize)
+            sums += s
+            counts += c
+            inertia += i
+        s, c, ep_inertia = C.allreduce((sums, counts, inertia))
+        centroids = _normalize_centroids(s, c, centroids)
+        history.append(ep_inertia)
+        if instrument is not None:  # one sync an epoch (docstring)
+            t = time.perf_counter()
+            device_sync(ep_inertia)
+            instrument.setdefault("epochs", []).append({
+                "host_s": pipe.stats.blocked_s,
+                "sync_s": time.perf_counter() - t,
+                "epoch_s": time.perf_counter() - ep0,
+                "pipeline": pipe.stats.as_dict()})
+
+    def get_state():
+        # live tensors, no sync: fit_epochs asks every epoch
+        return {"centroids": centroids, "hist": list(history)}
+
+    def set_state(state):
+        nonlocal centroids, history
+        check_restored_shapes([("centroids", state["centroids"],
+                                centroids)])
+        centroids = to_device(state["centroids"], dev, centroids.dtype)
+        history = [to_device(h, dev, torch.float32) for h in state["hist"]]
+
+    ckpt_dir, ckpt_every, max_restarts, fault = ckpt
     try:
-        with telemetry.span("kmeans_stream.fit", iters=iters, k=k):
-            for _ in range(iters):
-                ep0 = time.perf_counter()
-                sums = torch.zeros((k, d), device=dev)
-                counts = torch.zeros((k,), device=dev)
-                inertia = torch.zeros((), device=dev)
-                if epoch_reset is not None:
-                    epoch_reset()
-                ops = epoch_operands(centroids, cfg.quantize, col_scale)
-                for shipped in pipe.stream(n_chunks):
-                    x = shipped.get()
-                    if cfg.quantize != "int8":
-                        # a narrow wire widens here: exact, so bit-identical
-                        # to the host cast
-                        x = x.to(cfg.dtype)
-                    s, c, i = chunk_partials(x, ops, cfg.quantize)
-                    sums += s
-                    counts += c
-                    inertia += i
-                s, c, ep_inertia = C.allreduce((sums, counts, inertia))
-                centroids = _normalize_centroids(s, c, centroids)
-                history.append(ep_inertia)
-                if instrument is not None:  # one sync an epoch (docstring)
-                    t = time.perf_counter()
-                    device_sync(ep_inertia)
-                    instrument.setdefault("epochs", []).append({
-                        "host_s": pipe.stats.blocked_s,
-                        "sync_s": time.perf_counter() - t,
-                        "epoch_s": time.perf_counter() - ep0,
-                        "pipeline": pipe.stats.as_dict()})
+        fit_epochs(train_one, get_state, set_state, iters, ckpt_dir,
+                   ckpt_every=ckpt_every, max_restarts=max_restarts,
+                   fault=fault, phase="kmeans_stream.fit")
     finally:
         pipe.close()  # reap the stage threads on every exit path
     final = torch.stack(history).cpu().numpy()  # one readback
@@ -406,7 +428,6 @@ def fit_streaming_local(points_local, k=1000, iters=10,
     its split and the elementwise max over workers: the single-source
     scales of the same global data.  Other knobs as in
     :func:`fit_streaming`."""
-    _no_checkpoint(ckpt_dir, fault)
     mesh = resolve_mesh(mesh, device)
     _exact_f32(mesh.device)
     nw = mesh.num_workers
@@ -469,7 +490,8 @@ def fit_streaming_local(points_local, k=1000, iters=10,
         mesh, lambda j: points_local[j * cl:min((j + 1) * cl, n_local)], cl,
         d, quantize, scales, wire, prefetch, "kmeans_stream.local")
     return _stream_train(mesh, cfg, pipe, -(-n_local // cl), centroids,
-                         iters, return_history, instrument, col_scale)
+                         iters, return_history, instrument, col_scale,
+                         ckpt=(ckpt_dir, ckpt_every, max_restarts, fault))
 
 
 def fit_streaming_files(paths, k=1000, iters=10, chunk_points=262_144,
@@ -496,7 +518,6 @@ def fit_streaming_files(paths, k=1000, iters=10, chunk_points=262_144,
     ``FileSplits.sample``."""
     from harp_tpu_torch.native.datasource import FileSplits
 
-    _no_checkpoint(ckpt_dir, fault)
     mesh = resolve_mesh(mesh, device)
     _exact_f32(mesh.device)
     fs = FileSplits(sorted(paths), mesh.num_workers, [mesh.rank],
@@ -505,14 +526,16 @@ def fit_streaming_files(paths, k=1000, iters=10, chunk_points=262_144,
         return _fit_streaming_files(fs, paths, k, iters, chunk_points, mesh,
                                     seed, dtype, quantize, init,
                                     return_history, instrument, info,
-                                    wire_dtype, prefetch)
+                                    wire_dtype, prefetch,
+                                    (ckpt_dir, ckpt_every, max_restarts,
+                                     fault))
     finally:
         fs.close()  # also on iters=0 and on a raise: no descriptor leaks
 
 
 def _fit_streaming_files(fs, paths, k, iters, chunk_points, mesh, seed,
                          dtype, quantize, init, return_history, instrument,
-                         info, wire_dtype, prefetch):
+                         info, wire_dtype, prefetch, ckpt):
     nw, me = mesh.num_workers, mesh.rank
     cfg = StreamConfig(k=k, chunk_points=chunk_points, dtype=dtype,
                        quantize=quantize)
@@ -578,7 +601,7 @@ def _fit_streaming_files(fs, paths, k, iters, chunk_points, mesh, seed,
                           "kmeans_stream.files")
     return _stream_train(mesh, cfg, pipe, -(-fs.rows(me) // cl), centroids,
                          iters, return_history, instrument, col_scale,
-                         epoch_reset=fs.reset)
+                         epoch_reset=fs.reset, ckpt=ckpt)
 
 
 def _chunk_seed(seed: int, worker: int, j: int) -> int:
@@ -818,9 +841,10 @@ def main(argv=None):
     p.add_argument("--chunk", type=int, default=262_144)
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--input", default=None, metavar="NPY_CSV_OR_GLOB",
-                   help="stream a .npy file (np.memmap), a CSV/text file "
-                        "(native streaming reader) or a glob/directory of "
+    p.add_argument("--input", default=None, metavar="NPY_PARQUET_CSV_OR_GLOB",
+                   help="stream a .npy file (np.memmap), a .parquet file "
+                        "(pyarrow row groups), a CSV/text file (native "
+                        "streaming reader) or a glob/directory of "
                         "split files (dealt to workers size-balanced, each "
                         "streaming only its own) instead of the synthetic "
                         "benchmark")
@@ -840,9 +864,13 @@ def main(argv=None):
                    help="ingest pipeline depth for --input streaming: >= 2 "
                         "overlaps read, prep and copy; 1 = the staged chain "
                         "inline; 0 = the unstaged serial chain")
-    p.add_argument("--ckpt-dir", default=None, help="not ported yet")
-    p.add_argument("--ckpt-every", type=int, default=5,
-                   help="not ported yet")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint/resume for --input runs: a rerun on "
+                        "the same directory resumes from the latest epoch")
+    p.add_argument("--ckpt-every", type=int, default=5)
+    p.add_argument("--resume", action="store_true",
+                   help="require a resume: --ckpt-dir must already hold a "
+                        "checkpoint")
     p.add_argument("--elastic", action="store_true", help="not ported yet")
     p.add_argument("--max-worker-loss", type=int, default=0,
                    help="not ported yet")
@@ -853,21 +881,24 @@ def main(argv=None):
     if args.elastic or args.max_worker_loss:
         raise NotImplementedError("--elastic/--max-worker-loss are "
                                   + _NOT_PORTED.format(item=8))
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt-dir is "
-                                  + _NOT_PORTED.format(item=5))
+    from harp_tpu_torch.utils.fault import resolve_resume
+
+    resumed_from = resolve_resume(args.ckpt_dir, args.resume)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     wire = {"auto": "auto", "none": None}.get(args.wire_dtype,
                                               args.wire_dtype)
     mesh = WorkerMesh(args.device)
 
     if not args.input:
+        if args.ckpt_dir is not None:
+            raise SystemExit("--ckpt-dir checkpoints --input runs (the "
+                             "synthetic benchmark is not resumable)")
         print(benchmark_json("kmeans_stream_cli", benchmark_streaming(
             args.n, args.d, args.k, args.iters, args.chunk, mesh=mesh,
             dtype=dtype, quantize=args.quantize), mesh.device))
         return 0
     from harp_tpu_torch.fileformat import list_files
-    from harp_tpu_torch.native.datasource import CSVPoints
+    from harp_tpu_torch.native.datasource import CSVPoints, ParquetPoints
 
     # a literal path wins over glob expansion ('data[v2].npy' is a file)
     paths = ([args.input] if os.path.isfile(args.input)
@@ -875,20 +906,27 @@ def main(argv=None):
     if not paths:
         raise SystemExit(f"{args.input}: no input files matched")
     kw = dict(dtype=dtype, quantize=args.quantize, init=args.init,
-              mesh=mesh, wire_dtype=wire, prefetch=args.prefetch)
+              mesh=mesh, wire_dtype=wire, prefetch=args.prefetch,
+              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
     if len(paths) > 1:  # a split directory: per-worker file streams
         info: dict = {}
         _, inertia = fit_streaming_files(paths, args.k, args.iters,
                                          args.chunk, info=info, **kw)
         n_rows, d_cols = info["n_total"], info["d"]
     else:
-        pts = (np.load(paths[0], mmap_mode="r") if paths[0].endswith(".npy")
-               else CSVPoints(paths[0], chunk_rows=args.chunk))
+        if paths[0].endswith(".npy"):
+            pts = np.load(paths[0], mmap_mode="r")
+        elif paths[0].endswith((".parquet", ".pq")):
+            pts = ParquetPoints(paths[0], chunk_rows=args.chunk)
+        else:  # text: the native streaming reader, never materialised
+            pts = CSVPoints(paths[0], chunk_rows=args.chunk)
         _, inertia = fit_streaming(pts, args.k, args.iters, args.chunk, **kw)
         n_rows, d_cols = int(pts.shape[0]), int(pts.shape[1])
     print(benchmark_json("kmeans_stream_fit_cli", {
         "k": args.k, "iters": args.iters, "n": n_rows, "d": d_cols,
-        "files": len(paths), "inertia": float(inertia)}, mesh.device))
+        "files": len(paths), "inertia": float(inertia),
+        "ckpt_dir": args.ckpt_dir, "resumed_from": resumed_from},
+        mesh.device))
     return 0
 
 

@@ -50,10 +50,14 @@ rbg), but both ``rng_impl`` values draw from the port's
 the reference documents for its own two generators.  ``sample_epoch(noise=
 ...)`` injects draws instead (the tests hand in the reference's).
 
-Not ported yet: ``fit``'s checkpoint/fault path, the CLI's
-``--ckpt-dir``/``--resume`` and ``--input`` (ROADMAP.md, Queue 1, item 5),
-``--elastic``/``--max-worker-loss`` (item 8) and
-``benchmark(pack_cache=...)`` (item 4); each raises
+``fit(epochs, ckpt_dir)`` checkpoints each worker's counts, topics and
+generator state through :func:`harp_tpu_torch.utils.fault.fit_epochs`, so a
+recovered chain is the uninterrupted one; the CLI samples with
+``--ckpt-dir``/``--resume`` and reads ``doc word [count]`` rows with
+``--input``.
+
+Not ported yet (ROADMAP.md, Queue 1): ``--elastic``/``--max-worker-loss``
+(item 8) and ``benchmark(pack_cache=...)`` (item 4); each raises
 ``NotImplementedError``.
 """
 
@@ -616,15 +620,37 @@ class LDA:
 
     def fit(self, epochs: int, ckpt_dir: str | None = None, *,
             ckpt_every: int = 5, max_restarts: int = 3, fault=None):
-        """Sample ``epochs`` sweeps one by one.  The checkpoint/fault path
-        (``ckpt_dir``, ``fault``) is not ported yet."""
-        if ckpt_dir is not None or fault is not None:
-            raise NotImplementedError(
-                "fit's checkpoint/fault path (ckpt_dir, fault) is "
-                + _ITEM.format(5))
+        """Sample ``epochs`` sweeps one by one, with optional
+        checkpoint/resume (the contract of :meth:`MFSGD.fit
+        <harp_tpu_torch.models.mfsgd.MFSGD.fit>`).  The checkpoint holds the
+        generator's state beside ``Ndk``/``Nwk``/``Nk``/``z``, so a
+        recovered run samples the chain it would have sampled without the
+        crash."""
+        from harp_tpu_torch.utils.fault import (check_restored_shapes,
+                                                fit_epochs, to_device)
+
         self._require_tokens("fit")
-        for _ in range(epochs):
-            self.sample_epoch()
+        dev = self.mesh.device
+
+        def get_state():
+            return {"Ndk": self.Ndk, "Nwk": self.Nwk, "Nk": self.Nk,
+                    "z": self.z_grid, "gen": self._gen.get_state()}
+
+        def set_state(state):
+            check_restored_shapes([("Ndk", state["Ndk"], self.Ndk),
+                                   ("Nwk", state["Nwk"], self.Nwk),
+                                   ("z", state["z"], self.z_grid)])
+            # a restore casts Ndk to the configured dtype (integer counts,
+            # exact in either)
+            self.Ndk = to_device(state["Ndk"], dev, self.Ndk.dtype)
+            self.Nwk = to_device(state["Nwk"], dev, self.Nwk.dtype)
+            self.Nk = to_device(state["Nk"], dev, self.Nk.dtype)
+            self.z_grid = to_device(state["z"], dev, self.z_grid.dtype)
+            self._gen.set_state(to_device(state["gen"], "cpu"))
+
+        fit_epochs(self.sample_epoch, get_state, set_state, epochs, ckpt_dir,
+                   ckpt_every=ckpt_every, max_restarts=max_restarts,
+                   fault=fault, phase="lda.epochs")
 
     # -- readers (collective: every worker calls them) ------------------------
 
@@ -877,22 +903,72 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: this worker's card; 'cpu' "
                         "runs on the CPU)")
-    for flag in ("--ckpt-dir", "--input"):
-        p.add_argument(flag, default=None, help="not ported yet")
-    p.add_argument("--ckpt-every", type=int, default=5, help="not ported yet")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="sample with checkpoint/resume instead of "
+                        "benchmarking; a rerun on the same directory "
+                        "resumes the chain from the latest saved epoch")
+    p.add_argument("--ckpt-every", type=int, default=5)
+    p.add_argument("--resume", action="store_true",
+                   help="require a resume: --ckpt-dir must already hold a "
+                        "checkpoint")
+    p.add_argument("--input", default=None, metavar="FILE_OR_GLOB",
+                   help="token files ('doc word [count]' rows); implies "
+                        "sampling mode. --docs/--vocab are raised to max "
+                        "id + 1 as needed")
     p.add_argument("--max-worker-loss", type=int, default=0,
                    help="not ported yet")
-    for flag in ("--resume", "--elastic"):
-        p.add_argument(flag, action="store_true", help="not ported yet")
+    p.add_argument("--elastic", action="store_true", help="not ported yet")
     args = p.parse_args(argv)
-    unported = [(f, item) for f, on, item in (
-        ("--ckpt-dir", args.ckpt_dir, 5), ("--resume", args.resume, 5),
-        ("--input", args.input, 5), ("--elastic", args.elastic, 8),
-        ("--max-worker-loss", args.max_worker_loss, 8)) if on]
-    if unported:
-        raise NotImplementedError("; ".join(
-            f"{f} is " + _ITEM.format(item) for f, item in unported))
+    if args.elastic or args.max_worker_loss:
+        raise NotImplementedError(
+            "--elastic/--max-worker-loss are " + _ITEM.format(8))
+    from harp_tpu_torch.utils.fault import resolve_resume
+
+    resumed_from = resolve_resume(args.ckpt_dir, args.resume)
     mesh = WorkerMesh(args.device)
+    if args.input or args.ckpt_dir:
+        if args.input:
+            from harp_tpu_torch.native.datasource import load_triples_glob
+
+            try:
+                d_ids, w_ids, counts, has_counts = load_triples_glob(
+                    args.input)
+            except ValueError as e:
+                raise SystemExit(str(e))
+            if int(d_ids.min()) < 0 or int(w_ids.min()) < 0:
+                raise SystemExit(f"{args.input}: negative doc/word ids")
+            if has_counts:
+                # an explicit count column: 0 means absent (dropped)
+                reps = np.maximum(counts.astype(np.int64), 0)
+            else:
+                reps = np.ones(len(d_ids), np.int64)  # a bare pair: 1 token
+            d_ids = np.repeat(d_ids, reps)
+            w_ids = np.repeat(w_ids, reps)
+            if len(d_ids) == 0:
+                raise SystemExit(f"{args.input}: all token counts are zero")
+            n_docs = max(args.docs or 0, int(d_ids.max()) + 1)
+            vocab = max(args.vocab or 0, int(w_ids.max()) + 1)
+        else:
+            n_docs, vocab = args.docs or 100_000, args.vocab or 50_000
+            d_ids, w_ids = synthetic_corpus(n_docs, vocab,
+                                            max(2, args.topics // 8),
+                                            args.tokens_per_doc)
+        model = LDA(n_docs, vocab,
+                    _make_cfg(args.topics, args.algo, args.chunk,
+                              args.d_tile, args.w_tile, args.entry_cap,
+                              args.pull_cap, args.ndk_dtype,
+                              False if args.no_dedup_pulls else None,
+                              args.sampler, args.rng_impl,
+                              rotate_chunks=args.rotate_chunks,
+                              rotate_wire=args.rotate_wire), mesh)
+        model.set_tokens(d_ids, w_ids)
+        model.fit(args.epochs, args.ckpt_dir, ckpt_every=args.ckpt_every)
+        print(benchmark_json("lda_fit_cli", {
+            "epochs": args.epochs, "ckpt_dir": args.ckpt_dir,
+            "resumed_from": resumed_from,
+            "log_likelihood": round(model.log_likelihood(), 4)},
+            mesh.device))
+        return 0
     print(benchmark_json("lda_cli", benchmark(
         args.docs or 100_000, args.vocab or 50_000, args.topics,
         args.tokens_per_doc, args.epochs, mesh=mesh, chunk=args.chunk,

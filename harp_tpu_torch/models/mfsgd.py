@@ -24,10 +24,13 @@ The pallas path needs no ``insert_coverage_entries``: that host step exists
 so the TPU's W-block streaming writes every output block, and K3's level
 schedule skips entries without a rating.
 
-Not ported yet (ROADMAP.md, Queue 1): ``fit``'s checkpoint/fault path,
-the CLI's ``--ckpt-dir``/``--resume`` and ``--input`` (item 5),
-``--elastic``/``--max-worker-loss`` (item 8), and ``carry_w`` (a lever of
-the reference's XLA path; item 4); each raises ``NotImplementedError``.
+``fit(epochs, ckpt_dir)`` checkpoints each worker's W and H shards through
+:func:`harp_tpu_torch.utils.fault.fit_epochs`; the CLI trains with
+``--ckpt-dir``/``--resume`` and reads rating triples with ``--input``.
+
+Not ported yet (ROADMAP.md, Queue 1): ``--elastic``/``--max-worker-loss``
+(item 8) and ``carry_w`` (a lever of the reference's XLA path; item 4);
+each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -395,14 +398,23 @@ class MFSGD:
 
     def fit(self, epochs: int, ckpt_dir: str | None = None, *,
             ckpt_every: int = 5, max_restarts: int = 3, fault=None):
-        """Train ``epochs`` epochs one by one; returns the per-epoch RMSEs.
-        The checkpoint/fault path (``ckpt_dir``, ``fault``) is not ported
-        yet."""
-        if ckpt_dir is not None or fault is not None:
-            raise NotImplementedError(
-                "fit's checkpoint/fault path (ckpt_dir, fault) is "
-                + _NOT_PORTED.format(5))
-        return [self.train_epoch() for _ in range(epochs)]
+        """Train ``epochs`` epochs one by one, with optional
+        checkpoint/resume: with ``ckpt_dir`` the W and H shards are saved
+        every ``ckpt_every`` epochs, and a crashed run (or a rerun on the
+        same directory) resumes from the latest saved epoch.  Returns the
+        RMSEs of the epochs this call ran."""
+        from harp_tpu_torch.utils.fault import (factor_state_io, fit_epochs,
+                                                to_device)
+
+        rmses: list[float] = []
+        dev = self.mesh.device
+        get_state, set_state = factor_state_io(self, {
+            "W": lambda a: to_device(a, dev), "H": lambda a: to_device(a, dev)})
+        fit_epochs(lambda: rmses.append(self.train_epoch()), get_state,
+                   set_state, epochs, ckpt_dir, ckpt_every=ckpt_every,
+                   max_restarts=max_restarts, fault=fault,
+                   phase="mfsgd.epochs")
+        return rmses
 
     def factors(self):
         """Global ``(W, H)`` as numpy, storage padding stripped: user ``g``
@@ -540,23 +552,68 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: this worker's card; 'cpu' "
                         "runs on the CPU)")
-    for flag in ("--ckpt-dir", "--input"):
-        p.add_argument(flag, default=None, help="not ported yet")
-    p.add_argument("--ckpt-every", type=int, default=5,
-                   help="not ported yet")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="train with checkpoint/resume instead of "
+                        "benchmarking; a rerun on the same directory "
+                        "resumes from the latest saved epoch")
+    p.add_argument("--ckpt-every", type=int, default=5)
+    p.add_argument("--resume", action="store_true",
+                   help="require a resume: --ckpt-dir must already hold a "
+                        "checkpoint")
+    p.add_argument("--input", default=None, metavar="FILE_OR_GLOB",
+                   help="rating triple files ('user item rating' rows, e.g. "
+                        "MovieLens); implies training mode. --users/--items "
+                        "default to max id + 1")
     p.add_argument("--max-worker-loss", type=int, default=0,
                    help="not ported yet")
-    for flag in ("--resume", "--elastic"):
-        p.add_argument(flag, action="store_true", help="not ported yet")
+    p.add_argument("--elastic", action="store_true", help="not ported yet")
     args = p.parse_args(argv)
-    unported = [(f, item) for f, on, item in (
-        ("--ckpt-dir", args.ckpt_dir, 5), ("--resume", args.resume, 5),
-        ("--input", args.input, 5), ("--elastic", args.elastic, 8),
-        ("--max-worker-loss", args.max_worker_loss, 8)) if on]
-    if unported:
-        raise NotImplementedError("; ".join(
-            f"{f} is " + _NOT_PORTED.format(item) for f, item in unported))
+    if args.elastic or args.max_worker_loss:
+        raise NotImplementedError(
+            "--elastic/--max-worker-loss are " + _NOT_PORTED.format(8))
+    from harp_tpu_torch.utils.fault import resolve_resume
+
+    resumed_from = resolve_resume(args.ckpt_dir, args.resume)
     mesh = WorkerMesh(args.device)
+    if args.input or args.ckpt_dir:
+        if args.input:
+            from harp_tpu_torch.native.datasource import load_triples_glob
+
+            try:
+                u, i, v, has_rating = load_triples_glob(args.input)
+            except ValueError as e:
+                raise SystemExit(str(e))
+            if not has_rating:
+                raise SystemExit(
+                    f"{args.input}: rows have no rating column — MF-SGD "
+                    "needs 'user item rating' triples (training on the "
+                    "implied zeros would silently fit nothing)")
+            if int(u.min()) < 0 or int(i.min()) < 0:
+                raise SystemExit(
+                    f"{args.input}: negative user/item ids (ids index model "
+                    "rows)")
+            # explicit sizes are raised to fit the data
+            n_users = max(args.users or 0, int(u.max()) + 1)
+            n_items = max(args.items or 0, int(i.max()) + 1)
+        else:
+            n_users = args.users or 138_493
+            n_items = args.items or 26_744
+            u, i, v = synthetic_ratings(n_users, n_items, args.nnz)
+        model = MFSGD(n_users, n_items,
+                      _make_config(args.rank, args.chunk, args.algo,
+                                   args.u_tile, args.i_tile, args.entry_cap,
+                                   rotate_chunks=args.rotate_chunks,
+                                   rotate_wire=args.rotate_wire), mesh)
+        model.set_ratings(u, i, v)
+        rmses = model.fit(args.epochs, args.ckpt_dir,
+                          ckpt_every=args.ckpt_every)
+        print(benchmark_json("mfsgd_fit_cli", {
+            "epochs_run": len(rmses),
+            "rmse_final": rmses[-1] if rmses else None,
+            "nnz": len(u), "users": n_users, "items": n_items,
+            "ckpt_dir": args.ckpt_dir, "resumed_from": resumed_from},
+            mesh.device))
+        return 0
     print(benchmark_json("mfsgd_cli", benchmark(
         args.users or 138_493, args.items or 26_744, args.nnz, args.rank,
         args.epochs, mesh=mesh, chunk=args.chunk, algo=args.algo,

@@ -30,8 +30,11 @@ f32 products on the card run in full f32 (TF32 off).  The batch order of
 worker's device (the reference's ``jax.random.permutation`` cannot be
 reproduced), seeded alike on every worker.
 
-Not ported yet (ROADMAP.md, Queue 1): ``fit_ckpt`` (item 5), and the
-flight-recorder budget around ``fit``'s epoch (item 8).
+``fit_ckpt`` trains epochs of :meth:`MLPTrainer.fit_resident` with
+checkpoint/resume (:func:`harp_tpu_torch.utils.fault.fit_epochs`).
+
+Not ported yet (ROADMAP.md, Queue 1, item 8): the flight-recorder budget
+around ``fit``'s epoch.
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ from harp_tpu_torch.parallel.mesh import (Mesh2D, WorkerMesh, mesh_2d,
                                          num_workers, resolve_mesh, worker_id)
 from harp_tpu_torch.utils.timing import device_sync
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {})"
 
 
 @dataclasses.dataclass
@@ -426,10 +428,46 @@ class MLPTrainer:
         stats = torch.stack(last).cpu().numpy()  # one readback
         return [(float(l), float(a)) for l, a in stats]
 
-    def fit_ckpt(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MLPTrainer.fit_ckpt (checkpoint/resume) is "
-            + _NOT_PORTED.format(5))
+    def fit_ckpt(self, x, y, epochs, ckpt_dir=None, *, batch_size=8192,
+                 ckpt_every=5, max_restarts=3, fault=None, seed=0):
+        """Epoch training with checkpoint/resume (the contract of MF-SGD's
+        and LDA's ``fit``): one epoch is one :meth:`fit_resident` epoch, and
+        the params, the optimizer state and the shuffle counter are
+        checkpointed, so a resumed adam/momentum run continues the same
+        trajectory.  Returns [(last_loss, last_acc)] for the epochs this
+        call ran."""
+        from harp_tpu_torch.utils.fault import (check_restored_shapes,
+                                                fit_epochs, to_device)
+
+        self.load_resident(x, y, batch_size=batch_size, seed=seed)
+        history: list = []
+
+        def like(template, restored):
+            # the restored nest placed as the live one: device and dtype
+            if isinstance(template, dict):
+                return {k: like(template[k], restored[k]) for k in template}
+            if isinstance(template, (list, tuple)):
+                return type(template)(like(t, r)
+                                      for t, r in zip(template, restored))
+            return to_device(restored, template.device, template.dtype)
+
+        def set_state(state):
+            # opt_state too: matching params with another optimizer must
+            # refuse here, not fail later
+            check_restored_shapes([
+                ("params", state["params"], self.params),
+                ("opt_state", state["opt_state"], self.opt_state)])
+            self.params = like(self.params, state["params"])
+            self.opt_state = like(self.opt_state, state["opt_state"])
+            self._shuffle_counter = int(state["shuffle"])
+
+        fit_epochs(
+            lambda: history.append(self.fit_resident(epochs=1, seed=seed)[0]),
+            lambda: {"params": self.params, "opt_state": self.opt_state,
+                     "shuffle": self._shuffle_counter},
+            set_state, epochs, ckpt_dir, ckpt_every=ckpt_every,
+            max_restarts=max_restarts, fault=fault, phase="mlp.epochs")
+        return history
 
     def fit(self, x, y, batch_size=8192, epochs=1, shuffle_seed=0,
             prefetch=2):

@@ -15,9 +15,12 @@ K5 (:func:`harp_tpu_torch.ops.svm_kernel.pegasos_grad`), one fused pass a
 step (:func:`_pegasos_pallas`).  The 200-step loop never waits for the
 device: the step size is a host number and ``b`` stays on the device.
 
-Not ported yet: ``fit_sparse``, ``make_train_fn_ell`` and the CLI's
-``--libsvm`` (ELL rows from the native libsvm loader; ROADMAP.md, Queue 1,
-item 5).  Each raises ``NotImplementedError``.
+The sparse path (``fit_sparse``, ``make_train_fn_ell``, the CLI's
+``--libsvm``) trains on padded-ELL rows (``native.datasource.csr_to_ell``
+of a libsvm file): f(x) is a gather-dot and the gradient an
+``index_add_`` over feature ids (:func:`_pegasos_ell`), so memory stays
+O(nnz).  It runs plain torch on either algo: K5 takes dense rows only, as
+the reference's kernel does.
 """
 
 from __future__ import annotations
@@ -34,10 +37,6 @@ from harp_tpu_torch.ops import svm_kernel
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, num_workers, resolve_mesh
 from harp_tpu_torch.utils import telemetry
-
-_NOT_PORTED = ("the sparse ELL path is not ported yet (ROADMAP.md, Queue 1, "
-               "item 5: the native libsvm loader)")
-
 
 @dataclasses.dataclass
 class SVMConfig:
@@ -103,6 +102,37 @@ def _pegasos_pallas(w, b, x, y, sample_w, cfg: SVMConfig):
     return w, b
 
 
+def _pegasos_ell(w, b, ids, vals, msk, y, sample_w, cfg: SVMConfig):
+    """Hinge subgradient descent on padded-ELL sparse rows.
+
+    ``ids``/``vals``/``msk``: [n, width] (``csr_to_ell``'s).  f(x) is a
+    gather-dot, the gradient an ``index_add_`` over the feature ids (the
+    reference's ``segment_sum``); memory stays O(nnz), never O(n·d)."""
+    ids = ids.long()
+    vm = vals * msk  # msk is 0/1: the products are exact in either order
+    # the gradient scatters the real entries only: a padded slot would add
+    # an exact zero to feature 0 (the same sums, one contended address)
+    keep = (msk > 0).reshape(-1)
+    nz_ids, nz_vm = ids.reshape(-1)[keep], vm.reshape(-1)[keep]
+    nz_row = torch.arange(ids.shape[0], device=ids.device).repeat_interleave(
+        ids.shape[1])[keep]
+    denom = sample_w.sum().clamp_min(1.0)
+    for t in range(cfg.inner_steps):
+        margin = y * ((vm * w[ids]).sum(1) + b)
+        coef = (margin < 1.0).to(torch.float32) * sample_w * y / denom
+        gw = torch.zeros_like(w).index_add_(0, nz_ids, coef[nz_row] * nz_vm)
+        lr = _lr(cfg, t)
+        w, b = w - lr * (cfg.l2 * w - gw), b + lr * coef.sum()
+    return w, b
+
+
+def _forward(rows, w, b, sparse: bool):
+    if sparse:
+        ids, vals, msk = rows
+        return (vals * msk * w[ids.long()]).sum(1) + b
+    return rows.to(torch.float32) @ w + b
+
+
 def _most_violating(score, k: int):
     """Indices of the ``k`` smallest scores, ties toward the lower index:
     ``lax.top_k(-score, k)``'s choice (a stable sort; ``torch.topk``
@@ -110,29 +140,51 @@ def _most_violating(score, k: int):
     return torch.argsort(score, stable=True)[:k]
 
 
-def _train(x, y, sample_w, cfg: SVMConfig, k: int):
+def _train(rows, y, sample_w, cfg: SVMConfig, k: int, d: int,
+           sparse: bool = False):
     """This worker's outer rounds → the averaged (w [d], b) on every worker.
-    ``x`` [n_loc, d], ``y`` and ``sample_w`` [n_loc] are the local shard."""
-    nw, d, dev = num_workers(), x.shape[1], x.device
+    ``rows`` is the local shard: [n_loc, d] dense rows, or with ``sparse``
+    the ELL triple (ids, vals, mask), each [n_loc, width]; ``y`` and
+    ``sample_w`` are [n_loc].  Both forms exchange support vectors the
+    same way."""
+    nw, dev = num_workers(), y.device
     w = torch.zeros((d,), dtype=torch.float32, device=dev)
     b = torch.zeros((), dtype=torch.float32, device=dev)
-    sv_rows = torch.zeros((nw * k, d), dtype=x.dtype, device=dev)
+    parts = rows if sparse else (rows,)
+    sv_rows = tuple(torch.zeros((nw * k, *a.shape[1:]), dtype=a.dtype,
+                                device=dev) for a in parts)
     sv_y = torch.zeros((nw * k,), dtype=torch.float32, device=dev)
     sv_m = torch.zeros((nw * k,), dtype=torch.float32, device=dev)
-    solve = _pegasos_pallas if cfg.algo == "pallas" else _pegasos
+    if sparse:
+        solve = _pegasos_ell
+    else:
+        solve = _pegasos_pallas if cfg.algo == "pallas" else _pegasos
     inf = torch.tensor(float("inf"), device=dev)
     for _ in range(cfg.outer_rounds):
-        w, b = solve(w, b, torch.cat([x, sv_rows]), torch.cat([y, sv_y]),
+        arows = [torch.cat([a, s]) for a, s in zip(parts, sv_rows)]
+        w, b = solve(w, b, *arows, torch.cat([y, sv_y]),
                      torch.cat([sample_w, sv_m]), cfg)
         # margin violators of the local shard -> the k most violating
-        score = torch.where(sample_w > 0,
-                            y * (x.to(torch.float32) @ w + b), inf)
+        score = torch.where(sample_w > 0, y * _forward(rows, w, b, sparse),
+                            inf)
         idx = _most_violating(score, k)
         cand_m = (score[idx] < 1.0).to(torch.float32)
         sv_rows, sv_y, sv_m = C.reshard(
-            (x[idx], y[idx], cand_m), C.ShardSpec.blocked(0),
-            C.ShardSpec.replicated(), wire=cfg.sv_wire)
+            (tuple(a[idx] for a in parts), y[idx], cand_m),
+            C.ShardSpec.blocked(0), C.ShardSpec.replicated(),
+            wire=cfg.sv_wire)
     return C.allreduce(w, C.Combiner.AVG), C.allreduce(b, C.Combiner.AVG)
+
+
+def make_train_fn_ell(mesh: WorkerMesh, cfg: SVMConfig, d: int, n_loc: int):
+    """The sparse trainer: ``fn((ids, vals, mask), y, sample_w) → (w, b)``
+    on this worker's ELL shard of ``n_loc`` rows (``d`` features)."""
+    k = min(cfg.sv_per_worker, n_loc)  # the exchange takes k <= n_loc rows
+
+    def fn(rows, y, sample_w):
+        return _train(tuple(rows), y, sample_w, cfg, k, d, sparse=True)
+
+    return fn
 
 
 class SVM:
@@ -168,12 +220,25 @@ class SVM:
         k = min(self.cfg.sv_per_worker, xd.shape[0])
         with telemetry.span("svm.fit"), \
                 telemetry.ledger.run("svm.fit", steps=self.cfg.outer_rounds):
-            w, b = _train(xd, yd, swd, self.cfg, k)
+            w, b = _train(xd, yd, swd, self.cfg, k, x.shape[1])
             self.w, self.b = w.cpu().numpy(), float(b)
         return self
 
     def fit_sparse(self, ids, vals, mask, y, n_features: int):
-        raise NotImplementedError("SVM.fit_sparse: " + _NOT_PORTED)
+        """Train on padded-ELL sparse rows (``csr_to_ell``'s output):
+        memory stays O(nnz), never densifying [n, d]."""
+        y = np.asarray(y, np.float32)
+        if not set(np.unique(y)) <= {-1.0, 1.0}:
+            raise ValueError("labels must be ±1")
+        _exact_f32(self.mesh.device)
+        idd, vd, md, yd, swd = _shard_rows(self.mesh, ids, vals, mask, y)
+        fn = make_train_fn_ell(self.mesh, self.cfg, n_features, yd.shape[0])
+        with telemetry.span("svm.fit_sparse"), \
+                telemetry.ledger.run("svm.fit_sparse",
+                                     steps=self.cfg.outer_rounds):
+            w, b = fn((idd, vd, md), yd, swd)
+            self.w, self.b = w.cpu().numpy(), float(b)
+        return self
 
     def decision_function(self, x):
         return np.asarray(x, np.float32) @ self.w + self.b
@@ -183,10 +248,6 @@ class SVM:
 
     def accuracy(self, x, y):
         return float((self.predict(x) == np.asarray(y)).mean())
-
-
-def make_train_fn_ell(*args, **kwargs):
-    raise NotImplementedError("make_train_fn_ell: " + _NOT_PORTED)
 
 
 def synthetic_data(n: int, d: int, seed: int = 0):
@@ -227,7 +288,8 @@ def main(argv=None):
     p.add_argument("--n", type=int, default=500_000)
     p.add_argument("--d", type=int, default=128)
     p.add_argument("--libsvm", default=None, metavar="FILE",
-                   help="train on a libsvm-format file (not ported yet)")
+                   help="train on a libsvm-format file instead of "
+                        "synthetic data (the sparse ELL path)")
     p.add_argument("--zero-based", action="store_true",
                    help="file indices start at 0 (with --libsvm)")
     p.add_argument("--algo", choices=("xla", "pallas"), default="xla",
@@ -236,9 +298,29 @@ def main(argv=None):
                    help="torch device (default: this worker's card; 'cpu' "
                         "runs on the CPU)")
     args = p.parse_args(argv)
-    if args.libsvm:
-        raise NotImplementedError("--libsvm: " + _NOT_PORTED)
     mesh = WorkerMesh(args.device)
+    if args.libsvm:
+        from harp_tpu_torch.native.datasource import csr_to_ell, load_libsvm
+
+        try:
+            labels, indptr, indices, values, nf = load_libsvm(
+                args.libsvm, zero_based=args.zero_based)
+        except ValueError as e:  # e.g. a 0-based file without --zero-based
+            raise SystemExit(str(e))
+        classes = np.unique(labels)
+        if len(classes) != 2:
+            raise SystemExit(
+                f"{args.libsvm}: need exactly 2 label values, got "
+                f"{classes.tolist()} (binary SVM)")
+        y = np.where(labels == classes[1], 1.0, -1.0).astype(np.float32)
+        ids, vals, mask = csr_to_ell(indptr, indices, values)
+        model = SVM(mesh=mesh).fit_sparse(ids, vals, mask, y, nf)
+        fx = (vals * model.w[ids] * mask).sum(1) + model.b
+        acc = float((np.sign(fx) == y).mean())
+        print(benchmark_json("svm_fit_cli", {
+            "file": args.libsvm, "n": len(labels), "d": nf,
+            "classes": classes.tolist(), "train_acc": acc}, mesh.device))
+        return 0
     print(benchmark_json("svm_cli", benchmark(args.n, args.d, mesh=mesh,
                                               algo=args.algo), mesh.device))
     return 0

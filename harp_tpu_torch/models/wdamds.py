@@ -16,9 +16,13 @@ smacof_bx`), which keeps them in registers.  The port takes any N on
 either: the reference's fallback to its XLA body when N is not a multiple
 of 128 is a Mosaic rule.
 
-Not ported yet: the weighted path (``mds(weights=...)``, the CG solve of
-``make_wsmacof_fn``; ROADMAP.md, Queue 1, item 4).  It raises
-``NotImplementedError``.
+The weighted path (``mds(weights=...)``, the "W" of WDA-MDS:
+:func:`wsmacof`) solves ``V X = B(X) X`` by ``MDSConfig.cg_iters`` steps of
+conjugate gradients a SMACOF iteration, V the weight Laplacian applied
+row-sharded (one allgather a CG step).  A weight of 0 drops a
+dissimilarity from the objective (missing or unreliable entries).  Its
+Guttman step is plain torch on either algo: K6 computes the unweighted
+ratio only, as the reference's kernel does.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ class MDSConfig:
     delta_dtype: str = "f32"
     # Guttman step: "xla" (plain torch) or "pallas" (kernel K6)
     algo: str = "xla"
+    # CG steps a SMACOF iteration on the weighted path
+    cg_iters: int = 10
 
     def __post_init__(self):
         if self.coord_wire not in ("exact", "bf16", "int8"):
@@ -97,6 +103,76 @@ def smacof(delta_rows, row_mask, X0, n_real: float, cfg: MDSConfig, me0: int):
     return X, C.allreduce(se)
 
 
+def _center(X, n_pad: int, n_real: float):
+    """X centered over the live rows (V's translation null space)."""
+    m = (torch.arange(n_pad, device=X.device) < n_real).to(X.dtype)[:, None]
+    return (X - (X * m).sum(0) / max(n_real, 1.0)) * m
+
+
+def wsmacof(delta_rows, w_rows, row_mask, X0, n_real: float,
+            cfg: MDSConfig, me0: int):
+    """This worker's weighted SMACOF run → (X [N, dim] on every worker,
+    the weighted stress Σ_{i<j} w (δ − d)²).
+
+    Each iteration solves ``V X = B(X) X`` by ``cfg.cg_iters`` CG steps on
+    the replicated [N, dim] system, the only distributed operation being
+    ``V``'s row block and an allgather a step.  Three guards freeze the
+    solve once it has converged (zero weights can make V singular beyond
+    translations, or disconnect the weight graph, and past convergence CG
+    would divide f32 noise by f32 noise): the residual relative to the
+    first, an absolute floor against |rhs|², and a curvature gate that
+    takes no step (and restarts p from r) along a direction with ~0 or
+    negative p·Vp."""
+    n_loc, n_pad = delta_rows.shape
+    dev = delta_rows.device
+    delta_rows = delta_rows.to(torch.float32)
+    w_live = w_rows * _live(row_mask, n_pad, n_real)
+    vdiag = w_live.sum(1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def v_apply(Y):
+        # (V Y) rows = vdiag ⊙ Y_local − W_block @ Y, assembled on all
+        rows = vdiag[:, None] * Y[me0:me0 + n_loc] - w_live @ Y
+        return C.allgather(rows)
+
+    X = X0
+    for _ in range(cfg.iters):
+        Xl = X[me0:me0 + n_loc]
+        D = _dist_block(Xl, X)
+        ratio = torch.where(
+            D > cfg.eps, w_live * delta_rows / torch.clamp_min(D, cfg.eps),
+            zero)
+        bz_rows = ratio.sum(1)[:, None] * Xl - ratio @ X
+        rhs = _center(C.allgather(bz_rows), n_pad, n_real)
+        x = _center(X, n_pad, n_real)
+        r = rhs - v_apply(x)
+        p = r
+        rs = (r * r).sum()
+        rs0 = rs
+        rhs_sq = (rhs * rhs).sum()
+        for _ in range(cfg.cg_iters):
+            vp = v_apply(p)
+            pvp = (p * vp).sum()
+            step_ok = ((rs > 1e-12 * rs0 + 1e-30)
+                       & (rs > 1e-10 * rhs_sq + 1e-30)
+                       & (pvp > 1e-12 * (p * p).sum()))
+            alpha = torch.where(step_ok, rs / torch.clamp_min(pvp, 1e-30),
+                                zero)
+            x = x + alpha * p
+            r = r - alpha * vp
+            rs_new = (r * r).sum()
+            beta = torch.where(step_ok, rs_new / torch.clamp_min(rs, 1e-30),
+                               zero)
+            p = r + beta * p
+            rs = rs_new
+        X = _center(x, n_pad, n_real)
+    D = _dist_block(X[me0:me0 + n_loc], X)
+    rows = me0 + torch.arange(n_loc, device=dev)
+    upper = torch.arange(n_pad, device=dev)[None, :] > rows[:, None]
+    se = ((delta_rows - D) ** 2 * w_live * upper).sum()
+    return X, C.allreduce(se)
+
+
 def mds(delta, cfg: MDSConfig | None = None, mesh: WorkerMesh | None = None,
         seed=0, weights=None, device=None, X0=None):
     """Embed points from the dissimilarity matrix ``delta`` [n, n] →
@@ -106,11 +182,12 @@ def mds(delta, cfg: MDSConfig | None = None, mesh: WorkerMesh | None = None,
     the reference's, so both packages start from the same coordinates;
     ``X0`` [n, dim] (e.g. from ``convert.mds_state_from_numpy``) replaces
     it.  Runs on this worker's card unless ``device`` (or ``mesh``) says
-    otherwise."""
-    if weights is not None:
-        raise NotImplementedError(
-            "mds(weights=...): the weighted CG path is not ported yet "
-            "(ROADMAP.md, Queue 1, item 4)")
+    otherwise.
+
+    ``weights`` (optional [n, n], nonnegative): per-pair importance; 0
+    removes a dissimilarity from the objective (:func:`wsmacof`).  The
+    diagonal is zeroed (self-pairs never count).  None runs the unweighted
+    closed form."""
     mesh = resolve_mesh(mesh, device)
     cfg = cfg or MDSConfig()
     _exact_f32(mesh.device)
@@ -129,12 +206,26 @@ def mds(delta, cfg: MDSConfig | None = None, mesh: WorkerMesh | None = None,
     if X0 is not None:
         start[:n] = torch.as_tensor(X0).detach().cpu().numpy()
     n_loc = n_pad // nw
+    w_rows = None
+    if weights is not None:
+        w = np.asarray(weights, np.float32)
+        if w.shape != delta.shape:
+            raise ValueError(f"weights shape {w.shape} != delta shape "
+                             f"{delta.shape}")
+        if (w < 0).any():
+            raise ValueError("weights must be nonnegative")
+        w_rows = torch.zeros((n_pad, n_pad), dtype=torch.float32)
+        w_rows[:n, :n] = torch.from_numpy(w)
+        w_rows.fill_diagonal_(0.0)  # self-pairs never contribute
     with telemetry.span("wdamds.mds", iters=cfg.iters), \
             telemetry.ledger.run("wdamds.mds", steps=cfg.iters):
-        X, stress = smacof(mesh.shard_array(rows, 0),
-                           mesh.shard_array(mask, 0),
-                           mesh.replicated(start), float(n), cfg,
-                           mesh.rank * n_loc)
+        args = (mesh.shard_array(mask, 0), mesh.replicated(start), float(n),
+                cfg, mesh.rank * n_loc)
+        if w_rows is None:
+            X, stress = smacof(mesh.shard_array(rows, 0), *args)
+        else:
+            X, stress = wsmacof(mesh.shard_array(rows, 0),
+                                mesh.shard_array(w_rows, 0), *args)
         X, stress = X.cpu().numpy(), float(stress)
     return X[:n], stress
 

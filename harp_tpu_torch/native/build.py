@@ -68,11 +68,18 @@ def load_native() -> ctypes.CDLL | None:
     lib = ctypes.CDLL(str(so))
     i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
     fp = ctypes.POINTER(ctypes.c_float)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     sigs = {
         "harp_count_rows": ([ctypes.c_char_p, ctypes.c_int, i64p, i64p],
                             ctypes.c_int),
         "harp_load_csv_f32": ([ctypes.c_char_p, ctypes.c_int, fp, i64, i64],
                               ctypes.c_int),
+        "harp_count_libsvm": ([ctypes.c_char_p, ctypes.c_int, i64p, i64p,
+                               i64p], ctypes.c_int),
+        "harp_load_libsvm": ([ctypes.c_char_p, ctypes.c_int, fp, i64p, i32p,
+                              fp, i64, i64], ctypes.c_int),
+        "harp_load_triples": ([ctypes.c_char_p, ctypes.c_int, i32p, i32p, fp,
+                               i64], ctypes.c_int),
         "harp_csv_count_stream": ([ctypes.c_char_p, i64p, i64p],
                                   ctypes.c_int),
         "harp_csv_stream_open": ([ctypes.c_char_p, i64], ctypes.c_void_p),

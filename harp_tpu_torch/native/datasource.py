@@ -1,15 +1,15 @@
-"""Data sources for the streaming apps: the port of the parts of
-``harp_tpu.native.datasource`` that streaming KMeans reads.
+"""Data sources: the port of ``harp_tpu.native.datasource``.
 
-``load_csv`` parses with the port's multi-threaded C++ loader
-(:mod:`harp_tpu_torch.native.build`) where ``g++`` exists, else with numpy
-(host parsing, the same semantics either way).  :class:`CSVStream`,
-:class:`FileSplits`, :class:`SequentialPoints` and :class:`CSVPoints` are
-the beyond-RAM sources of ``models.kmeans_stream``.
-
-Not ported yet (ROADMAP.md, Queue 1, item 5): ``load_libsvm``,
-``load_triples*``, ``csr_to_ell`` and the Parquet sources; a ``.parquet``
-input raises ``NotImplementedError``.
+``load_csv``, ``load_libsvm`` and ``load_triples`` parse with the port's
+multi-threaded C++ loader (:mod:`harp_tpu_torch.native.build`) where
+``g++`` exists, else with Python (host parsing, the same semantics either
+way; ``.gz`` files always take the Python path).  ``load_csv_glob`` and
+``load_triples_glob`` read a directory or glob of shards; ``csr_to_ell``
+pads CSR rows to the static ELL layout SVM's sparse path takes.
+:class:`CSVStream`, :class:`FileSplits`, :class:`SequentialPoints`,
+:class:`CSVPoints` and :class:`ParquetPoints` are the beyond-RAM sources of
+``models.kmeans_stream``.  Parquet files read through ``pyarrow``, imported
+on first use; without it they raise ``ImportError`` naming pyarrow.
 """
 
 from __future__ import annotations
@@ -37,13 +37,6 @@ def _open_text(path: str):
     return open(path)
 
 
-def _reject_parquet(path: str) -> None:
-    if path.endswith((".parquet", ".pq")):
-        raise NotImplementedError(
-            f"{path}: Parquet sources are not ported yet (ROADMAP.md, "
-            "Queue 1, item 5)")
-
-
 def _loadtxt_any_sep(path: str) -> np.ndarray:
     """numpy fallback accepting comma OR whitespace separators, matching the
     native parser's behavior so results don't depend on g++ availability."""
@@ -59,8 +52,16 @@ def _loadtxt_any_sep(path: str) -> np.ndarray:
 
 
 def load_csv(path: str, n_threads: int = 0) -> np.ndarray:
-    """Dense CSV/whitespace numeric file → float32 [rows, cols]."""
-    _reject_parquet(path)
+    """Dense CSV/whitespace numeric file → float32 [rows, cols].
+
+    ``.parquet``/``.pq`` files load columnarly through pyarrow (all
+    columns must be numeric)."""
+    if path.endswith((".parquet", ".pq")):
+        pq = _require_pyarrow()
+        t = pq.read_table(path)
+        return np.stack(
+            [t.column(i).to_numpy(zero_copy_only=False)
+             for i in range(t.num_columns)], axis=1).astype(np.float32)
     n_threads = n_threads or (os.cpu_count() or 1)
     lib = None if _is_gz(path) else load_native()
     if lib is None:
@@ -80,6 +81,255 @@ def load_csv(path: str, n_threads: int = 0) -> np.ndarray:
         raise OSError(f"native loader failed to parse {path!r} (rc={rc})")
     return out
 
+
+def load_libsvm(path: str, n_threads: int = 0, zero_based: bool = False):
+    """libsvm/CSR sparse file → (labels, indptr, indices, values, n_features).
+
+    The HarpDAALDataSource CSR input path.  Lines are
+    ``label idx:val idx:val ... [# comment]``; indices are 1-based in the
+    wild (``zero_based=False`` subtracts 1, matching sklearn's default).
+    Returns ``labels f32 [n]``, CSR ``indptr i64 [n+1]``,
+    ``indices i32 [nnz]``, ``values f32 [nnz]``, and ``n_features``.
+    """
+    n_threads = n_threads or (os.cpu_count() or 1)
+    lib = None if _is_gz(path) else load_native()
+    n_features_native = None
+    if lib is None:
+        # tolerance mirrors the native parser: the label is the numeric
+        # prefix of the first token (its trailing garbage is dropped, so
+        # '3:1.5' is a label-only line), an unparseable label reads as 0.0
+        # (header lines become zero-label rows), and stray tokens that
+        # aren't idx:val pairs are skipped
+        import re
+
+        _num_prefix = re.compile(
+            r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?")
+
+        def _tofloat(s):
+            try:
+                return float(s)  # also accepts inf/nan, like strtof
+            except ValueError:
+                m = _num_prefix.match(s)
+                return float(m.group()) if m else 0.0
+
+        labels, indptr, indices, values = [], [0], [], []
+        with _open_text(path) as f:
+            for line in f:
+                toks = line.split("#", 1)[0].split()
+                if not toks:
+                    continue
+                labels.append(_tofloat(toks[0]))
+                for pair in toks[1:]:
+                    idx, colon, val = pair.partition(":")
+                    if not colon or not val:
+                        continue
+                    try:
+                        i = int(idx) if idx else 0
+                    except ValueError:
+                        continue
+                    indices.append(i)
+                    values.append(_tofloat(val))
+                indptr.append(len(indices))
+        labels = np.asarray(labels, np.float32)
+        indptr = np.asarray(indptr, np.int64)
+        indices = np.asarray(indices, np.int32)
+        values = np.asarray(values, np.float32)
+    else:
+        rows = ctypes.c_int64()
+        nnz = ctypes.c_int64()
+        max_idx = ctypes.c_int64()
+        rc = lib.harp_count_libsvm(path.encode(), n_threads,
+                                   ctypes.byref(rows), ctypes.byref(nnz),
+                                   ctypes.byref(max_idx))
+        if rc != 0:
+            raise OSError(f"native loader failed to read {path!r} (rc={rc})")
+        labels = np.empty(rows.value, np.float32)
+        indptr = np.empty(rows.value + 1, np.int64)
+        indices = np.empty(nnz.value, np.int32)
+        values = np.empty(nnz.value, np.float32)
+        rc = lib.harp_load_libsvm(
+            path.encode(), n_threads,
+            labels.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            values.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            rows.value, nnz.value)
+        if rc != 0:
+            raise OSError(f"native loader failed to parse {path!r} (rc={rc})")
+        n_features_native = max_idx.value  # max 1-based index == n_features
+    if not zero_based:
+        indices -= 1  # freshly allocated on both paths: in-place is safe
+    if len(indices) and indices.min() < 0:
+        raise ValueError(
+            f"{path!r}: negative feature index after 1-based correction — "
+            "the file is 0-based; pass zero_based=True (CLI: --zero-based)")
+    if n_features_native is not None:
+        n_features = n_features_native + (1 if zero_based else 0)
+        n_features = max(n_features, 0)
+    else:
+        n_features = int(indices.max()) + 1 if len(indices) else 0
+    return labels, indptr, indices, values, n_features
+
+
+def load_csv_glob(pattern_or_dir: str, n_threads: int = 0) -> np.ndarray:
+    """Concatenate every file matching a glob/dir through :func:`load_csv`
+    (the Harp app's multi-file HDFS input shape).  Empty shards are
+    skipped (routine in HDFS-style directories); raises ``ValueError`` on
+    zero matches or zero total rows — callers get a clear error, not a
+    concatenate traceback."""
+    from harp_tpu_torch.fileformat import list_files
+
+    paths = list_files(pattern_or_dir)
+    if not paths:
+        raise ValueError(f"{pattern_or_dir}: no input files matched")
+    arrays = [a for a in (load_csv(f, n_threads) for f in paths)
+              if a.shape[0] > 0]
+    if not arrays:
+        raise ValueError(f"{pattern_or_dir}: input files contain no rows")
+    return np.concatenate(arrays)
+
+
+_COLUMN_SCAN_ROWS = 10_000
+
+
+def _scan_columns(path: str) -> set[int]:
+    """Distinct column counts over the file's first data rows.
+
+    Scans up to ``_COLUMN_SCAN_ROWS`` non-comment rows (ragged files are
+    overwhelmingly ragged early — headers, truncated exports); rows beyond
+    the scan window are not validated, which keeps huge files on the fast
+    native parser.  Returns an empty set for an empty file.
+    """
+    seen: set[int] = set()
+    with _open_text(path) as f:
+        rows = 0
+        for line in f:
+            toks = line.split("#", 1)[0].replace(",", " ").split()
+            if toks:
+                seen.add(len(toks))
+                rows += 1
+                if rows >= _COLUMN_SCAN_ROWS:
+                    break
+    return seen
+
+
+def load_triples_glob(pattern_or_dir: str, n_threads: int = 0):
+    """Concatenate 'u i [v]' triple files matching a glob/dir — shared by
+    the MF-SGD and LDA CLIs.
+
+    Returns ``(u, i, v, has_value_column)``: v reads as 0.0 for two-column
+    files, and ``has_value_column`` tells the caller whether a third
+    column actually existed (an explicit 0 and a missing column are
+    different facts — LDA drops explicit zero counts but treats bare
+    pairs as single tokens).  All rows (within the first
+    ``_COLUMN_SCAN_ROWS`` of each file, and across files) must agree on
+    the column count — a ragged row would otherwise read as a fabricated
+    0.0 value.  Raises ``ValueError`` on zero matches, zero total rows,
+    or disagreeing column counts.
+    """
+    from harp_tpu_torch.fileformat import list_files
+
+    paths = list_files(pattern_or_dir)
+    if not paths:
+        raise ValueError(f"{pattern_or_dir}: no input files matched")
+    ncols: set[int] = set()
+    for f in paths:
+        if f.endswith((".parquet", ".pq")):
+            # column count from metadata — the text scanner would read
+            # binary bytes as garbage tokens
+            pq = _require_pyarrow()
+            ncols.add(int(pq.ParquetFile(f).metadata.num_columns))
+        else:
+            ncols |= _scan_columns(f)
+    if len(ncols) > 1:
+        raise ValueError(
+            f"{pattern_or_dir}: rows disagree on column count "
+            f"({sorted(ncols)}) — a short row would read as a fabricated "
+            "0.0 value; fix the input")
+    parts = [load_triples(f, n_threads) for f in paths]
+    u = np.concatenate([p[0] for p in parts])
+    i = np.concatenate([p[1] for p in parts])
+    v = np.concatenate([p[2] for p in parts])
+    if len(u) == 0:
+        raise ValueError(f"{pattern_or_dir}: input files contain no rows")
+    return u, i, v, bool(ncols) and max(ncols) >= 3
+
+
+def csr_to_ell(indptr, indices, values, width: int | None = None):
+    """CSR → padded ELL blocks ``(ids [n, w] i32, vals [n, w] f32,
+    mask [n, w] f32)`` — the fixed-width rows SVM's sparse path takes
+    (a gather-dot and an ``index_add_`` a step).
+
+    ``width`` defaults to the max row length; longer rows are truncated
+    (count returned by the caller comparing ``indptr`` diffs to ``width``).
+    """
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int32)
+    values = np.asarray(values, np.float32)
+    n = len(indptr) - 1
+    lens = np.diff(indptr)
+    w = int(lens.max()) if width is None and n else (width or 0)
+    ids = np.zeros((n, w), np.int32)
+    vals = np.zeros((n, w), np.float32)
+    mask = np.zeros((n, w), np.float32)
+    # position of each nnz within its row, vectorized
+    pos = np.arange(len(indices)) - np.repeat(indptr[:-1], lens)
+    row = np.repeat(np.arange(n), lens)
+    keep = pos < w
+    ids[row[keep], pos[keep]] = indices[keep]
+    vals[row[keep], pos[keep]] = values[keep]
+    mask[row[keep], pos[keep]] = 1.0
+    return ids, vals, mask
+
+
+def load_triples(path: str, n_threads: int = 0):
+    """'u i [v]' rating/token lines → (int32 [n], int32 [n], float32 [n]).
+
+    A missing third column reads as v=0.0 (both paths — the native parser
+    already tolerates it).  ``.parquet``/``.pq`` files load columnarly:
+    first two numeric columns are the ids, an optional third is the
+    value (rating tables in the wild are overwhelmingly parquet).
+    """
+    if path.endswith((".parquet", ".pq")):
+        pq = _require_pyarrow()
+        t = pq.read_table(path)
+        if t.num_columns not in (2, 3):
+            raise ValueError(f"{path}: triples need 2 or 3 columns, "
+                             f"got {t.num_columns}")
+        cols = [t.column(i).to_numpy(zero_copy_only=False)
+                for i in range(t.num_columns)]
+        v = (cols[2] if len(cols) == 3
+             else np.zeros(len(cols[0])))
+        return (cols[0].astype(np.int32), cols[1].astype(np.int32),
+                v.astype(np.float32))
+    n_threads = n_threads or (os.cpu_count() or 1)
+    lib = None if _is_gz(path) else load_native()
+    if lib is None:
+        a = _loadtxt_any_sep(path)
+        if a.shape[0] == 0:  # empty shard: loadtxt yields (0, 1)
+            return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                    np.zeros(0, np.float32))
+        v = a[:, 2] if a.shape[1] >= 3 else np.zeros(len(a))
+        return (a[:, 0].astype(np.int32), a[:, 1].astype(np.int32),
+                v.astype(np.float32))
+    rows = ctypes.c_int64()
+    cols = ctypes.c_int64()
+    rc = lib.harp_count_rows(path.encode(), n_threads,
+                             ctypes.byref(rows), ctypes.byref(cols))
+    if rc != 0:
+        raise OSError(f"native loader failed to read {path!r} (rc={rc})")
+    u = np.empty(rows.value, np.int32)
+    i = np.empty(rows.value, np.int32)
+    v = np.empty(rows.value, np.float32)
+    rc = lib.harp_load_triples(
+        path.encode(), n_threads,
+        u.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        i.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        rows.value)
+    if rc != 0:
+        raise OSError(f"native loader failed to parse {path!r} (rc={rc})")
+    return u, i, v
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +467,11 @@ class FileSplits:
     by default (``by_size``), Harp's ``MultiFileInputFormat`` rule — and
     only ``local_workers`` — the workers this process serves — are
     opened, so a multi-host job touches each file exactly once across
-    the fleet.  ``.npy`` files open as memmaps; anything else
-    through :class:`CSVPoints` (native streaming parser, bounded memory;
-    a ``.parquet``/``.pq`` file raises, not ported yet).  All files must agree on the column count.
+    the fleet.  ``.npy`` files open as memmaps; ``.parquet``/``.pq``
+    through :class:`ParquetPoints` (pyarrow row-group streaming);
+    anything else through :class:`CSVPoints` (native streaming
+    parser, bounded memory).  All files must agree on the column
+    count.
 
     Per worker: ``rows(w)`` (total), ``next_block(w, count)`` (the next
     ≤count rows, crossing file boundaries), and :meth:`reset` rewinds
@@ -245,6 +497,8 @@ class FileSplits:
             for p in assign[w]:
                 if p.endswith(".npy"):
                     s = np.load(p, mmap_mode="r")
+                elif p.endswith((".parquet", ".pq")):
+                    s = ParquetPoints(p, chunk_rows)
                 else:
                     s = CSVPoints(p, chunk_rows)
                 if len(s.shape) != 2:
@@ -499,7 +753,6 @@ class CSVPoints(SequentialPoints):
     row-count pass."""
 
     def __init__(self, path: str, chunk_rows: int = 65_536):
-        _reject_parquet(path)
         self.path, self.chunk_rows = path, chunk_rows
         lib = None if _is_gz(path) else load_native()
         if lib is not None:
@@ -526,3 +779,63 @@ class CSVPoints(SequentialPoints):
         return CSVStream(self.path, self.chunk_rows)
 
 
+class ParquetPoints(SequentialPoints):
+    """:class:`SequentialPoints` over a Parquet file (columnar splits —
+    the common modern shape of the HDFS-style datasets Harp's input
+    formats consumed).  ``shape`` comes from the file METADATA (no data
+    read); blocks stream via ``pyarrow.parquet.iter_batches`` in bounded
+    memory.  All columns must be numeric; blocks arrive float32."""
+
+    def __init__(self, path: str, chunk_rows: int = 65_536):
+        pq = _require_pyarrow()
+        self.path, self.chunk_rows = path, chunk_rows
+        pf = pq.ParquetFile(path)
+        try:
+            md = pf.metadata
+            self.shape = (int(md.num_rows), int(md.num_columns))
+            import pyarrow as pa
+
+            bad = [f for f in pf.schema_arrow
+                   if not (pa.types.is_floating(f.type)
+                           or pa.types.is_integer(f.type))]
+            if bad:
+                raise ValueError(
+                    f"{path}: non-numeric parquet column(s) "
+                    f"{[f.name for f in bad]} — point sources are numeric")
+        finally:
+            pf.close()
+        self._init_cursor()
+
+    def _open_stream(self):
+        pq = _require_pyarrow()
+        pf = pq.ParquetFile(self.path)
+
+        class _Batches:
+            def __init__(self, pf, chunk_rows):
+                self._pf = pf
+                self._it = pf.iter_batches(batch_size=chunk_rows)
+
+            def __iter__(self):
+                return self
+
+            def __next__(self):
+                batch = next(self._it)  # StopIteration propagates
+                return np.stack(
+                    [batch.column(i).to_numpy(zero_copy_only=False)
+                     for i in range(batch.num_columns)], axis=1,
+                ).astype(np.float32, copy=False)
+
+            def close(self):
+                self._pf.close()
+
+        return _Batches(pf, self.chunk_rows)
+
+
+def _require_pyarrow():
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError(
+            "ParquetPoints needs pyarrow (not installed); convert the "
+            "input to .npy/.csv or install pyarrow") from e
+    return pq

@@ -1,6 +1,5 @@
-// Fast parallel text -> float32 loader: the port's own copy of the dense
-// CSV and streaming parts of harp_tpu/native/loader.cpp (the libsvm and
-// triples loaders wait for ROADMAP.md, Queue 1, item 5).
+// Fast parallel text loader: the port's own copy of harp_tpu's native
+// loader (dense CSV, libsvm/CSR, rating triples, streaming CSV).
 //
 // Harp's HarpDAALDataSource loaded HDFS CSV shards through JNI with the
 // parse done natively.  Here the same role is a small C++ library driven
@@ -12,6 +11,10 @@
 // Exposed C ABI:
 //   harp_count_rows(path, n_threads, *rows, *cols)      -> 0 on success
 //   harp_load_csv_f32(path, n_threads, buf, rows, cols) -> 0 on success
+//   harp_count_libsvm(path, n_threads, *rows, *nnz, *max_index) -> 0
+//   harp_load_libsvm(path, n_threads, labels, indptr, indices, values,
+//                    rows, nnz) -> 0
+//   harp_load_triples(path, n_threads, u_buf, i_buf, v_buf, n) -> 0
 //   harp_csv_count_stream / harp_csv_stream_* (below)
 // Caller (Python) allocates the numpy buffers after harp_count_rows.
 
@@ -245,6 +248,214 @@ int harp_load_csv_f32(const char* path, int n_threads, float* buf,
           skip_seps(q, line_end);
           *out++ = (q < line_end) ? parse_float(q) : 0.0f;
         }
+      }
+      p = nl ? nl + 1 : end;
+    }
+  };
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nt; ++t) ts.emplace_back(parse_range, t);
+  for (auto& t : ts) t.join();
+  std::free(m.data);
+  return 0;
+}
+
+// libsvm / CSR sparse: "label idx:val idx:val ..." lines (HarpDAALDataSource's
+// CSR input).  Two-phase like the dense loader: count (rows, nnz, max index),
+// then parse into caller-allocated CSR buffers.
+
+namespace {
+
+void count_libsvm_range(const char* data, size_t begin, size_t end_,
+                        int64_t* rows, int64_t* nnz, int64_t* max_idx) {
+  int64_t r = 0, z = 0, mi = -1;
+  const char* p = data + begin;
+  const char* end = data + end_;
+  while (p < end) {
+    const char* nl = static_cast<const char*>(memchr(p, '\n', end - p));
+    const char* line_end = nl ? nl : end;
+    // '#' starts a comment anywhere on the line (parity with the Python
+    // fallback's split('#', 1))
+    const char* hash =
+        static_cast<const char*>(memchr(p, '#', line_end - p));
+    if (hash) line_end = hash;
+    if (line_end > p) {
+      const char* q = p;
+      skip_seps(q, line_end);
+      if (q < line_end) {
+        ++r;
+        parse_float(q);  // label: numeric prefix of the first token...
+        // ...and any trailing garbage in that token is dropped whole, so
+        // '3:1.5' is a label-only line, never a phantom (0, 1.5) pair
+        while (q < line_end && *q != ' ' && *q != '\t' && *q != ',') ++q;
+        while (q < line_end) {
+          skip_seps(q, line_end);
+          if (q >= line_end) break;
+          long idx = std::strtol(q, const_cast<char**>(&q), 10);
+          // a value exists only if something non-blank follows the ':' on
+          // THIS line — "3:\n" must not let strtof's whitespace skip eat
+          // the next line's label as the value
+          if (q < line_end && *q == ':' && q + 1 < line_end &&
+              q[1] != ' ' && q[1] != '\t' && q[1] != '\r' && q[1] != '\n') {
+            ++q;
+            parse_float(q);
+            ++z;
+            if (idx > mi) mi = idx;
+          } else {
+            // not an idx:val pair — skip the stray token
+            while (q < line_end && *q != ' ' && *q != '\t' && *q != ',') ++q;
+          }
+        }
+      }
+    }
+    p = nl ? nl + 1 : end;
+  }
+  *rows = r;
+  *nnz = z;
+  *max_idx = mi;
+}
+
+}  // namespace
+
+int harp_count_libsvm(const char* path, int n_threads, int64_t* rows,
+                      int64_t* nnz, int64_t* max_index) {
+  Mapped m = read_file(path);
+  if (!m.ok) return 1;
+  int nt = n_threads > 0 ? n_threads : 1;
+  std::vector<int64_t> r(nt, 0), z(nt, 0), mi(nt, -1);
+  std::vector<std::thread> ts;
+  size_t chunk = m.size / nt + 1;
+  for (int t = 0; t < nt; ++t) {
+    size_t b = align_to_line(m.data, t * chunk, m.size);
+    size_t e = align_to_line(m.data, (t + 1) * chunk, m.size);
+    if (e > m.size) e = m.size;
+    ts.emplace_back(count_libsvm_range, m.data, b, e, &r[t], &z[t], &mi[t]);
+  }
+  for (auto& t : ts) t.join();
+  *rows = 0; *nnz = 0; *max_index = -1;
+  for (int t = 0; t < nt; ++t) {
+    *rows += r[t];
+    *nnz += z[t];
+    if (mi[t] > *max_index) *max_index = mi[t];
+  }
+  std::free(m.data);
+  return 0;
+}
+
+int harp_load_libsvm(const char* path, int n_threads, float* labels,
+                     int64_t* indptr, int32_t* indices, float* values,
+                     int64_t rows, int64_t nnz) {
+  Mapped m = read_file(path);
+  if (!m.ok) return 1;
+  int nt = n_threads > 0 ? n_threads : 1;
+  std::vector<size_t> begins(nt), ends(nt);
+  std::vector<int64_t> r(nt, 0), z(nt, 0), mi(nt, -1);
+  size_t chunk = m.size / nt + 1;
+  {
+    std::vector<std::thread> ts;
+    for (int t = 0; t < nt; ++t) {
+      begins[t] = align_to_line(m.data, t * chunk, m.size);
+      ends[t] = align_to_line(m.data, (t + 1) * chunk, m.size);
+      if (ends[t] > m.size) ends[t] = m.size;
+      ts.emplace_back(count_libsvm_range, m.data, begins[t], ends[t],
+                      &r[t], &z[t], &mi[t]);
+    }
+    for (auto& t : ts) t.join();
+  }
+  std::vector<int64_t> row0(nt, 0), nnz0(nt, 0);
+  for (int t = 1; t < nt; ++t) {
+    row0[t] = row0[t - 1] + r[t - 1];
+    nnz0[t] = nnz0[t - 1] + z[t - 1];
+  }
+  if (row0[nt - 1] + r[nt - 1] != rows ||
+      nnz0[nt - 1] + z[nt - 1] != nnz) { std::free(m.data); return 2; }
+
+  auto parse_range = [&](int t) {
+    const char* p = m.data + begins[t];
+    const char* end = m.data + ends[t];
+    int64_t row = row0[t], k = nnz0[t];
+    while (p < end) {
+      const char* nl = static_cast<const char*>(memchr(p, '\n', end - p));
+      const char* line_end = nl ? nl : end;
+      const char* hash =
+          static_cast<const char*>(memchr(p, '#', line_end - p));
+      if (hash) line_end = hash;
+      if (line_end > p) {
+        const char* q = p;
+        skip_seps(q, line_end);
+        if (q < line_end) {
+          indptr[row] = k;
+          labels[row] = parse_float(q);
+          // drop the label token's trailing garbage (mirror the count pass)
+          while (q < line_end && *q != ' ' && *q != '\t' && *q != ',') ++q;
+          while (q < line_end) {
+            skip_seps(q, line_end);
+            if (q >= line_end) break;
+            long idx = std::strtol(q, const_cast<char**>(&q), 10);
+            // mirror count_libsvm_range's has-value guard exactly — the
+            // prefix offsets depend on both passes agreeing
+            if (q < line_end && *q == ':' && q + 1 < line_end &&
+                q[1] != ' ' && q[1] != '\t' && q[1] != '\r' && q[1] != '\n') {
+              ++q;
+              values[k] = parse_float(q);
+              indices[k] = static_cast<int32_t>(idx);
+              ++k;
+            } else {
+              while (q < line_end && *q != ' ' && *q != '\t' && *q != ',') ++q;
+            }
+          }
+          ++row;
+        }
+      }
+      p = nl ? nl + 1 : end;
+    }
+  };
+  std::vector<std::thread> ts;
+  for (int t = 0; t < nt; ++t) ts.emplace_back(parse_range, t);
+  for (auto& t : ts) t.join();
+  indptr[rows] = nnz;
+  std::free(m.data);
+  return 0;
+}
+
+// Rating/token triples "u i v" → int32/int32/float32 columns (MF-SGD, LDA).
+int harp_load_triples(const char* path, int n_threads, int32_t* u_buf,
+                      int32_t* i_buf, float* v_buf, int64_t n) {
+  Mapped m = read_file(path);
+  if (!m.ok) return 1;
+  int nt = n_threads > 0 ? n_threads : 1;
+  std::vector<size_t> begins(nt), ends(nt);
+  std::vector<int64_t> r(nt, 0), c(nt, 0);
+  size_t chunk = m.size / nt + 1;
+  {
+    std::vector<std::thread> ts;
+    for (int t = 0; t < nt; ++t) {
+      begins[t] = align_to_line(m.data, t * chunk, m.size);
+      ends[t] = align_to_line(m.data, (t + 1) * chunk, m.size);
+      if (ends[t] > m.size) ends[t] = m.size;
+      ts.emplace_back(count_range, m.data, begins[t], ends[t], &r[t], &c[t]);
+    }
+    for (auto& t : ts) t.join();
+  }
+  std::vector<int64_t> row0(nt, 0);
+  for (int t = 1; t < nt; ++t) row0[t] = row0[t - 1] + r[t - 1];
+  if (row0[nt - 1] + r[nt - 1] != n) { std::free(m.data); return 2; }
+
+  auto parse_range = [&](int t) {
+    const char* p = m.data + begins[t];
+    const char* end = m.data + ends[t];
+    int64_t row = row0[t];
+    while (p < end) {
+      const char* nl = static_cast<const char*>(memchr(p, '\n', end - p));
+      const char* line_end = strip_comment(p, nl ? nl : end);
+      if (line_end > p && !blank_line(p, line_end)) {
+        const char* q = p;
+        skip_seps(q, line_end);
+        u_buf[row] = static_cast<int32_t>(std::strtol(q, const_cast<char**>(&q), 10));
+        skip_seps(q, line_end);
+        i_buf[row] = static_cast<int32_t>(std::strtol(q, const_cast<char**>(&q), 10));
+        skip_seps(q, line_end);
+        v_buf[row] = (q < line_end) ? parse_float(q) : 0.0f;
+        ++row;
       }
       p = nl ? nl + 1 : end;
     }

@@ -145,9 +145,10 @@ def test_errors_and_unported_paths():
                  lambda: m.compile_epochs(2), lambda: m.fit(1)):
         with pytest.raises(RuntimeError, match="set_ratings"):
             call()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        m.fit(2, ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # checkpoints are ported: fault without a checkpoint directory is
+    # refused
+    m.set_ratings(*synthetic_ratings(16, 16, 200, rank=2, seed=0))
+    with pytest.raises(ValueError, match="ckpt_dir"):
         m.fit(2, fault=lambda epoch: None)
     with pytest.raises(ValueError, match="must be"):
         CC.CCD(16, 16, CC.CCDConfig(rank=4), device="cpu",

@@ -320,10 +320,18 @@ def test_use_pallas_auto_per_path():
 
 @pytest.mark.parametrize("kw", [{"ckpt_dir": "x"}, {"fault": object()}],
                          ids=["ckpt_dir", "fault"])
-def test_unported_options_raise_naming_the_roadmap(kw):
+def test_unported_options_raise_naming_the_roadmap(kw, tmp_path):
+    """Both options are ported: ``ckpt_dir`` gives the plain fit's bits,
+    and ``fault`` without ``ckpt_dir`` is refused (the reference's rule)."""
     pts = blobs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KM.fit(pts, k=4, iters=1, mesh=CPU, **kw)
+    if "fault" in kw:
+        with pytest.raises(ValueError, match="ckpt_dir"):
+            KM.fit(pts, k=4, iters=1, mesh=CPU, **kw)
+        return
+    want = KM.fit(pts, k=4, iters=3, mesh=CPU)
+    got = KM.fit(pts, k=4, iters=3, mesh=CPU, ckpt_dir=str(tmp_path / "x"))
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
 
 
 def test_kmeanspp_init_matches_reference():

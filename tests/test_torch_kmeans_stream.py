@@ -348,13 +348,18 @@ def test_config_validation_and_unported_paths(tmp_path):
     with pytest.raises(ValueError, match="quantize"):
         KS.StreamConfig(quantize="int4")
     pts = blobs(n=64, d=3)
-    for kw in ({"ckpt_dir": str(tmp_path)}, {"fault": object()}):
-        for fn in (KS.fit_streaming, KS.fit_streaming_local):
-            with pytest.raises(NotImplementedError, match="item 5"):
-                fn(pts, k=2, iters=1, mesh=CPU, **kw)
+    for fn in (KS.fit_streaming, KS.fit_streaming_local):
+        # checkpoints are ported: fault without ckpt_dir is refused, and a
+        # checkpointed fit ends on the plain fit's bits
+        with pytest.raises(ValueError, match="ckpt_dir"):
+            fn(pts, k=2, iters=1, mesh=CPU, fault=object())
+        want = fn(pts, k=2, iters=2, mesh=CPU)
+        got = fn(pts, k=2, iters=2, mesh=CPU,
+                 ckpt_dir=str(tmp_path / fn.__name__))
+        np.testing.assert_array_equal(got[0], want[0])
     with pytest.raises(NotImplementedError, match="item 8"):
         KS.main(["--elastic", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(SystemExit, match="--input"):
         KS.main(["--ckpt-dir", str(tmp_path), "--device", "cpu"])
 
 

@@ -339,8 +339,9 @@ def test_validations_match_reference():
     with pytest.raises(ValueError, match="do not fit sizes"):
         M.MLPTrainer(M.MLPConfig(sizes=(16, 8, 4)), device="cpu",
                      state={"params": tr.params})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tr.fit_ckpt(*mlp_data(), 2, "ckpt")
+    # fit_ckpt is ported: fault without a checkpoint directory is refused
+    with pytest.raises(ValueError, match="ckpt_dir"):
+        tr.fit_ckpt(*mlp_data(), 2, None, fault=object())
 
 
 def test_reshuffle_contract():

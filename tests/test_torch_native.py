@@ -182,12 +182,21 @@ def test_gzip_text_parses_like_plain(native_lib, tmp_path):
 
 
 def test_parquet_is_not_ported_yet(tmp_path):
+    """Parquet is ported: load_csv and FileSplits read a file as the
+    reference's do, and a file that is not Parquet fails in pyarrow."""
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+
+    pts = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
     p = str(tmp_path / "x.parquet")
-    pathlib.Path(p).write_bytes(b"")
-    for call in (lambda: DS.load_csv(p), lambda: DS.CSVPoints(p),
-                 lambda: DS.FileSplits([p], 1, [0])):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    pq.write_table(pa.table({f"c{j}": pts[:, j] for j in range(3)}), p)
+    np.testing.assert_array_equal(DS.load_csv(p), JDS.load_csv(p))
+    with DS.FileSplits([p], 1, [0], chunk_rows=16) as fs:
+        np.testing.assert_array_equal(fs.next_block(0, 40), pts)
+    bad = str(tmp_path / "bad.parquet")
+    pathlib.Path(bad).write_bytes(b"")
+    with pytest.raises(Exception, match="(?i)parquet"):
+        DS.load_csv(bad)
 
 
 # ---- file placement and file splits ------------------------------------------

@@ -23,17 +23,19 @@ from harp_tpu_torch.models import lda as LD
 from harp_tpu_torch.models import mfsgd as MF
 from harp_tpu_torch.models import mlp as ML
 from harp_tpu_torch.models import rf as RF
+from harp_tpu_torch.models import stats as ST
 from harp_tpu_torch.models import subgraph as SG
 from harp_tpu_torch.models import svm as SV
 from harp_tpu_torch.models import wdamds as WD
 from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
 from harp_tpu_torch.parallel import mesh as M
+from harp_tpu_torch.utils import fault as FT
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "harp_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_world.py"]
-FORBIDDEN = {"jax", "jaxlib", "harp_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "harp_tpu", "orbax", "ml_dtypes"}
 
 
 def _imported_roots(path):
@@ -49,6 +51,18 @@ def _imported_roots(path):
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_file_imports_neither_jax_nor_harp_tpu(path):
     assert not FORBIDDEN & set(_imported_roots(path))
+
+
+def test_no_port_file_imports_orbax():
+    """The port's checkpoints are its own format: orbax is a JAX library,
+    and no port file (the new checkpoint and fault modules included)
+    imports it."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"harp_tpu_torch/utils/checkpoint.py",
+            "harp_tpu_torch/utils/fault.py",
+            "harp_tpu_torch/models/stats.py"} <= names
+    for path in PORT_FILES:
+        assert "orbax" not in set(_imported_roots(path)), path
 
 
 def _port_modules():
@@ -89,8 +103,9 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.native.build",
             "harp_tpu_torch.native.datasource", "harp_tpu_torch.table",
             "harp_tpu_torch.benchmark", "harp_tpu_torch.models.subgraph",
-            "harp_tpu_torch.models.mlp", "harp_tpu_torch.models.ccd"} <= set(
-                mods)
+            "harp_tpu_torch.models.mlp", "harp_tpu_torch.models.ccd",
+            "harp_tpu_torch.utils.checkpoint",
+            "harp_tpu_torch.utils.fault"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -104,6 +119,22 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         M.WorkerMesh()
     assert M.WorkerMesh("cpu").device == torch.device("cpu")
+
+
+_X = np.random.default_rng(0).normal(size=(16, 4)).astype(np.float32)
+_U = np.arange(16, dtype=np.int32) % 4
+#: every stats app, called with no device and no mesh
+STATS_APPS = {
+    "moments": lambda: ST.moments(_X),
+    "covariance": lambda: ST.covariance(_X),
+    "pca": lambda: ST.pca(_X),
+    "naive_bayes": lambda: ST.naive_bayes_fit(np.abs(_X), _U, 4),
+    "linear_regression": lambda: ST.linear_regression(_X, _X[:, 0]),
+    "ridge_regression": lambda: ST.ridge_regression(_X, _X[:, 0]),
+    "tsqr": lambda: ST.tsqr(_X),
+    "svd": lambda: ST.svd(_X),
+    "als": lambda: ST.als(_U, _U, _X[:, 0], 4, 4, rank=2, iters=1),
+}
 
 
 @pytest.mark.parametrize("entry", ["fit", "benchmark", "cli", "mfsgd-MFSGD",
@@ -123,12 +154,28 @@ def test_worker_mesh_without_a_device_raises_without_cuda():
                                    "mlp-MLPTrainer", "mlp-TPMLPTrainer",
                                    "mlp-mesh_2d", "mlp-benchmark", "mlp-cli",
                                    "mlp-cli-train", "ccd-CCD",
-                                   "ccd-benchmark", "ccd-cli"])
-def test_entry_points_without_a_device_raise_without_cuda(entry):
+                                   "ccd-benchmark", "ccd-cli",
+                                   *(f"stats-{a}" for a in STATS_APPS),
+                                   "stats-cli", "wdamds-weights",
+                                   "svm-fit_sparse", "kmeans-ckpt"])
+def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
     with M.use_mesh(None), pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "fit":
+        if entry.startswith("stats-") and entry != "stats-cli":
+            STATS_APPS[entry.removeprefix("stats-")]()
+        elif entry == "stats-cli":
+            ST.main(["cov", "--n", "16", "--d", "4"])
+        elif entry == "wdamds-weights":
+            WD.mds(np.zeros((8, 8), np.float32), weights=np.ones((8, 8)))
+        elif entry == "svm-fit_sparse":
+            SV.SVM().fit_sparse(np.zeros((4, 1), np.int32),
+                                np.ones((4, 1), np.float32),
+                                np.ones((4, 1), np.float32),
+                                np.ones(4, np.float32), 2)
+        elif entry == "kmeans-ckpt":
+            KM.fit(pts, k=2, iters=1, ckpt_dir=str(tmp_path / "c"))
+        elif entry == "fit":
             KM.fit(pts, k=2, iters=1)
         elif entry == "benchmark":
             KM.benchmark(n=16, d=4, k=2, iters=1)
@@ -301,19 +348,8 @@ _PTS = np.zeros((16, 4), np.float32)
 #: (what, a call that is not ported yet, a phrase of the ROADMAP item that
 #: its message must name)
 UNPORTED = [
-    ("kmeans-ckpt", lambda: KM.fit(_PTS, k=2, iters=1, device="cpu",
-                                   ckpt_dir="x"), "fit(ckpt_dir"),
-    ("stream-ckpt", lambda: KS.fit_streaming(_PTS, k=2, iters=1,
-                                             device="cpu", ckpt_dir="x"),
-     "streaming KMeans' `ckpt_dir`"),
     ("stream-elastic", lambda: KS.main(["--elastic", "--device", "cpu"]),
      "`elastic/`"),
-    ("parquet", lambda: DS.load_csv("x.parquet"), "Parquet"),
-    ("wdamds-weights", lambda: WD.mds(np.zeros((8, 8), np.float32),
-                                      device="cpu",
-                                      weights=np.ones((8, 8))),
-     "weighted path"),
-    ("svm-sparse", lambda: SV.make_train_fn_ell(), "fit_sparse"),
     ("lda-pack_cache", lambda: LD.benchmark(
         n_docs=16, vocab_size=8, n_topics=4, tokens_per_doc=2,
         pack_cache="x", device="cpu"), "pack_cache"),
@@ -321,12 +357,11 @@ UNPORTED = [
      "carry_w"),
     ("mfsgd-elastic", lambda: MF.main(["--elastic", "--device", "cpu"]),
      "`elastic/`"),
-    ("mlp-fit_ckpt", lambda: ML.MLPTrainer(ML.MLPConfig(sizes=(4, 8, 2)),
-                                           device="cpu").fit_ckpt(
-        _PTS, np.zeros(16, np.int32), 2, "x"), "fit_ckpt"),
-    ("ccd-ckpt", lambda: CD.CCD(16, 8, CD.CCDConfig(rank=4),
-                                device="cpu").fit(2, ckpt_dir="x"),
-     "fit(ckpt_dir"),
+    ("fault-dispatch", lambda: FT.FaultInjector(fail={"dispatch": (1,)}),
+     "flightrec"),
+    ("fault-h2d", lambda: FT.FaultInjector(delay={"h2d": 0.5}), "flightrec"),
+    ("fault-readback", lambda: FT.FaultInjector(
+        permanent={"readback": (1,)}, lost_worker=0), "flightrec"),
 ]
 
 

@@ -170,12 +170,15 @@ def test_state_from_the_reference_predicts_the_same(jmesh1):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SV.SVM(device="cpu").fit_sparse(None, None, None, None, 3)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SV.make_train_fn_ell()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SV.main(["--libsvm", "f.txt", "--device", "cpu"])
+    """The sparse path is ported: its input checks raise as the
+    reference's do."""
+    with pytest.raises(ValueError, match="±1"):
+        SV.SVM(device="cpu").fit_sparse(
+            np.zeros((2, 1), np.int32), np.ones((2, 1), np.float32),
+            np.ones((2, 1), np.float32), np.array([0.0, 2.0]), 3)
+    with pytest.raises(OSError):  # the native reader's, or open()'s
+        SV.main(["--libsvm", "no-such-file.txt", "--zero-based",
+                 "--device", "cpu"])
     with pytest.raises(ValueError, match="sv_wire"):
         SV.SVMConfig(sv_wire="fp8")
     with pytest.raises(ValueError, match="labels"):

@@ -114,7 +114,10 @@ def test_benchmark_delta_is_the_references():
 
 
 def test_weighted_path_raises():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        W.mds(mds_delta(), device="cpu", weights=np.ones((50, 50)))
+    """The weighted path is ported: it raises on bad weights only."""
+    with pytest.raises(ValueError, match="shape"):
+        W.mds(mds_delta(), device="cpu", weights=np.ones((5, 5)))
+    with pytest.raises(ValueError, match="nonnegative"):
+        W.mds(mds_delta(), device="cpu", weights=-np.ones((50, 50)))
     with pytest.raises(ValueError, match="coord_wire"):
         W.MDSConfig(coord_wire="fp8")

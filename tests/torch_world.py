@@ -1428,3 +1428,258 @@ def run_ccd_cases(rank: int, world: int, W0: np.ndarray,
         led = telemetry.ledger.summary()["ccd.epochs"]
     return {"rmses": rmses, "W": m.W.numpy().copy(),
             "H": m.H.numpy().copy(), "ledger": led}
+
+
+# ---- real-data readers -------------------------------------------------------
+
+def run_datasource_cases(rank: int, world: int, paths: list) -> dict:
+    """Each worker streams its own files of a mixed split directory."""
+    from harp_tpu_torch.native.datasource import FileSplits
+
+    out = {}
+    with FileSplits(paths, world, [rank], chunk_rows=64) as fs:
+        blocks = []
+        while True:
+            blk = fs.next_block(rank, 50)
+            if blk.shape[0] == 0:
+                break
+            blocks.append(blk)
+        out["rows"] = fs.rows(rank)
+        out["block"] = (np.concatenate(blocks) if blocks
+                        else np.zeros((0, fs.cols), np.float32))
+        out["amax"] = fs.amax()
+    return out
+
+
+# ---- the stats suite ---------------------------------------------------------
+
+def stats_inputs(seed: int = 0) -> dict:
+    """Seeded inputs of every stats app: 203 rows (ragged over 4 workers),
+    features with a mean offset and distinct scales (separated
+    eigenvalues), a target with an intercept, class labels, and ratings."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(203, 6)) * np.array([3.0, 2.0, 1.5, 1.0, 0.7, 0.4])
+         + 2.0).astype(np.float32)
+    # regression rows without the offset: the normal equations square the
+    # condition number, and with it f32 solves in either package scatter
+    # the intercept at ~3e-5 relative
+    xr = (x - 2.0).astype(np.float32)
+    w = rng.normal(size=6)
+    y = (xr @ w + 1.5 + 0.1 * rng.normal(size=203)).astype(np.float32)
+    return {"x": x, "xr": xr, "y": y, "y2": np.stack([y, 2.0 * y - 1.0], 1),
+            "cls": rng.integers(0, 3, 203).astype(np.int32),
+            "users": rng.integers(0, 37, 1500).astype(np.int32),
+            "items": rng.integers(0, 23, 1500).astype(np.int32),
+            "vals": rng.normal(size=1500).astype(np.float32)}
+
+
+def stats_results(S, inp: dict, device) -> dict:
+    """Every app of the port's stats module on ``inp``."""
+    x = inp["x"]
+    out = {"moments": S.moments(x, device=device),
+           "cov": S.covariance(x, device=device),
+           "pca": S.pca(x, device=device),
+           "nb": S.naive_bayes_fit(np.abs(x), inp["cls"], 3, device=device),
+           "lin": S.linear_regression(inp["xr"], inp["y"], device=device),
+           "lin2": S.linear_regression(inp["xr"], inp["y2"], device=device),
+           "ridge": S.ridge_regression(inp["xr"], inp["y"], l2=2.0,
+                                       device=device),
+           "ridge0": S.ridge_regression(inp["xr"], inp["y2"], l2=2.0,
+                                        fit_intercept=False, device=device),
+           "qr": S.tsqr(x, device=device),
+           "svd": S.svd(x, device=device),
+           "als": S.als(inp["users"], inp["items"], inp["vals"], 37, 23,
+                        rank=4, iters=3, device=device)}
+    out["nb_pred"] = S.naive_bayes_predict(out["nb"], np.abs(x))
+    return out
+
+
+def run_stats_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.models import stats as S
+
+    out = stats_results(S, stats_inputs(), "cpu")
+    try:
+        S.tsqr(np.ones((12, 6), np.float32), device="cpu")
+    except ValueError as e:
+        out["tsqr_error"] = str(e)
+    return out
+
+
+# ---- weighted WDA-MDS --------------------------------------------------------
+
+WMDS_SHAPE = {"n": 50, "dim": 2, "iters": 15, "cg_iters": 10}
+
+
+def wmds_inputs(seed: int = 5) -> tuple:
+    """(Δ, W): distances of 3-D points (50 rows, ragged over 4 workers),
+    with a seeded symmetric 10 % of the pairs weighted 0 and their δ
+    corrupted ×5; the other weights in [0.5, 1.5].  The weight graph stays
+    connected, and 15 SMACOF iterations of 10 CG steps stop far from
+    convergence, so no CG guard sits near its threshold."""
+    rng = np.random.default_rng(seed)
+    n = WMDS_SHAPE["n"]
+    pts = rng.normal(size=(n, 3)).astype(np.float32)
+    delta = np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1))
+    w = rng.uniform(0.5, 1.5, size=(n, n)).astype(np.float32)
+    w = (w + w.T) / 2
+    ii, jj = np.triu_indices(n, 1)
+    sel = rng.choice(len(ii), size=len(ii) // 10, replace=False)
+    w[ii[sel], jj[sel]] = w[jj[sel], ii[sel]] = 0.0
+    delta[ii[sel], jj[sel]] *= 5.0
+    delta[jj[sel], ii[sel]] *= 5.0
+    return delta.astype(np.float32), w
+
+
+def run_mds_weighted_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.models import wdamds as W
+    from harp_tpu_torch.utils import telemetry
+
+    delta, w = wmds_inputs()
+    s = WMDS_SHAPE
+    cfg = W.MDSConfig(dim=s["dim"], iters=s["iters"], cg_iters=s["cg_iters"])
+    with telemetry.scope():
+        X, stress = W.mds(delta, cfg, device="cpu", seed=0, weights=w)
+        led = telemetry.ledger.summary()["wdamds.mds"]
+    return {"X": X, "stress": stress, "ledger": led}
+
+
+# ---- SVM's sparse path -------------------------------------------------------
+
+SVM_SPARSE_WIRES = ("exact", "bf16")
+
+
+def svm_sparse_data(seed: int = 6, n: int = 203, d: int = 40,
+                    density: float = 0.15):
+    """Sparse rows of a seeded hyperplane task (203 rows, ragged over 4),
+    as ELL (ids, vals, mask), plus the dense rows and labels."""
+    from harp_tpu_torch.native.datasource import csr_to_ell
+
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, d)) * (rng.random((n, d)) < density)).astype(
+        np.float32)
+    y = np.sign(x @ rng.normal(size=d) + 0.05).astype(np.float32)
+    y[y == 0] = 1.0
+    r, c = np.nonzero(x)
+    indptr = np.concatenate([[0], np.cumsum((x != 0).sum(1))])
+    return csr_to_ell(indptr, c, x[r, c]), x, y
+
+
+def run_svm_sparse_cases(rank: int, world: int) -> dict:
+    from harp_tpu_torch.models import svm as SV
+
+    (ids, vals, mask), x, y = svm_sparse_data()
+    s = SVM_SHAPE
+    out = {}
+    for wire in SVM_SPARSE_WIRES:
+        cfg = SV.SVMConfig(inner_steps=s["inner_steps"],
+                           outer_rounds=s["outer_rounds"],
+                           sv_per_worker=s["sv_per_worker"], sv_wire=wire)
+        m = SV.SVM(cfg, device="cpu").fit_sparse(ids, vals, mask, y,
+                                                 x.shape[1])
+        out[wire] = {"w": m.w, "b": m.b}
+    return out
+
+
+# ---- checkpoint / fault recovery ---------------------------------------------
+
+#: trainer -> fail_at iterations: one after the first checkpoint, one
+#: before it (every trainer checkpoints after iteration 1 or chunk 0)
+RECOVERY_FAILS = {"after": (3,), "before": (0,)}
+RECOVERY_TRAINERS = ("kmeans-f32", "kmeans-int8", "mfsgd", "lda", "ccd",
+                     "mlp", "stream-f32", "stream-int8")
+REC_MF = {"algo": "dense", "u_tile": 8, "i_tile": 8, "entry_cap": 64}
+
+
+def recovery_points(seed: int = 3) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(4, 6)) * 6
+    return (centers[rng.integers(0, 4, 256)]
+            + rng.normal(size=(256, 6))).astype(np.float32)
+
+
+def recovery_mlp_data():
+    rng = np.random.default_rng(2)
+    return (rng.normal(size=(64, 16)).astype(np.float32),
+            rng.integers(0, 4, 64).astype(np.int32))
+
+
+def recovery_run(name: str, ckpt_dir, fail_at, starts: dict):
+    """One port trainer run → its result arrays.  ``ckpt_dir`` None is the
+    uninterrupted run; else ``fail_at`` (iterations, or None) injects
+    worker failures that the recovery loop absorbs."""
+    import torch
+
+    from harp_tpu_torch import convert
+    from harp_tpu_torch.models import ccd as CC
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.models import lda as L
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.models import mlp as M
+    from harp_tpu_torch.utils.fault import FaultInjector
+
+    kw = {} if ckpt_dir is None else {"ckpt_dir": ckpt_dir}
+    if fail_at is not None:
+        kw["fault"] = FaultInjector(fail_at=fail_at)
+    if name.startswith("kmeans"):
+        q = "int8" if name.endswith("int8") else None
+        c, inertia = KM.fit(recovery_points(), k=4, iters=8, seed=0,
+                            device="cpu", quantize=q, ckpt_every=2, **kw)
+        return {"c": c, "inertia": np.float64(inertia)}
+    if name.startswith("stream"):
+        q = "int8" if name.endswith("int8") else None
+        c, inertia, hist = KS.fit_streaming(
+            recovery_points(), k=4, iters=5, chunk_points=96, seed=0,
+            device="cpu", quantize=q, return_history=True, ckpt_every=1,
+            **kw)
+        return {"c": c, "hist": hist}
+    if name == "mfsgd":
+        u, i, v, W0, H0 = starts["mfsgd"]
+        m = MF.MFSGD(96, 64, MF.MFSGDConfig(rank=8, **REC_MF), device="cpu",
+                     state=convert.mfsgd_state_from_numpy(
+                         {"W": W0, "H": H0}, "cpu"))
+        m.set_ratings(u, i, v)
+        m.fit(5, ckpt_every=2, **kw)
+        return {"W": m.W.numpy().copy(), "H": m.H.numpy().copy()}
+    if name == "lda":
+        m = L.LDA(32, 40, L.LDAConfig(n_topics=4, algo="dense", d_tile=8,
+                                     w_tile=8, entry_cap=32),
+                  device="cpu", seed=1)
+        m.set_tokens(*L.synthetic_corpus(32, 40, 2, tokens_per_doc=12,
+                                         seed=1))
+        m.fit(5, ckpt_every=2, **kw)
+        return {"Ndk": m.doc_topic_table(), "Nwk": m.word_topic_table(),
+                "z": m.z_grid.numpy().copy()}
+    if name == "ccd":
+        u, i, v, W0, H0 = starts["ccd"]
+        m = CC.CCD(64, 48, CC.CCDConfig(rank=4), device="cpu",
+                   state=convert.ccd_state_from_numpy({"W": W0, "H": H0},
+                                                      "cpu"))
+        m.set_ratings(u, i, v)
+        m.fit(5, ckpt_every=2, **kw)
+        return {"W": m.W.numpy().copy(), "H": m.H.numpy().copy()}
+    if name == "mlp":
+        x, y = recovery_mlp_data()
+        tr = M.MLPTrainer(M.MLPConfig(sizes=(16, 32, 4), lr=0.05,
+                                      optimizer="momentum"), device="cpu",
+                          state=convert.mlp_params_from_numpy(
+                              starts["mlp"], "cpu"))
+        # one batch an epoch: the batch order is then trivial, as the
+        # reference comparison needs
+        hist = tr.fit_ckpt(x, y, 5, kw.pop("ckpt_dir", None), batch_size=64,
+                           ckpt_every=2, **kw)
+        out = {f"{i}{k}": p[k].numpy().copy()
+               for i, p in enumerate(tr.params) for k in p}
+        out["hist"] = np.asarray(hist)
+        return out
+    raise ValueError(name)
+
+
+def run_fault_cases(rank: int, world: int, root: str, starts: dict) -> dict:
+    out = {}
+    for name in RECOVERY_TRAINERS:
+        out[name] = {"clean": recovery_run(name, None, None, starts)}
+        for when, fail_at in RECOVERY_FAILS.items():
+            out[name][when] = recovery_run(
+                name, os.path.join(root, f"{name}-{when}"), fail_at, starts)
+    return out
