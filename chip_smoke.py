@@ -204,7 +204,30 @@ fatal when it fails (exit code != 0 and no result line):
    killed after two epochs and resumed by the CLI's --resume; the seconds
    and bytes a checkpoint costs; a lone ckpt_write fault leaves its tmp.*
    and no damage (durable_phase);
-40. one JSON line of the kernels, the card's name and power limit, and
+40. the serving plane (no kernel of ours; TF32 off) at full width, each
+   engine from a cold graph cache: KMeans k = 1000 x d = 300, MF-SGD
+   top-10 served from phase 39's durable MF-SGD checkpoint (138,493 x
+   26,744, rank 64; its factors exported through MFSGD.factors()), LDA
+   50,000 words x 1000 topics with 16 EM steps, the MLP at MNIST width
+   (784, 512, 256, 10), RF 32 trees of depth 6 on 64 features, SVM
+   d = 128: the burst benchmark row over a timed window of at least
+   1 s of single-row requests in bursts that land on every rung (qps,
+   p50/p95/p99 ms over every request of the window, padding_frac,
+   startup seconds, captures, cache hits and misses, steady_compiles 0,
+   one dispatch and one readback a batch), and the card's raw step
+   outputs against the CPU's, batch by batch, on the same requests
+   answered by Server.process and by a depth-2 ContinuousRunner, with
+   batches of several rungs (the same rung too) in flight back to back
+   (ids and classes equal; MF-SGD scores rtol 1e-5, MLP logits and SVM
+   scores rtol 1e-5 with an atol of 1e-5 of the batch's largest |value|,
+   LDA's θ rtol 1e-4 / atol 1e-6); then KMeans' sustained A/B over
+   40,000 requests with a 5 % dispatch fault rate (every request served,
+   every fault retried), and a warm restart from the same cache
+   directory (no kernel build, a hit and a capture a rung); K1-K8 launch
+   nothing (serve_phase);
+41. the pipeline on the card at S = 1: forward and stage gradients
+   against the CPU (rtol 1e-4 / atol 1e-5) (pipeline_phase);
+42. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -307,6 +330,30 @@ DUR_EVERY, DUR_ML_NNZ, DUR_LDA_DOCS, DUR_EPOCHS = 2, 2_000_000, 20_000, 4
 DUR_STREAM_N, DUR_STREAM_EPOCHS = 2_500_000, 4
 # CCD++'s tolerance for another f32 order of its sums (tests/test_torch_ccd.py)
 CCD_RTOL = 1e-4
+# the serving plane at full width (phase 40): each engine's synthetic state
+# shape, or (MF-SGD) phase 39's checkpoint; the bench's default ladder
+SERVE_SHAPES = {"kmeans": {"k": 1000, "d": 300},
+                "lda": {"vocab_size": LDA_VOCAB, "n_topics": LDA_TOPICS},
+                "mlp": {"sizes": (784, 512, 256, 10)},
+                "rf": {"n_trees": 32, "max_depth": 6, "n_features": 64,
+                       "n_bins": 32, "n_classes": 2},
+                "svm": {"d": 128}}
+# the burst bench: burst sizes taken in turn (each lands on a rung, the
+# last three padded), over distinct requests served again until the
+# timed window lasts SERVE_SECONDS (LDA: one round, ~50,000 floats of
+# JSON a request); the sustained A/B's requests and dispatch fault rate
+SERVE_BURSTS = (1, 8, 64, 512, 5, 40, 300)
+SERVE_REQUESTS, SERVE_SECONDS = 4 * sum(SERVE_BURSTS), 1.0
+SERVE_SUSTAINED, SERVE_FAULT_RATE = 40_000, 0.05
+# the card against the CPU: the rows of each request, in bursts; the
+# bursts give batches of 512, 512, 8 | 64 | 1 on the burst plane and
+# 512, 512, 64, 8 on the continuous one.  LDA's CPU step at full width
+# costs ~3 GFLOP a row, so it stays under the 512-rung: 64 | 64 | 8 | 1
+# and 64, 64, 64
+SERVE_CHECK_BURSTS = ((1, 5, 64, 300, 512, 148), (40, 24), (1,))
+SERVE_CHECK_BURSTS_LDA = ((1, 5, 58), (64,), (8,), (1,))
+# the pipeline at S = 1 (phase 41)
+PIPE_M, PIPE_MB, PIPE_W = 8, 256, 512
 
 
 def fail(msg: str) -> None:
@@ -3301,6 +3348,272 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
     return launches
 
 
+def _serve_raw(srv, bursts: list, plane: str) -> tuple[list, int]:
+    """The raw step outputs, batch by batch as ``(rung, array)``, of the
+    requests of ``bursts`` answered by ``Server.process`` a burst at a
+    time (``plane`` "burst": batch i+1 is staged while batch i is in
+    flight) or all at once by a depth-2 ``ContinuousRunner`` on a fixed
+    clock ("continuous": batch t+1 is dispatched before batch t is read
+    back); and the most batches that were in flight at once."""
+    got, most = [], 1
+    readback = srv._readback
+
+    def record(rung, out_dev):
+        out = readback(rung, out_dev)
+        got.append((rung, out))
+        return out
+
+    srv._readback = record
+    try:
+        if plane == "burst":
+            resp = [r for burst in bursts for r in srv.process(burst)]
+        else:
+            runner = srv.make_runner(depth=2, clock=lambda: 0.0)
+            pairs = []
+            for i, r in enumerate(r for burst in bursts for r in burst):
+                pairs += runner.submit(i, r, now=0.0)
+            while runner.pending():
+                pairs += runner.step(1.0)
+                most = max(most, len(runner._in_flight))
+            resp = [r for _, r in sorted(pairs, key=lambda kv: kv[0])]
+    finally:
+        del srv._readback
+    if len(resp) != sum(map(len, bursts)) or any("result" not in r
+                                                 for r in resp):
+        fail(f"serve {srv.app} ({plane}): a request was not served: "
+             f"{[r for r in resp if 'result' not in r][:1]}")
+    return got, most
+
+
+def _serve_agree(app: str, card_out: list, cpu_out: list, topk: int
+                 ) -> float:
+    """Fail unless the card's raw outputs match the CPU's at the app's
+    tolerance; return the largest float difference."""
+    import numpy as np
+
+    if [r for r, _ in card_out] != [r for r, _ in cpu_out]:
+        fail(f"serve {app}: the card's batches took rungs "
+             f"{[r for r, _ in card_out]}, the CPU's "
+             f"{[r for r, _ in cpu_out]}")
+    worst = 0.0
+    for (_, g), (_, c) in zip(card_out, cpu_out):
+        if app in ("kmeans", "rf"):
+            ok = np.array_equal(g, c)
+        elif app == "mfsgd":
+            ok = (np.array_equal(g[:, :topk], c[:, :topk])
+                  and np.allclose(g[:, topk:], c[:, topk:], rtol=1e-5,
+                                  atol=1e-6))
+            worst = max(worst, float(np.abs(g[:, topk:] - c[:, topk:]).max()))
+        elif app == "lda":
+            ok = np.allclose(g, c, rtol=1e-4, atol=1e-6)
+        elif app == "mlp":
+            # a logit near zero is a cancellation of terms of the row's
+            # size: its error is relative to that size, hence the atol
+            ok = (np.allclose(g, c, rtol=1e-5,
+                              atol=1e-5 * float(np.abs(c).max()))
+                  and np.array_equal(g.argmax(1), c.argmax(1)))
+        else:
+            ok = (np.allclose(g, c, rtol=1e-5,
+                              atol=1e-5 * float(np.abs(c).max()))
+                  and np.array_equal(g >= 0, c >= 0))
+        if app not in ("kmeans", "rf", "mfsgd"):
+            worst = max(worst, float(np.abs(g - c).max()))
+        if not ok:
+            fail(f"serve {app}: the card's step output differs from the "
+                 f"CPU's (max |diff| {np.abs(g.astype(np.float64) - c).max()})")
+    return worst
+
+
+def serve_phase(dev, card: str, tmp: str) -> None:
+    """Phase 40: every serve engine at full width on the card (module
+    docstring).  Needs phase 39's MF-SGD checkpoint under ``tmp``."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.ops import (flash_attention, kmeans_kernel,
+                                    lda_kernel, mfsgd_kernel, rf_kernel,
+                                    svm_kernel, wdamds_kernel)
+    from harp_tpu_torch.ops import build
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+    from harp_tpu_torch.serve import bench as SB
+    from harp_tpu_torch.serve.engines import ENGINES
+    from harp_tpu_torch.serve.server import Server
+    from harp_tpu_torch.utils import flightrec, telemetry
+    from harp_tpu_torch.utils.checkpoint import CheckpointManager
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("serve: TF32 must be off for the card-against-CPU checks")
+    kernels = (flash_attention, kmeans_kernel, lda_kernel, mfsgd_kernel,
+               rf_kernel, svm_kernel, wdamds_kernel)
+    launched = [dict(k.LAUNCHES) for k in kernels]
+    builds = set(build.BUILD_LOG)
+    mesh, cpu = WorkerMesh(dev), WorkerMesh("cpu")
+    print("serve: TF32 off; every product an f32 matmul on both sides")
+
+    # MF-SGD: phase 39's checkpoint holds the trainer's padded layout;
+    # serving takes the stripped factors (MFSGD.factors()), written as a
+    # checkpoint of their own
+    step, st = CheckpointManager(os.path.join(tmp, "mfsgd")).restore_latest()
+    m = MF.MFSGD(ML_USERS, ML_ITEMS, MF.MFSGDConfig(rank=ML_RANK,
+                                                    algo="pallas"), seed=0)
+    m.W, m.H = (torch.as_tensor(st[k]).to(dev) for k in ("W", "H"))
+    W, H = m.factors()
+    del m, st
+    mf_ckpt = os.path.join(tmp, "serve-mfsgd")
+    CheckpointManager(mf_ckpt).save(step, {"W": W, "H": H})
+    print(f"serve mfsgd: phase 39's checkpoint step {step} exported as "
+          f"{W.shape[0]} x {H.shape[0]} factors, rank {W.shape[1]}")
+
+    for app in sorted(ENGINES):
+        t0 = time.perf_counter()
+        cdir = os.path.join(tmp, f"graphs-{app}")
+        kw = ({"ckpt": mf_ckpt} if app == "mfsgd"
+              else {"state_shape": SERVE_SHAPES[app]})
+        row = SB.benchmark(
+            app=app, n_requests=(sum(SERVE_BURSTS) if app == "lda"
+                                 else SERVE_REQUESTS),
+            burst=SERVE_BURSTS, min_seconds=SERVE_SECONDS, mesh=mesh,
+            cache_dir=cdir, **kw)
+        n_rungs = len(row["ladder"])
+        if not (row["steady_compiles"] == 0 and row["budget_violations"] == 0
+                and row["steady_dispatches"] == row["batches"]
+                == row["steady_readbacks"] > 0):
+            fail(f"serve {app}: steady-state budget broken: {row}")
+        if (row["startup_captures"], row["cache_misses"]) != (n_rungs,
+                                                               n_rungs):
+            fail(f"serve {app}: cold start captured "
+                 f"{row['startup_captures']} graphs with "
+                 f"{row['cache_misses']} misses for {n_rungs} rungs")
+        print(f"serve {app} bench: {row['n_requests']} requests in "
+              f"{row['window_s']} s (bursts {SERVE_BURSTS} in turn): "
+              f"{row['qps']:.1f} qps, p50/p95/p99 "
+              f"{row['p50_ms']}/{row['p95_ms']}/{row['p99_ms']} ms, "
+              f"padding_frac {row['padding_frac']}, {row['batches']} "
+              f"batches with {row['steady_dispatches']} dispatches and "
+              f"{row['steady_readbacks']} readbacks, steady_compiles "
+              f"{row['steady_compiles']}; startup {row['startup_sec']} s, "
+              f"{row['startup_captures']} captures, cache "
+              f"{row['cache_hits']} hits / {row['cache_misses']} misses, "
+              f"exec_hbm {row['exec_hbm_bytes']} B [{card}]")
+        # the same state (the bench's seed) on a warm start, and the CPU
+        state = (None if app == "mfsgd" else ENGINES[app].synthetic_state(
+            np.random.default_rng(0), **SERVE_SHAPES[app]))
+        opts = {"topk": 10} if app == "mfsgd" else {}
+        with telemetry.scope(True):
+            t1 = time.perf_counter()
+            srv = Server(app, state, ckpt=kw.get("ckpt"), mesh=mesh,
+                         cache_dir=cdir, engine_opts=opts)
+            info = srv.startup()
+            warm_s = time.perf_counter() - t1
+            events = {r["event"] for r in flightrec.compile_watch.records}
+        if (info["cache_hits"], info["cache_misses"], info["captures"]) != (
+                n_rungs, 0, n_rungs) or events != {"graph_capture"} \
+                or set(build.BUILD_LOG) != builds:
+            fail(f"serve {app}: warm restart {info}, compile events "
+                 f"{events}, builds {sorted(set(build.BUILD_LOG) - builds)}")
+        ref = Server(app, state, ckpt=kw.get("ckpt"), mesh=cpu,
+                     engine_opts=opts)
+        ref.startup()
+        rng = np.random.default_rng(5)
+        bursts = [[srv.engine.synthetic_request(rng, n) for n in b]
+                  for b in (SERVE_CHECK_BURSTS_LDA if app == "lda"
+                            else SERVE_CHECK_BURSTS)]
+        checked = []
+        for plane in ("burst", "continuous"):
+            got, most = _serve_raw(srv, bursts, plane)
+            want, _ = _serve_raw(ref, bursts, plane)
+            worst = _serve_agree(app, got, want, 10)
+            if plane == "continuous" and most != 2:
+                fail(f"serve {app}: the continuous plane never had two "
+                     f"batches in flight")
+            checked.append(f"{plane} rungs {[r for r, _ in got]} (max "
+                           f"float diff {worst:.3e})")
+        print(f"serve {app}: warm restart {warm_s:.2f} s, {info['captures']}"
+              f" captures, {info['cache_hits']} hits, no kernel build; the "
+              f"card's raw outputs match the CPU's batch by batch on "
+              f"{sum(map(len, bursts))} requests: {'; '.join(checked)}; "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del srv, ref
+        torch.cuda.empty_cache()
+
+    res = SB.benchmark_sustained(
+        app="kmeans", n_requests=SERVE_SUSTAINED, mesh=mesh,
+        state_shape=SERVE_SHAPES["kmeans"], fault_rate=SERVE_FAULT_RATE,
+        cache_dir=os.path.join(tmp, "graphs-kmeans"))
+    # no deadline and no queue bound: nothing is shed, and at 5 % a batch
+    # never fails all 1 + max_retries attempts, so every request is served
+    if (res["served_requests"] + res["shed_requests"]
+            + res["failed_requests"] != res["offered_requests"]
+            or res["served_requests"] != res["offered_requests"]
+            or res["engine_failures"] != 0
+            or not 0 < res["faults_injected"] == res["fault_retries"]
+            or res["steady_compiles"] != 0
+            or res["steady_dispatches"] != res["batches"]
+            or res["steady_readbacks"] != res["batches"]):
+        fail(f"serve sustained: accounting broken: {res}")
+    print(f"serve kmeans sustained (fault rate {SERVE_FAULT_RATE}): "
+          f"offered {res['offered_qps']} qps, achieved {res['achieved_qps']}"
+          f" qps (burst plane {res['burst_qps']}), p50/p99 "
+          f"{res['p50_ms']}/{res['p99_ms']} ms; served "
+          f"{res['served_requests']} + shed {res['shed_requests']} + failed "
+          f"{res['failed_requests']} == offered {res['offered_requests']}; "
+          f"faults {res['faults_injected']}, retries {res['fault_retries']}"
+          f", budget drift {res['health_budget_drift']} [{card}]")
+    after = [dict(k.LAUNCHES) for k in kernels]
+    if after != launched:
+        fail(f"serve: a kernel launched on the serve path: {launched} -> "
+             f"{after}")
+    print("serve: K1-K8 launched nothing on the serve path")
+
+
+def pipeline_phase(dev, card: str) -> None:
+    """Phase 41: the pipeline at S = 1 on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                  pipeline_loss_and_grads)
+
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(PIPE_W, PIPE_W)) / np.sqrt(PIPE_W)).astype(
+        np.float32)
+    b = rng.normal(size=PIPE_W).astype(np.float32) * 0.1
+    x = rng.normal(size=(PIPE_M, PIPE_MB, PIPE_W)).astype(np.float32)
+    t = rng.normal(size=(PIPE_M, PIPE_MB, PIPE_W)).astype(np.float32)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    def loss(o, tt):
+        return ((o - tt) ** 2).mean()
+
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        p = {"w": torch.tensor(w, device=where),
+             "b": torch.tensor(b, device=where)}
+        t0 = time.perf_counter()
+        out = pipeline_forward(stage, p, x, device=where)
+        lval, g = pipeline_loss_and_grads(stage, loss, p, x, t, device=where)
+        vals = (out.cpu().numpy(), float(lval), g["w"].cpu().numpy(),
+                g["b"].cpu().numpy())
+        got[where.type] = (vals, time.perf_counter() - t0)
+    (co, cl, cw, cb), card_s = got["cuda"]
+    (ho, hl, hw, hb), _ = got["cpu"]
+    errs = [float(np.abs(a - c).max()) for a, c in ((co, ho), (cw, hw),
+                                                     (cb, hb))]
+    if not (np.allclose(co, ho, rtol=1e-4, atol=1e-5)
+            and abs(cl - hl) <= 1e-4 * abs(hl) + 1e-5
+            and np.allclose(cw, hw, rtol=1e-4, atol=1e-5)
+            and np.allclose(cb, hb, rtol=1e-4, atol=1e-5)
+            and np.isfinite(cw).all() and np.isfinite(cb).all()):
+        fail(f"pipeline: the card differs from the CPU (max |diff| of "
+             f"outputs, gw, gb: {errs}; loss {cl} vs {hl})")
+    print(f"pipeline S=1, M={PIPE_M} x [{PIPE_MB}, {PIPE_W}]: outputs, loss"
+          f" and stage gradients match the CPU (max |diff| {errs}); "
+          f"{card_s:.2f} s for a forward and a loss-and-grads [{card}]")
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -3532,6 +3845,12 @@ def main() -> int:
         rec = durable_phase(dev, card, tmp)
         print(f"phase durable runs: {time.perf_counter() - t0:.1f} s "
               f"[{card}]")
+        # -- 40-41. the serving plane, the pipeline ------------------------
+        for name, phase in (("serve", lambda: serve_phase(dev, card, tmp)),
+                            ("pipeline", lambda: pipeline_phase(dev, card))):
+            t0 = time.perf_counter()
+            phase()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name in ("kmeans_partials_int8", "kmeans_partials",
@@ -3540,7 +3859,7 @@ def main() -> int:
     rows["kmeans_partials_int8"]["stream_recovery_launches"] = rec[
         "stream_kmeans_partials_int8"]
 
-    # -- 40. result ----------------------------------------------------------
+    # -- 42. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",

@@ -26,6 +26,11 @@
     python -m harp_tpu_torch stats als --n 20000 --device cpu
     python -m harp_tpu_torch bench --max-mb 256
     python -m harp_tpu_torch bench --device cpu
+    python -m harp_tpu_torch serve kmeans --bench
+    python -m harp_tpu_torch serve kmeans --bench --device cpu
+    python -m harp_tpu_torch serve kmeans --ckpt DIR --device cpu [--tcp 0]
+    python -m harp_tpu_torch trace run.jsonl [--perfetto trace.json]
+    python -m harp_tpu_torch memory run.jsonl [--json]
     python -m harp_tpu_torch --list
 """
 
@@ -60,6 +65,12 @@ APPS = {
               "SVD, ALS"),
     "bench": ("harp_tpu_torch.benchmark",
               "collective micro-benchmarks (edu.iu.benchmark)"),
+    "serve": ("harp_tpu_torch.serve.server",
+              "resident-model inference server (JSONL over stdio or TCP)"),
+    "trace": ("harp_tpu_torch.utils.reqtrace",
+              "request timeline: validate/summarize a telemetry export"),
+    "memory": ("harp_tpu_torch.utils.memrec",
+               "device-memory ledger: validate/summarize an export"),
 }
 
 

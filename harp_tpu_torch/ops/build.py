@@ -7,7 +7,8 @@ device code lives in ``csrc/*.cuh`` headers.  The library lands in
 the source, the headers it includes and the flags, so an edited source or
 header rebuilds the libraries that use it and an unchanged one is reused.
 :func:`build` compiles several sources at once, one ``nvcc`` process each,
-all started together.
+all started together; each build counts as one compile on the flight
+recorder's CompileWatch.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
@@ -101,6 +102,9 @@ def build(names: list[str] | None = None, timeout_s: float = 600.0) -> None:
                 raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
             os.replace(tmp, library_path(name))
             BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            from harp_tpu_torch.utils import flightrec
+
+            flightrec.on_build(name, BUILD_LOG[name]["seconds"])
     finally:
         for proc, tmp, _ in procs.values():
             if proc.poll() is None:

@@ -36,10 +36,12 @@ dtype rules), and still records its bytes on the CommLedger.  Inputs are
 never modified.  bool tensors reduce as int32 and come back bool (ADD is
 any, MULTIPLY and MIN are all), the reference's contract.
 
-``rotate`` and ``regroup`` carry autograd, as the reference's ``ppermute``
-and ``all_to_all`` do: the backward of a rotate by ``s`` is a rotate by
-``-s``, that of a regroup the regroup with ``split_dim`` and
-``concat_dim`` swapped.  The backward moves are not recorded again.
+``rotate``, ``regroup`` and float ``broadcast`` carry autograd, as the
+reference's ``ppermute``, ``all_to_all`` and custom-JVP broadcast do: the
+backward of a rotate by ``s`` is a rotate by ``-s``, that of a regroup the
+regroup with ``split_dim`` and ``concat_dim`` swapped, and that of a
+broadcast the cotangents summed onto the root.  The backward moves are not
+recorded again.
 """
 
 from __future__ import annotations
@@ -144,17 +146,45 @@ def allgather(tree: Any, *, tiled: bool = True):
     return tree_map(gather, tree)
 
 
+def _bcast(x: torch.Tensor, root: int) -> torch.Tensor:
+    y = (x.to(torch.uint8) if x.dtype == torch.bool else x).clone()
+    if num_workers() > 1:
+        dist.broadcast(y, src=root)
+    return y.to(x.dtype)
+
+
+class _BroadcastFn(torch.autograd.Function):
+    """A float :func:`broadcast` with its adjoint.  The forward moves bytes
+    (bit-exact); broadcast is the masked sum of the reference
+    (``psum(where(me == root, x, 0))``), so the backward is that sum's
+    transpose: the cotangents summed onto ``root``, zeros elsewhere."""
+
+    @staticmethod
+    def forward(ctx, x, root):
+        ctx.root = root
+        return _bcast(x, root)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _all_reduce(g.contiguous(), dist.ReduceOp.SUM)
+        if worker_id() != ctx.root:
+            total = torch.zeros_like(total)
+        return total, None
+
+
 def broadcast(tree: Any, root: int = 0):
     """Every worker receives root's value — Harp ``broadcast``.  The bytes
     move unchanged, so floats (subnormals and NaN payloads included) arrive
-    bit-exact, and non-root values are discarded whatever they hold."""
+    bit-exact, and non-root values are discarded whatever they hold.  A
+    float leaf carries autograd: its gradient is the workers' cotangents
+    summed onto ``root`` (zeros on the others); bool and integer leaves
+    are not differentiable."""
     record_comm("broadcast", tree)
 
     def bcast(x):
-        y = (x.to(torch.uint8) if x.dtype == torch.bool else x).clone()
-        if num_workers() > 1:
-            dist.broadcast(y, src=root)
-        return y.to(x.dtype)
+        if x.is_floating_point():
+            return _BroadcastFn.apply(x, root)
+        return _bcast(x, root)
 
     return tree_map(bcast, tree)
 

@@ -104,8 +104,12 @@ class WorkerMesh:
             raise ValueError(f"dimension {dim} of size {size} does not "
                              f"divide over {nw} workers")
         block = size // nw
-        return x.narrow(dim, self.rank * block, block).to(
-            self.device).contiguous()
+        part = x.narrow(dim, self.rank * block, block)
+        from harp_tpu_torch.utils import flightrec
+
+        # this worker's placement, counted by the flight recorder
+        flightrec.record_h2d(part.numel() * part.element_size())
+        return part.to(self.device).contiguous()
 
     def replicated(self, x) -> torch.Tensor:
         """``x`` whole on this worker's device (every worker holds it)."""

@@ -10,7 +10,7 @@ and its step, in atomic directories, keeping the last ``keep``, with a
 **Crash-atomic writes.**  :meth:`CheckpointManager.save` writes into
 ``tmp.<step>`` and renames it to ``step_<step>`` only once the write is
 complete; every reader ignores ``tmp.*``.  Just before the rename the save
-calls :func:`harp_tpu_torch.utils.fault.notify_ckpt_write`, the fault
+calls :func:`harp_tpu_torch.utils.flightrec.notify_ckpt_write`, the fault
 plane's ``ckpt_write`` site: a fault injected there is a crash after the
 bytes landed and before they count, so it leaves a ``tmp.*`` directory and
 the earlier steps untouched.  Against a checkpoint damaged by other means
@@ -47,7 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from harp_tpu_torch.utils import fault
+from harp_tpu_torch.utils import flightrec
 
 
 def _world() -> tuple[int, int]:
@@ -160,7 +160,7 @@ class CheckpointManager:
             json.dump({"step": step, "world": world, "tree": tree}, f)
         # the fault plane's ckpt_write site: the bytes are down, the rename
         # that makes them count is not
-        fault.notify_ckpt_write(final)
+        flightrec.notify_ckpt_write(final)
         _barrier()
         if rank == 0:
             if os.path.exists(final):  # a re-save of the step replaces it
@@ -213,4 +213,12 @@ class CheckpointManager:
                 f"workers, not {world}")
         with np.load(base + ".npz", allow_pickle=False) as arrays:
             state = _unflatten(meta["tree"], arrays)
+        from harp_tpu_torch.utils import memrec, telemetry
+
+        if telemetry.enabled():
+            # the restore lands in host memory: a zero-delta ledger event
+            arrs: list = []
+            _flatten(state, arrs)
+            memrec.on_restored(sum(a.nbytes for a in arrs),
+                               f"ckpt:step_{step}")
         return step, state

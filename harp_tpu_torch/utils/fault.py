@@ -10,14 +10,14 @@ iteration 0, with an injector that makes the recovery path testable.
   model's epoch loop on it, and :func:`factor_state_io` and
   :func:`check_restored_shapes` are the restore contract the models share.
 - :class:`FaultInjector` fails chosen iterations (``fail_at``, each once)
-  and the ``ckpt_write`` site on a seeded schedule.  The site is observed
-  through :func:`observe_ckpt_writes`, a small hook that
-  :meth:`CheckpointManager.save` calls just before its rename.
+  and the ``dispatch``, ``h2d``, ``readback`` and ``ckpt_write`` sites on a
+  seeded schedule.  Each site is an observer on the flight recorder
+  (:mod:`harp_tpu_torch.utils.flightrec`): a ``track``-wrapped dispatch, a
+  counted host to device placement, a ``flightrec.readback``, and
+  :meth:`CheckpointManager.save` just before its rename.
 
-Not ported yet (ROADMAP.md, Queue 1, item 8): the ``dispatch``, ``h2d`` and
-``readback`` sites, which observe the flight recorder (``flightrec``), and
-the superstep spans (``steptrace``) around :func:`fit_epochs`' epochs.
-Scheduling one of those sites raises ``NotImplementedError``.
+Not ported yet (ROADMAP.md, Queue 1, item 8): the superstep spans
+(``steptrace``) around :func:`fit_epochs`' epochs.
 """
 
 from __future__ import annotations
@@ -32,28 +32,12 @@ import torch
 
 log = logging.getLogger("harp_tpu_torch")
 
+from harp_tpu_torch.utils import flightrec
+from harp_tpu_torch.utils.flightrec import (  # noqa: F401 - re-exported
+    _CKPT_WRITE_OBSERVERS, notify_ckpt_write, observe_ckpt_writes)
+
 #: the injection sites, in the order an epoch loop meets them
 SITES = ("dispatch", "h2d", "readback", "ckpt_write")
-#: the sites that need the flight recorder
-_FLIGHTREC_SITES = ("dispatch", "h2d", "readback")
-
-_CKPT_WRITE_OBSERVERS: list = []
-
-
-@contextlib.contextmanager
-def observe_ckpt_writes(fn: Callable[[str], None]):
-    """Call ``fn(path)`` at every checkpoint write within the block, just
-    before the write's rename; an exception from ``fn`` aborts the save."""
-    _CKPT_WRITE_OBSERVERS.append(fn)
-    try:
-        yield
-    finally:
-        _CKPT_WRITE_OBSERVERS.remove(fn)
-
-
-def notify_ckpt_write(path: str) -> None:
-    for fn in list(_CKPT_WRITE_OBSERVERS):
-        fn(path)
 
 
 def _shape(v) -> tuple:
@@ -181,14 +165,15 @@ class FaultInjector:
       restarted run that passes it again goes on.
     - **Sites**: ``fail=``/``delay=``/``permanent=`` map a site to a
       probability or to 1-based event ordinals.  Inside :meth:`arm` a due
-      ``ckpt_write`` event raises :class:`InjectedFault` (``fail``), sleeps
+      event raises :class:`InjectedFault` (``fail``), sleeps
       ``delay_s`` (``delay``) or raises :class:`PermanentWorkerLoss` for
       ``lost_worker`` once (``permanent``).  ``max_faults`` bounds the
       injected failures.  One seeded generator draws every probability in
       event order, so a schedule replays exactly.
 
-    The ``dispatch``, ``h2d`` and ``readback`` sites raise
-    ``NotImplementedError``: they wait for the flight recorder."""
+    An observer fires before the observed operation is counted or
+    performed, so a failed dispatch never launched and the flight
+    recorder's counts stay those of the operations that ran."""
 
     def __init__(self, fail_at: tuple[int, ...] = (), *, seed: int = 0,
                  fail: dict[str, float | Collection[int]] | None = None,
@@ -203,11 +188,6 @@ class FaultInjector:
                 if site not in SITES:
                     raise ValueError(
                         f"unknown fault site {site!r} (sites: {SITES})")
-                if site in _FLIGHTREC_SITES:
-                    raise NotImplementedError(
-                        f"fault site {site!r} observes the flight recorder "
-                        "(utils/flightrec.py), which is not ported yet "
-                        "(ROADMAP.md, Queue 1, item 8)")
         self.fail = dict(fail or {})
         self.delay = dict(delay or {})
         self.permanent = dict(permanent or {})
@@ -237,6 +217,7 @@ class FaultInjector:
         n = self.seen[site]
         if _spec_fires(self.delay.get(site), n, self._rng):
             self.delayed[site] += 1
+            self._mark(site, n, "delay")
             time.sleep(self.delay_s)
         if (not self.permanent_fired
                 and _spec_fires(self.permanent.get(site), n, self._rng)):
@@ -244,6 +225,7 @@ class FaultInjector:
             self.permanent_fired = True
             self.injected[site] += 1
             self.events.append((site, n))
+            self._mark(site, n, "permanent")
             raise PermanentWorkerLoss(site, n, self.lost_worker)
         if (self.max_faults is not None
                 and sum(self.injected.values()) >= self.max_faults):
@@ -251,17 +233,41 @@ class FaultInjector:
         if _spec_fires(self.fail.get(site), n, self._rng):
             self.injected[site] += 1
             self.events.append((site, n))
+            self._mark(site, n, "fail")
             raise InjectedFault(site, n)
+
+    @staticmethod
+    def _mark(site: str, ordinal: int, action: str) -> None:
+        """A fired event is a ``source:"fault"`` mark on the request
+        tracer's timeline (a no-op while telemetry is off)."""
+        from harp_tpu_torch.utils import reqtrace, telemetry
+
+        if telemetry.enabled():
+            reqtrace.tracer.mark(
+                "fault", f"injected_{action}",
+                time.perf_counter() - telemetry.tracer._t0,
+                site=site, ordinal=ordinal)
 
     @contextlib.contextmanager
     def arm(self):
-        """Observe the scheduled sites within the block (an unscheduled
-        site is not observed at all)."""
+        """Observe the scheduled sites within the block, each through its
+        flight-recorder hook (an unscheduled site is not observed at
+        all)."""
+        hooks = {
+            "dispatch": lambda: flightrec.observe_dispatches(
+                lambda label: self.on_event("dispatch")),
+            "h2d": lambda: flightrec.observe_h2d(
+                lambda nbytes, site: self.on_event("h2d")),
+            "readback": lambda: flightrec.observe_readbacks(
+                lambda x: self.on_event("readback")),
+            "ckpt_write": lambda: flightrec.observe_ckpt_writes(
+                lambda path: self.on_event("ckpt_write")),
+        }
         with contextlib.ExitStack() as stack:
-            if any("ckpt_write" in s for s in (self.fail, self.delay,
-                                               self.permanent)):
-                stack.enter_context(observe_ckpt_writes(
-                    lambda path: self.on_event("ckpt_write")))
+            for site in SITES:
+                if (site in self.fail or site in self.delay
+                        or site in self.permanent):
+                    stack.enter_context(hooks[site]())
             yield self
 
     def counters(self) -> dict:

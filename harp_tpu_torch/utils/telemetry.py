@@ -15,14 +15,18 @@ one byte an element), its other leaves at their own.
 **Spans**: ``with span("kmeans.fit"): ...`` records name, duration and
 attributes.
 
-Both are off unless ``HARP_TELEMETRY=1`` is set or :func:`scope` turns
-them on; when off, ``record_comm`` returns before
-touching its argument.
+Both are off unless ``HARP_TELEMETRY=1`` is set or :func:`enable` /
+:func:`scope` turns them on; when off, ``record_comm`` returns before
+touching its argument.  The host planes (the flight recorder, the request
+tracer, the health sentinel and the memory ledger) share this switch;
+:func:`scope` resets them with the ledger and :func:`export` writes them
+all to one JSONL file (``HARP_TELEMETRY_OUT`` names it for a CLI).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from typing import Any
@@ -35,16 +39,41 @@ _ENABLED = os.environ.get("HARP_TELEMETRY", "0").lower() not in (
 _UNTAGGED = "(untagged)"
 
 
+def enabled() -> bool:
+    """Is telemetry collection on?"""
+    return _ENABLED
+
+
+def enable(on: bool = True) -> None:
+    """Turn collection on or off process-wide (tests use :func:`scope`)."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+def out_path() -> str | None:
+    """Export destination for instrumented CLIs (``HARP_TELEMETRY_OUT``)."""
+    return os.environ.get("HARP_TELEMETRY_OUT") or None
+
+
 @contextlib.contextmanager
 def scope(on: bool = True, *, reset: bool = True):
     """Turn collection on (or off) within a block, restoring the prior
-    flag on exit; ``reset`` clears the ledger and the tracer on entry."""
+    flag on exit; ``reset`` clears every collector on entry: the ledger,
+    the tracer, the flight recorder, the request tracer, the health
+    monitor and the memory ledger."""
     global _ENABLED
     prev = _ENABLED
     _ENABLED = bool(on)
     if reset:
         ledger.reset()
         tracer.reset()
+        from harp_tpu_torch import health
+        from harp_tpu_torch.utils import flightrec, memrec, reqtrace
+
+        flightrec.reset()
+        reqtrace.reset()
+        health.reset()
+        memrec.reset()
     try:
         yield
     finally:
@@ -131,6 +160,13 @@ class CommLedger:
     def bytes_per_execution(self, tag: str) -> int:
         return self.volume(tag) // max(self.executions(tag), 1)
 
+    def export_jsonl(self, fh) -> None:
+        for tag, t in sorted(self._tags.items()):
+            for r in t["verbs"].values():
+                fh.write(json.dumps({"kind": "comm", "tag": tag,
+                                     "executions": t["executions"],
+                                     **r}) + "\n")
+
     def summary(self) -> dict:
         out = {}
         for name, t in sorted(self._tags.items()):
@@ -150,8 +186,14 @@ class SpanTracer:
         self.reset()
 
     def reset(self) -> None:
+        self._t0 = time.perf_counter()
         self._stack: list[str] = []
         self.records: list[dict] = []
+
+    def current_path(self) -> str | None:
+        """The live span path ("epoch/ingest"), or None outside any span:
+        the flight recorder stamps its records with it."""
+        return "/".join(self._stack) or None
 
     @contextlib.contextmanager
     def span(self, name: str, **attrs: Any):
@@ -170,6 +212,10 @@ class SpanTracer:
                                  "dur": time.perf_counter() - t0,
                                  "depth": depth, **attrs})
 
+    def export_jsonl(self, fh) -> None:
+        for r in self.records:
+            fh.write(json.dumps({"kind": "span", **r}, default=str) + "\n")
+
 
 ledger = CommLedger()
 tracer = SpanTracer()
@@ -186,3 +232,37 @@ def record_comm(verb: str, tree: Any, *, combiner: str | None = None,
     if not _ENABLED:
         return
     ledger.record(verb, tree, combiner=combiner, wire_dtype=wire_dtype)
+
+
+def export(path: str) -> None:
+    """Write every collected record as one JSONL file: spans, the comm
+    ledger, the flight recorder, the request trace, the health findings
+    and the memory ledger (the input of ``python -m harp_tpu_torch trace``
+    and ``python -m harp_tpu_torch memory``)."""
+    from harp_tpu_torch import health
+    from harp_tpu_torch.utils import flightrec, memrec, reqtrace
+
+    with open(path, "w") as fh:
+        tracer.export_jsonl(fh)
+        ledger.export_jsonl(fh)
+        flightrec.export_jsonl(fh)
+        reqtrace.tracer.export_jsonl(fh)
+        health.export_jsonl(fh)
+        memrec.export_jsonl(fh)
+
+
+def load_rows(path: str) -> dict[str, list[dict]]:
+    """Read an :func:`export` file back, keyed by record kind (an unknown
+    kind lands under ``"comm"``, as in the reference)."""
+    out: dict[str, list[dict]] = {k: [] for k in (
+        "span", "comm", "compile", "transfer", "trace", "health",
+        "memory")}
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            row = json.loads(line)
+            kind = row.get("kind")
+            out[kind if kind in out else "comm"].append(row)
+    return out

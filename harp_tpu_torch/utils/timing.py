@@ -1,15 +1,20 @@
-"""Device synchronization and kernel timing on the card.
+"""Device synchronization, kernel timing and graph capture on the card.
 
 PyTorch returns from a CUDA call before the device has finished, so a host
 clock measures only the enqueue unless the timed region ends in a
-synchronize.  :func:`device_sync` is that end; :func:`cuda_ms` times a
-device-side run of many launches with CUDA events, and :func:`graph_ms`
-the same work replayed from a CUDA graph, without the host's launch cost.
+synchronize.  :func:`device_sync` is that end (one readback for the flight
+recorder); :func:`cuda_ms` times a device-side run of many launches with
+CUDA events, and :func:`graph_ms` the same work replayed from a CUDA graph,
+without the host's launch cost.  :func:`capture_graph` is the port's
+capture helper: each capture counts as one compile on the flight
+recorder's CompileWatch.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+import time
 
 import torch
 
@@ -22,7 +27,10 @@ def device_sync(x: Any) -> float:
     ``x`` is a tensor or a tuple/list/dict nest of tensors.  On the card
     this is ``torch.cuda.synchronize`` plus a scalar readback, which cannot
     complete before the work that produced it."""
+    from harp_tpu_torch.utils import flightrec
+
     leaf = tree_leaves(x)[0]
+    flightrec.record_readback(leaf.element_size())
     if leaf.is_cuda:
         torch.cuda.synchronize(leaf.device)
     return float(leaf.reshape(-1)[0].item())
@@ -43,15 +51,12 @@ def cuda_ms(fn: Callable[[], Any], *, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn: Callable[[], Any], *, reps: int = 20, replays: int = 5,
-             warmup: int = 2) -> float:
-    """Milliseconds per call of ``fn`` on the card with the host's launch
-    cost left out: ``reps`` calls captured in one CUDA graph, replayed
-    ``replays`` times between CUDA events.  The ``warmup`` calls run
-    first on the capturing side stream, so that nothing (a plan, a
-    workspace) is made during the capture.  A kernel of a few tens of
-    microseconds runs faster than Python launches it, so :func:`cuda_ms`
-    would time the launches; ``fn`` must not synchronize."""
+def _capture(fn: Callable[[], Any], warmup: int, reps: int = 1):
+    """``(graph, out)``: ``warmup`` calls of ``fn`` on a side stream, so
+    that nothing (a plan, a workspace) is made during the capture, then
+    ``reps`` calls captured in one CUDA graph; ``out`` is what the last
+    captured call returned and ``graph.pool_bytes`` the memory the
+    capture reserved (its graph pool, outputs included)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -59,9 +64,24 @@ def graph_ms(fn: Callable[[], Any], *, reps: int = 20, replays: int = 5,
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    reserved = torch.cuda.memory_reserved()
     with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
-            fn()
+            out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.pool_bytes = torch.cuda.memory_reserved() - reserved
+    return graph, out
+
+
+def graph_ms(fn: Callable[[], Any], *, reps: int = 20, replays: int = 5,
+             warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn`` on the card with the host's launch
+    cost left out: ``reps`` calls captured in one CUDA graph (after
+    ``warmup`` uncaptured ones), replayed ``replays`` times between CUDA
+    events.  A kernel of a few tens of microseconds runs faster than
+    Python launches it, so :func:`cuda_ms` would time the launches;
+    ``fn`` must not synchronize."""
+    graph, _ = _capture(fn, warmup, reps)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -72,3 +92,16 @@ def graph_ms(fn: Callable[[], Any], *, reps: int = 20, replays: int = 5,
     end.synchronize()
     return start.elapsed_time(end) / (reps * replays)
 
+
+def capture_graph(fn: Callable[[], Any], *, label: str = "graph"):
+    """Capture ``fn()`` into a CUDA graph after one warm-up call:
+    ``(graph, out)``, where ``out`` is what the capture's call returned
+    (static tensors that every ``graph.replay()`` rewrites) and
+    ``graph.pool_bytes`` the memory the capture reserved.  The capture
+    counts as one compile on the flight recorder, with its seconds."""
+    from harp_tpu_torch.utils import flightrec
+
+    t0 = time.perf_counter()
+    graph, out = _capture(fn, warmup=1)
+    flightrec.on_capture(label, time.perf_counter() - t0)
+    return graph, out

@@ -287,11 +287,19 @@ def test_injector_ordinal_schedule_counters_and_bounds():
 
 
 def test_injector_rejects_unknown_and_unported_sites():
+    """An unknown site is refused; the flight-recorder sites, once
+    unported, now arm an observer each (and only while armed)."""
+    from harp_tpu_torch.utils import flightrec as FR
+
     with pytest.raises(ValueError, match="unknown fault site"):
         FaultInjector(fail={"dispacth": 0.1})
-    for site in ("dispatch", "h2d", "readback"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            FaultInjector(fail={site: (1,)})
+    regs = {"dispatch": FR._DISPATCH_OBSERVERS, "h2d": FR._H2D_OBSERVERS,
+            "readback": FR._READBACK_OBSERVERS}
+    for site, reg in regs.items():
+        inj = FaultInjector(fail={site: (1,)})
+        with inj.arm():
+            assert len(reg) == 1
+        assert reg == []
 
 
 def test_injector_ckpt_write_site_leaves_only_a_tmp_dir(tmp_path):

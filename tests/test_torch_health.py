@@ -1,0 +1,136 @@
+"""The port's health sentinel (``health/sentinel.py``) against harp_tpu's.
+
+- ``SLOBurn`` on one outcome stream (a clean stretch, a cliff of sheds and
+  failures, deadline misses, latency over the objective, recovery): the
+  same burn rates, breaches, peaks, snapshots and findings.
+- The monitor's budget-drift and memory-pressure detectors on the same
+  observations: the same rows and summaries; the export's rows.
+- What waits for the skew and steptrace spines raises
+  ``NotImplementedError`` naming ROADMAP.md Queue 1 item 8.
+"""
+
+import io
+import json
+
+import numpy as np
+import pytest
+
+from harp_tpu import health as JH
+from harp_tpu.utils import telemetry as JT
+from harp_tpu_torch import health as PH
+from harp_tpu_torch.utils import telemetry as PT
+from torch_world import time_limit
+
+
+@pytest.fixture(autouse=True)
+def _limit():
+    with time_limit(60):
+        yield
+
+
+def _stream(seed=0):
+    """(t, outcome, latency_ms, deadline_missed) over 12 s."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(1200):
+        t = i * 0.01
+        if 4.0 <= t < 5.0:          # the cliff
+            o = ("shed", "failed", "served")[i % 3]
+        else:
+            o = "served" if rng.random() > 0.004 else "shed"
+        lat = float(rng.lognormal(1.0, 0.5))
+        out.append((t, o, lat if o == "served" else None,
+                    o == "served" and 6.0 <= t < 6.5))
+    return out
+
+
+def _burn_run(tel, health, **kw):
+    with tel.scope(True):
+        b = health.SLOBurn("serve.t", window_s=3.0, subwindows=6, **kw)
+        snaps = []
+        for i, (t, o, lat, missed) in enumerate(_stream()):
+            b.observe(t, o, latency_ms=lat, deadline_missed=missed, rid=i)
+            if i % 100 == 99:
+                snaps.append((b.burn(t), b.snapshot(t)))
+        rows = [{k: v for k, v in r.items() if k != "_seq"}
+                for r in health.monitor.findings()]
+        return (snaps, b.counts, b.breaches, b.peak_fast, b.peak_slow,
+                [{k: (str(v) if k == "tag" else v) for k, v in r.items()}
+                 for r in rows])
+
+
+@pytest.mark.parametrize("kw", [{}, {"latency_slo_ms": 6.0},
+                                {"error_budget": 0.2}])
+def test_slo_burn_matches_the_reference(kw):
+    ref = _burn_run(JT, JH, **kw)
+    got = _burn_run(PT, PH, **kw)
+    assert got == ref
+    if not kw:
+        assert got[2] >= 1 and got[5][0]["detector"] == "slo_burn"
+        assert got[5][0]["severity"] == "page"
+
+
+def test_slo_burn_is_free_while_off():
+    b = PH.SLOBurn("x")
+    with PT.scope(False):
+        b.observe(0.0, "shed")
+    assert b.counts["offered"] == 0 and not PH.monitor.findings()
+    with pytest.raises(ValueError):
+        PH.SLOBurn("x", subwindows=1)
+
+
+def _monitor_run(tel, health):
+    with tel.scope(True):
+        m = health.monitor
+        mark = m.mark()
+        m.observe_budget("serve.a", [("h2d_calls", 2, 1)])
+        m.observe_budget("serve.a", [("dispatches", 5, 1),
+                                     ("readbacks", 2, 1)])
+        m.observe_budget("bench.b", [("compiles", 1, 0)])
+        m.observe_memory("run", 95, 100)
+        m.observe_memory("run", 50, 100)              # no pressure
+        m.observe_memory("grade", 60, 100, baseline_peak=50)
+        m.observe_memory("none", 10, 0)
+        new = m.since(mark)
+        buf = io.StringIO()
+        m.export_jsonl(buf)
+        rows = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        return (len(new), m.summary(), rows,
+                health.summarize_rows(rows))
+
+
+def test_budget_drift_and_memory_pressure_match_the_reference():
+    ref = _monitor_run(JT, JH)
+    got = _monitor_run(PT, PH)
+    assert got == ref
+    n, summary, rows, s = got
+    assert n == 4 and s["actionable"] == 4
+    assert {r["detector"] for r in rows} == {"budget_drift",
+                                              "memory_pressure"}
+    assert rows[0]["violations"] == 2 and "dispatches" in rows[0]["worst"]
+
+
+def test_vocabularies_match_the_reference():
+    for name in ("DETECTORS", "SEVERITIES", "VERDICTS", "SLO_ERROR_BUDGET",
+                 "FAST_BURN_MIN", "SLOW_BURN_MIN", "PAGE_BURN",
+                 "WASTED_FRAC_TRIGGER", "TRIGGER_SUPERSTEPS"):
+        assert getattr(PH, name) == getattr(JH, name)
+    with PT.scope(True), pytest.raises(ValueError, match="detector"):
+        PH.monitor.upsert("nope", "k")
+
+
+def test_export_stamps_health_rows(tmp_path):
+    with PT.scope(True):
+        PH.monitor.observe_budget("t", [("readbacks", 3, 1)])
+        PT.export(str(tmp_path / "h.jsonl"))
+    (row,) = PT.load_rows(str(tmp_path / "h.jsonl"))["health"]
+    assert row["detector"] == "budget_drift" and row["backend"] == "cpu"
+    assert "_seq" not in row
+
+
+@pytest.mark.parametrize("call", [
+    lambda: PH.monitor.observe_skew("phase", None),
+    lambda: PH.monitor.consume_skew_trigger("phase")])
+def test_the_skew_detectors_wait_for_item_8(call):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        call()

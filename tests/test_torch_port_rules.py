@@ -29,8 +29,13 @@ from harp_tpu_torch.models import svm as SV
 from harp_tpu_torch.models import wdamds as WD
 from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
+from harp_tpu_torch import health as HL
 from harp_tpu_torch.parallel import mesh as M
-from harp_tpu_torch.utils import fault as FT
+from harp_tpu_torch.parallel import pipeline as PP
+from harp_tpu_torch.serve import bench as SB
+from harp_tpu_torch.serve import server as SR
+from harp_tpu_torch.utils import memrec as MR
+from harp_tpu_torch.utils import telemetry as TM
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "harp_tpu_torch").rglob("*.py")) + [
@@ -105,7 +110,15 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.benchmark", "harp_tpu_torch.models.subgraph",
             "harp_tpu_torch.models.mlp", "harp_tpu_torch.models.ccd",
             "harp_tpu_torch.utils.checkpoint",
-            "harp_tpu_torch.utils.fault"} <= set(mods)
+            "harp_tpu_torch.utils.fault",
+            "harp_tpu_torch.parallel.pipeline", "harp_tpu_torch.serve",
+            "harp_tpu_torch.serve.batcher", "harp_tpu_torch.serve.engines",
+            "harp_tpu_torch.serve.cache", "harp_tpu_torch.serve.server",
+            "harp_tpu_torch.serve.bench", "harp_tpu_torch.serve.transport",
+            "harp_tpu_torch.utils.flightrec", "harp_tpu_torch.utils.reqtrace",
+            "harp_tpu_torch.utils.perfetto", "harp_tpu_torch.utils.memrec",
+            "harp_tpu_torch.health", "harp_tpu_torch.health.sentinel"
+            } <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -157,7 +170,11 @@ STATS_APPS = {
                                    "ccd-benchmark", "ccd-cli",
                                    *(f"stats-{a}" for a in STATS_APPS),
                                    "stats-cli", "wdamds-weights",
-                                   "svm-fit_sparse", "kmeans-ckpt"])
+                                   "svm-fit_sparse", "kmeans-ckpt",
+                                   "serve-Server", "serve-benchmark",
+                                   "serve-benchmark_sustained", "serve-cli",
+                                   "serve-cli-ckpt", "pipeline_forward",
+                                   "pipeline_loss_and_grads"])
 def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -175,6 +192,25 @@ def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
                                 np.ones(4, np.float32), 2)
         elif entry == "kmeans-ckpt":
             KM.fit(pts, k=2, iters=1, ckpt_dir=str(tmp_path / "c"))
+        elif entry == "serve-Server":
+            SR.Server("kmeans", {"centroids": pts[:2]})
+        elif entry == "serve-benchmark":
+            SB.benchmark(n_requests=1, state_shape={"k": 2, "d": 4})
+        elif entry == "serve-benchmark_sustained":
+            SB.benchmark_sustained(n_requests=2,
+                                   state_shape={"k": 2, "d": 4})
+        elif entry == "serve-cli":
+            SR.main(["kmeans", "--bench", "--requests", "1"])
+        elif entry == "serve-cli-ckpt":
+            SR.main(["kmeans", "--ckpt", str(tmp_path / "none")])
+        elif entry == "pipeline_forward":
+            PP.pipeline_forward(lambda p, h: h, {}, np.zeros((1, 2, 4)))
+        elif entry == "pipeline_loss_and_grads":
+            PP.pipeline_loss_and_grads(lambda p, h: h * p["a"],
+                                       lambda o, t: o.sum(),
+                                       {"a": np.ones(4, np.float32)},
+                                       np.zeros((1, 2, 4), np.float32),
+                                       np.zeros((1, 2, 4), np.float32))
         elif entry == "fit":
             KM.fit(pts, k=2, iters=1)
         elif entry == "benchmark":
@@ -345,6 +381,15 @@ def _queue1_items() -> dict[int, str]:
 
 
 _PTS = np.zeros((16, 4), np.float32)
+
+
+def _serve_with_telemetry():
+    """The serve CLI's exit report waits for report.py: with telemetry on
+    it refuses before it serves."""
+    with TM.scope(True):
+        SR.main(["kmeans", "--bench", "--device", "cpu"])
+
+
 #: (what, a call that is not ported yet, a phrase of the ROADMAP item that
 #: its message must name)
 UNPORTED = [
@@ -357,11 +402,13 @@ UNPORTED = [
      "carry_w"),
     ("mfsgd-elastic", lambda: MF.main(["--elastic", "--device", "cpu"]),
      "`elastic/`"),
-    ("fault-dispatch", lambda: FT.FaultInjector(fail={"dispatch": (1,)}),
-     "flightrec"),
-    ("fault-h2d", lambda: FT.FaultInjector(delay={"h2d": 0.5}), "flightrec"),
-    ("fault-readback", lambda: FT.FaultInjector(
-        permanent={"readback": (1,)}, lost_worker=0), "flightrec"),
+    ("serve-telemetry-report", _serve_with_telemetry, "`report.py`"),
+    ("health-skew", lambda: HL.monitor.observe_skew("p", None),
+     "`steptrace`"),
+    ("health-skew-consume", lambda: HL.monitor.consume_skew_trigger("p"),
+     "`steptrace`"),
+    ("memrec-vmem-gate", lambda: MR.require_vmem_fit("k", 1, budget=2),
+     "`perfmodel/`"),
 ]
 
 

@@ -10,9 +10,11 @@ share a port, and every wait has a timeout.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import os
 import queue
+import signal
 import sys
 import time
 import traceback
@@ -76,6 +78,22 @@ def run_world(target, tmp_path, *args, world: int = WORLD,
                 p.terminate()
                 p.join(timeout=10)
     return [results[r] for r in range(world)]
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float):
+    """Fail the block with TimeoutError after ``seconds`` (SIGALRM, main
+    thread): a hang fails one test instead of cutting the whole run."""
+    def expire(signum, frame):
+        raise TimeoutError(f"test exceeded its {seconds} s limit")
+
+    prev = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, prev)
 
 
 # ---- collective verbs ---------------------------------------------------
@@ -1682,4 +1700,165 @@ def run_fault_cases(rank: int, world: int, root: str, starts: dict) -> dict:
         for when, fail_at in RECOVERY_FAILS.items():
             out[name][when] = recovery_run(
                 name, os.path.join(root, f"{name}-{when}"), fail_at, starts)
+    return out
+
+
+# ---- pipeline and broadcast's gradient -----------------------------------
+
+PIPE_WIDTH, PIPE_MB = 16, 4
+PIPE_MS = (1, 3, 8)
+PIPE_GRAD_M = 4
+BCAST_ROOTS = (0, WORLD - 1)
+
+
+def pipeline_inputs(m: int, world: int = WORLD, seed: int = 0) -> dict:
+    """Stacked stage params for ``world`` stages, microbatches and
+    targets, made from ``seed``."""
+    rng = np.random.default_rng(seed + m)
+    return {"w": rng.normal(size=(world, PIPE_WIDTH, PIPE_WIDTH)
+                            ).astype(np.float32) * 0.5,
+            "b": rng.normal(size=(world, PIPE_WIDTH)).astype(np.float32)
+            * 0.1,
+            "x": rng.normal(size=(m, PIPE_MB, PIPE_WIDTH)).astype(
+                np.float32),
+            "t": rng.normal(size=(m, PIPE_MB, PIPE_WIDTH)).astype(
+                np.float32)}
+
+
+def bcast_inputs(world: int = WORLD, seed: int = 5) -> dict:
+    """Each worker's broadcast input and its cotangent weights."""
+    rng = np.random.default_rng(seed)
+    return {"x": rng.normal(size=(world, 6)).astype(np.float32),
+            "w": rng.normal(size=(world, 6)).astype(np.float32)}
+
+
+def pipe_stage(params, h):
+    import torch
+
+    return torch.tanh(h @ params["w"] + params["b"])
+
+
+def pipe_loss(outs, targets):
+    return ((outs - targets) ** 2).mean()
+
+
+def run_pipeline_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.parallel import collective as C
+    from harp_tpu_torch.parallel.pipeline import (pipeline_forward,
+                                                  pipeline_loss_and_grads)
+
+    out = {}
+    for m in PIPE_MS:
+        d = pipeline_inputs(m, world)
+        p = {"w": torch.tensor(d["w"][rank]), "b": torch.tensor(d["b"][rank])}
+        out[f"fwd-{m}"] = pipeline_forward(pipe_stage, p, d["x"],
+                                           device="cpu").numpy()
+    d = pipeline_inputs(PIPE_GRAD_M, world)
+    p = {"w": torch.tensor(d["w"][rank]), "b": torch.tensor(d["b"][rank])}
+    loss, g = pipeline_loss_and_grads(pipe_stage, pipe_loss, p, d["x"],
+                                      d["t"], device="cpu")
+    out["loss"] = float(loss)
+    out["gw"], out["gb"] = g["w"].numpy(), g["b"].numpy()
+    bi = bcast_inputs(world)
+    for root in BCAST_ROOTS:
+        x = torch.tensor(bi["x"][rank]).requires_grad_()
+        y = C.broadcast(x, root=root)
+        (torch.tensor(bi["w"][rank]) * y).sum().backward()
+        out[f"bcast-{root}"] = y.detach().numpy()
+        out[f"bcast-grad-{root}"] = x.grad.numpy()
+    return out
+
+
+# ---- serving -------------------------------------------------------------
+
+#: MF-SGD top-k on a ragged item count: 250 items pad to 252 on 4 workers
+SERVE_MF = {"n_users": 64, "n_items": 250, "rank": 8}
+SERVE_TOPK = 10
+SERVE_RUNG = 8
+
+
+def serve_mf_inputs(seed: int = 3) -> dict:
+    """Factors with distinct scores, and one rung of users."""
+    rng = np.random.default_rng(seed)
+    s = SERVE_MF
+    return {"W": rng.normal(size=(s["n_users"], s["rank"])).astype(
+                np.float32),
+            "H": rng.normal(size=(s["n_items"], s["rank"])).astype(
+                np.float32),
+            "users": rng.integers(0, s["n_users"], SERVE_RUNG).astype(
+                np.int32)}
+
+
+class FakeCapture:
+    """The card's graph capture, stood in for on the CPU: ``fn`` runs once
+    at capture for its static output, and every replay recomputes into
+    that same buffer from the static input ``fn`` reads — as a CUDA graph
+    writes its fixed output.  It records the labels it captured, the
+    replays, and the output buffers' addresses (which must never
+    change)."""
+
+    def __init__(self):
+        self.labels: list[str] = []
+        self.replays = 0
+        self.ptrs: dict[str, int] = {}
+
+    def __call__(self, fn, label):
+        out = fn()
+        self.labels.append(label)
+        leaves = list(out) if isinstance(out, (tuple, list)) else [out]
+        self.ptrs[label] = [t.data_ptr() for t in leaves]
+
+        def replay():
+            self.replays += 1
+            new = fn()
+            news = list(new) if isinstance(new, (tuple, list)) else [new]
+            for dst, src in zip(leaves, news):
+                dst.copy_(src)
+            assert [t.data_ptr() for t in leaves] == self.ptrs[label]
+
+        return replay, out
+
+
+def serve_mf_requests() -> list[dict]:
+    """Requests spanning the rungs (one oversized, spanning batches)."""
+    d = serve_mf_inputs()
+    u = d["users"].tolist()
+    return [{"id": i, "users": u[:n]} for i, n in enumerate((1, 3, 8, 2))] \
+        + [{"id": "big", "users": (u * 3)[:19]}]
+
+
+def run_serve_cases(rank: int, world: int) -> dict:
+    import torch
+
+    from harp_tpu_torch.parallel.mesh import WorkerMesh
+    from harp_tpu_torch.serve.engines import MFSGDTopK
+    from harp_tpu_torch.serve.server import Server
+
+    d = serve_mf_inputs()
+    state = {"W": d["W"], "H": d["H"]}
+    eng = MFSGDTopK(state, WorkerMesh("cpu"), topk=SERVE_TOPK)
+    out = {"step": eng.step()(*eng.state_args(),
+                              torch.from_numpy(d["users"])).numpy()}
+    reqs = serve_mf_requests()
+    eager = Server("mfsgd", state, device="cpu", ladder=(1, 8),
+                   engine_opts={"topk": SERVE_TOPK})
+    eager.startup()
+    fake = FakeCapture()
+    graphed = Server("mfsgd", state, device="cpu", ladder=(1, 8),
+                     engine_opts={"topk": SERVE_TOPK}, capture=fake)
+    info = graphed.startup()
+    out["eager"] = eager.process(reqs)
+    out["graphed"] = graphed.process(reqs)
+    runner = graphed.make_runner(clock=lambda: 0.0)
+    got = []
+    for i, r in enumerate(reqs):
+        got += runner.submit(i, r, now=0.0)
+        got += runner.step(0.0)
+    got += runner.drain(0.0)
+    out["runner"] = [resp for _, resp in sorted(got, key=lambda kv: kv[0])]
+    out["captures"] = info["captures"]
+    out["labels"] = fake.labels
+    out["replays"] = fake.replays
     return out
