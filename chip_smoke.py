@@ -227,7 +227,27 @@ fatal when it fails (exit code != 0 and no result line):
    nothing (serve_phase);
 41. the pipeline on the card at S = 1: forward and stage gradients
    against the CPU (rtol 1e-4 / atol 1e-5) (pipeline_phase);
-42. one JSON line of the kernels, the card's name and power limit, and
+42. the training plane under telemetry: KMeans fit at graded config #1
+   (1M x 300, k = 100, int8 on K1, 10 iterations) with telemetry off and
+   on: centroids and inertia bit-equal, the same K1 launches and the same
+   dispatches and readbacks (counted by flight-recorder observers, which
+   see both runs); the export holds one superstep-timeline run, a skew
+   execution row whose per-worker points sum to n and, through the
+   report CLI, a report row; the report, timeline and health CLIs exit 0
+   on it, and the serve CLI's burst bench with HARP_TELEMETRY=1 ends in
+   its run report (telemetry_phase);
+43. elastic training on one card: MF-SGD at graded config #2's width
+   (138,493 x 26,744, 20M ratings, rank 64, bf16, K3) for 3 epochs and
+   LDA at graded config #3's width (100k docs x 50k words x 1000 topics,
+   K4) for 2 sweeps, each through elastic_fit: the home layout bit-equal
+   to the plain loop from the same initial state, and a transient
+   dispatch fault at epoch 1 resumed from its checkpoint bit-equal to the
+   uninterrupted elastic run, its elastic "resume" row in the export;
+   streaming KMeans through kmeans_stream_elastic_fit at 1M x 300,
+   k = 1000, f32, bit-equal to fit_streaming; a worker loss on one worker
+   (--max-worker-loss 1) fails loudly; the seconds of each part and the
+   host prep (elastic_phase);
+44. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -3614,6 +3634,284 @@ def pipeline_phase(dev, card: str) -> None:
           f"{card_s:.2f} s for a forward and a loss-and-grads [{card}]")
 
 
+def telemetry_phase(dev, card: str, tmp: str) -> int:
+    """Phase 42: KMeans fit at graded config #1 (int8, K1) with telemetry
+    off, then on: the zero-cost contract (bit-equal result, the same K1
+    launches, dispatches and readbacks), the export's timeline, skew and
+    report rows, and the report/timeline/health CLIs and the serve CLI's
+    report.  Returns K1's launches on the telemetry run."""
+    import numpy as np
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.utils import flightrec, steptrace, telemetry
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(K, D)).astype(np.float32) * 8.0
+    pts = centers[rng.integers(0, K, N)]
+    pts += rng.normal(size=(N, D)).astype(np.float32)
+    path = os.path.join(tmp, "telemetry.jsonl")
+
+    def run(on: bool):
+        seen = {"dispatches": 0, "readbacks": 0}
+
+        def bump(key):
+            return lambda *a: seen.__setitem__(key, seen[key] + 1)
+
+        KK.reset_launches()
+        with flightrec.observe_dispatches(bump("dispatches")), \
+                flightrec.observe_readbacks(bump("readbacks")), \
+                telemetry.scope(on):
+            t0 = time.perf_counter()
+            c, inertia = KM.fit(pts, k=K, iters=ITERS, seed=0,
+                                quantize="int8")
+            wall = time.perf_counter() - t0
+            if on:
+                telemetry.export(path)
+        return c, inertia, seen, KK.LAUNCHES["kmeans_partials_int8"], wall
+
+    off, on = run(False), run(True)
+    if not (np.array_equal(off[0], on[0]) and off[1] == on[1]):
+        fail("telemetry: the fit with telemetry on differs from the fit "
+             "with it off")
+    if (off[2], off[3]) != (on[2], on[3]) or on[3] != ITERS \
+            or on[2] != {"dispatches": 1, "readbacks": 1}:
+        fail(f"telemetry: off {off[2]} / {off[3]} K1 launches, on {on[2]} "
+             f"/ {on[3]}; expected one dispatch, one readback and {ITERS} "
+             "launches both times")
+    rows = telemetry.load_rows(path)
+    st = steptrace.summarize_rows(rows["steptrace"])
+    runs = [r for r in rows["steptrace"] if r.get("ev") == "run"]
+    if (st["runs"], st["supersteps"], st["completed"]) != (1, 1, 1) \
+            or st["dispatch_mismatch"] or runs[0]["phase"] != "kmeans.fit" \
+            or runs[0]["flight"]["dispatches"] != 1:
+        fail(f"telemetry: the timeline is not one run of one superstep: "
+             f"{st}")
+    sk = [r for r in rows["skew"] if r["phase"] == "kmeans.fit"]
+    if len(sk) != 1 or sum(sk[0]["work"]) != N:
+        fail(f"telemetry: the skew execution row does not sum to {N}: {sk}")
+    print(f"telemetry: KMeans fit {N} x {D}, k={K}, int8, {ITERS} "
+          f"iterations: off {off[4]:.3f} s, on {on[4]:.3f} s (host prep "
+          f"included), centroids and inertia bit-equal, K1 launches "
+          f"{on[3]} both, {on[2]} both; export {len(rows['steptrace'])} "
+          f"steptrace / {len(rows['skew'])} skew / {len(rows['span'])} span "
+          f"rows; superstep {st.get('step_p50_ms')} ms [{card}]")
+    for app, args in (("report", ("--telemetry", path, "--json-only")),
+                      ("timeline", (path, "--perfetto",
+                                    os.path.join(tmp, "perfetto.json"))),
+                      ("health", (path,))):
+        cli = subprocess.run(
+            [sys.executable, "-m", "harp_tpu_torch", app, *args], cwd=REPO,
+            capture_output=True, text=True, timeout=300)
+        if cli.returncode:
+            fail(f"{app} CLI exited {cli.returncode} on the export:\n"
+                 f"{cli.stdout[-1000:]}{cli.stderr[-1000:]}")
+        if app == "report":
+            row = json.loads(cli.stdout.strip().splitlines()[-1])
+            if row.get("skew", {}).get("kmeans.fit", {}).get("total") != N \
+                    or row.get("transfer", {}).get("dispatches") != 1:
+                fail(f"report row lacks the fit's skew or transfers: {row}")
+        print(f"{app} CLI on the export: exit 0 "
+              f"({cli.stdout.strip().splitlines()[0][:100]}...)")
+    cli = subprocess.run(
+        [sys.executable, "-m", "harp_tpu_torch", "serve", "kmeans",
+         "--bench"], cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "HARP_TELEMETRY": "1"})
+    lines = cli.stdout.strip().splitlines()
+    if cli.returncode or not lines:
+        fail(f"serve --bench with HARP_TELEMETRY=1 exited "
+             f"{cli.returncode}:\n{cli.stderr[-2000:]}")
+    row = json.loads(lines[-1])
+    if row.get("config") != "serve_kmeans_telemetry" \
+            or row.get("backend") != "cuda" or "run report" not in cli.stderr:
+        fail(f"serve --bench with HARP_TELEMETRY=1 printed no run report: "
+             f"{lines[-1][:300]}")
+    print(f"serve kmeans --bench with HARP_TELEMETRY=1: its run report on "
+          f"stderr and its row on stdout, "
+          f"{row.get('transfer', {}).get('dispatches')} dispatches and "
+          f"{row.get('compile', {}).get('count')} graph captures recorded "
+          f"[{card}]")
+    return on[3]
+
+
+def elastic_phase(dev, card: str, tmp: str) -> dict:
+    """Phase 43: elastic training on one card (module docstring).  Returns
+    K3's and K4's launches on the uninterrupted elastic runs."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.elastic import apps as EA
+    from harp_tpu_torch.models import kmeans_stream as KS
+    from harp_tpu_torch.models import lda as LD
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.ops import lda_kernel as K4
+    from harp_tpu_torch.ops import mfsgd_kernel as K3
+    from harp_tpu_torch.utils import telemetry
+    from harp_tpu_torch.utils.fault import FaultInjector
+
+    launches = {}
+
+    def resumed(ad, epochs, name):
+        """The elastic run again from ``ad``'s start, with a transient
+        dispatch fault at epoch 1; returns its export's elastic rows."""
+        inj = FaultInjector(fail={"dispatch": (2,)})
+        path = os.path.join(tmp, f"elastic-{name}.jsonl")
+        with telemetry.scope(True):
+            EA.elastic_fit(ad, epochs, os.path.join(tmp, f"el-{name}"),
+                           fault=inj)
+            telemetry.export(path)
+        if inj.injected["dispatch"] != 1:
+            fail(f"elastic {name}: the dispatch fault did not fire")
+        return telemetry.load_rows(path)["elastic"]
+
+    # MF-SGD on K3 at graded config #2's width
+    t0 = time.perf_counter()
+    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
+    ad = EA.MFSGDElastic(ML_USERS, ML_ITEMS,
+                         MF.MFSGDConfig(rank=ML_RANK, algo="pallas"),
+                         seed=0, users=u, items=i, vals=v)
+    prep = time.perf_counter() - t0
+    # the home layout is the plain one: the identity remap, so the
+    # adapter's model is the plain MFSGD of the same ratings and seed
+    if ad.remap.new_n != ML_USERS or not np.array_equal(
+            ad.remap.fwd, np.arange(ML_USERS)):
+        fail("elastic MF-SGD: the home remap is not the identity")
+    W0, H0 = ad.model.W.clone(), ad.model.H.clone()
+    t0 = time.perf_counter()
+    ad.model.fit(EPOCHS)
+    W_p, H_p = ad.model.factors()
+    t_plain = time.perf_counter() - t0
+
+    def restart_mf():
+        ad.model.W, ad.model.H = W0.clone(), H0.clone()
+        ad._live = None
+
+    restart_mf()
+    K3.reset_launches()  # the elastic run starts here
+    t0 = time.perf_counter()
+    EA.elastic_fit(ad, EPOCHS)
+    t_el = time.perf_counter() - t0
+    launches["sgd_tile_update"] = K3.LAUNCHES["sgd_tile_update"]
+    st = ad.canonical_state()
+    if not (np.array_equal(st["W"], W_p) and np.array_equal(st["H"], H_p)):
+        fail("elastic MF-SGD: the home layout differs from the plain fit")
+    if launches["sgd_tile_update"] != 2 * EPOCHS:
+        fail(f"elastic MF-SGD: {launches['sgd_tile_update']} K3 launches")
+    restart_mf()
+    t0 = time.perf_counter()
+    el_rows = resumed(ad, EPOCHS, "mfsgd")
+    t_res = time.perf_counter() - t0
+    st2 = ad.canonical_state()
+    if not (np.array_equal(st2["W"], st["W"])
+            and np.array_equal(st2["H"], st["H"])):
+        fail("elastic MF-SGD: the resumed run differs from the "
+             "uninterrupted one")
+    if [r["event"] for r in el_rows] != ["resume"] \
+            or el_rows[0]["from_step"] != 0:
+        fail(f"elastic MF-SGD: the export's elastic rows are {el_rows}")
+    print(f"elastic MF-SGD (K3) at {ML_USERS} x {ML_ITEMS}, {ML_NNZ} "
+          f"ratings, rank {ML_RANK}, bf16, {EPOCHS} epochs: home layout "
+          f"bit-equal to the plain fit, a dispatch fault at epoch 1 resumed "
+          f"from step 0 bit-equal (resume row exported); K3 launches "
+          f"{launches['sgd_tile_update']}; prep {prep:.1f} s, plain "
+          f"{t_plain:.2f} s, elastic {t_el:.2f} s, resumed run {t_res:.2f} s "
+          f"[{card}]")
+    # one worker cannot lose one: the shrink refuses, loudly
+    restart_mf()
+    try:
+        EA.elastic_fit(ad, 1, os.path.join(tmp, "el-loss"),
+                       fault=FaultInjector(permanent={"dispatch": (1,)},
+                                           lost_worker=0))
+        fail("elastic MF-SGD: a worker loss on one worker did not fail")
+    except ValueError as e:
+        if "single-worker" not in str(e):
+            raise
+        loud = str(e)
+    print(f"elastic MF-SGD: a worker loss on one worker fails loudly "
+          f"({loud})")
+    del ad, W0, H0, W_p, H_p, st, st2, u, i, v
+
+    # LDA on K4 at graded config #3's width
+    t0 = time.perf_counter()
+    d_ids, w_ids = LD.benchmark_corpus(LDA_DOCS, LDA_VOCAB, LDA_TPD, 0)
+    ad = EA.LDAElastic(LDA_DOCS, LDA_VOCAB,
+                       LD.LDAConfig(n_topics=LDA_TOPICS, algo="pallas"),
+                       seed=0, doc_ids=d_ids, word_ids=w_ids)
+    prep = time.perf_counter() - t0
+    if not np.array_equal(ad.remap.fwd, np.arange(LDA_DOCS)):
+        fail("elastic LDA: the home remap is not the identity")
+    m = ad.model
+    snap = (m.Ndk.clone(), m.Nwk.clone(), m.Nk.clone(), m.z_grid.clone())
+
+    def restart_lda():
+        m.Ndk, m.Nwk, m.Nk, m.z_grid = (t.clone() for t in snap)
+        ad.model, ad.key_seed, ad._live = m, 0, None
+
+    # the plain loop on the adapter's seed chain (the generator restarts
+    # from the chain every sweep, as the elastic loop does)
+    t0 = time.perf_counter()
+    seed = 0
+    for _ in range(LDA_EPOCHS):
+        m._gen.manual_seed(seed * 65_537)
+        m.sample_epoch()
+        seed = EA._next_key_seed(seed)
+    plain = (m.Ndk.clone(), m.Nwk.clone(), m.z_grid.clone())
+    t_plain = time.perf_counter() - t0
+    restart_lda()
+    K4.reset_launches()  # the elastic run starts here
+    t0 = time.perf_counter()
+    EA.elastic_fit(ad, LDA_EPOCHS)
+    t_el = time.perf_counter() - t0
+    launches["cgs_entry_update"] = K4.LAUNCHES["cgs_entry_update"]
+    if not all(torch.equal(a, b) for a, b in zip(
+            (m.Ndk, m.Nwk, m.z_grid), plain)):
+        fail("elastic LDA: the home layout differs from the plain loop")
+    if launches["cgs_entry_update"] != 2 * LDA_EPOCHS:
+        fail(f"elastic LDA: {launches['cgs_entry_update']} K4 launches")
+    st = ad.canonical_state()
+    restart_lda()
+    t0 = time.perf_counter()
+    el_rows = resumed(ad, LDA_EPOCHS, "lda")
+    t_res = time.perf_counter() - t0
+    st2 = ad.canonical_state()
+    if not all(np.array_equal(st[k], st2[k]) for k in ("d", "w", "z")) \
+            or st["key_seed"] != st2["key_seed"]:
+        fail("elastic LDA: the resumed chain differs from the "
+             "uninterrupted one")
+    if [r["event"] for r in el_rows] != ["resume"]:
+        fail(f"elastic LDA: the export's elastic rows are {el_rows}")
+    print(f"elastic LDA (K4) at {LDA_DOCS} docs x {LDA_VOCAB} words, "
+          f"{LDA_TOPICS} topics, {len(d_ids)} tokens, {LDA_EPOCHS} sweeps: "
+          f"home layout bit-equal to the plain loop, a dispatch fault at "
+          f"sweep 1 resumed bit-equal (chain rebuilt from its tokens, resume "
+          f"row exported); K4 launches {launches['cgs_entry_update']}; prep "
+          f"{prep:.1f} s, plain {t_plain:.2f} s, elastic {t_el:.2f} s, "
+          f"resumed run {t_res:.2f} s (a rebuild included) [{card}]")
+    del ad, m, snap, plain, st, st2, d_ids, w_ids
+
+    # streaming KMeans, f32 through chunk_partials
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    cen = rng.normal(size=(STREAM_K, STREAM_D)).astype(np.float32) * 4
+    pts = cen[rng.integers(0, STREAM_K, STREAM_NPY_N)]
+    pts += rng.normal(size=pts.shape).astype(np.float32)
+    prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ad = EA.kmeans_stream_elastic_fit(pts, k=STREAM_K, iters=STREAM_ITERS,
+                                      chunk_rows=STREAM_CHUNK)
+    t_el = time.perf_counter() - t0
+    c, inertia = KS.fit_streaming(pts, k=STREAM_K, iters=STREAM_ITERS,
+                                  chunk_points=STREAM_CHUNK, seed=0)
+    if not (np.array_equal(ad.centroids, c) and ad.metric() == inertia):
+        fail(f"elastic streaming: {ad.metric()} against fit_streaming's "
+             f"{inertia}")
+    print(f"elastic streaming KMeans at {STREAM_NPY_N} x {STREAM_D}, "
+          f"k={STREAM_K}, f32, {STREAM_ITERS} epochs: centroids and inertia "
+          f"bit-equal to fit_streaming; data {prep:.1f} s, elastic "
+          f"{t_el:.2f} s [{card}]")
+    return launches
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -3851,6 +4149,16 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
+        # -- 42-43. the training plane under telemetry, elastic training ---
+        t0 = time.perf_counter()
+        rows["kmeans_partials_int8"]["telemetry_launches"] = \
+            telemetry_phase(dev, card, tmp)
+        print(f"phase telemetry: {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        el = elastic_phase(dev, card, tmp)
+        for name, n in el.items():
+            rows[name]["elastic_launches"] = n
+        print(f"phase elastic: {time.perf_counter() - t0:.1f} s [{card}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name in ("kmeans_partials_int8", "kmeans_partials",
@@ -3859,7 +4167,7 @@ def main() -> int:
     rows["kmeans_partials_int8"]["stream_recovery_launches"] = rec[
         "stream_kmeans_partials_int8"]
 
-    # -- 42. result ----------------------------------------------------------
+    # -- 44. result ----------------------------------------------------------
     src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
                                     "harp_tpu/ops/kmeans_kernel.py:249"),
            "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",

@@ -31,6 +31,9 @@
     python -m harp_tpu_torch serve kmeans --ckpt DIR --device cpu [--tcp 0]
     python -m harp_tpu_torch trace run.jsonl [--perfetto trace.json]
     python -m harp_tpu_torch memory run.jsonl [--json]
+    python -m harp_tpu_torch report --telemetry run.jsonl [--metrics m.jsonl]
+    python -m harp_tpu_torch timeline run.jsonl [--perfetto trace.json]
+    python -m harp_tpu_torch health run.jsonl [--json]
     python -m harp_tpu_torch --list
 """
 
@@ -71,6 +74,12 @@ APPS = {
               "request timeline: validate/summarize a telemetry export"),
     "memory": ("harp_tpu_torch.utils.memrec",
                "device-memory ledger: validate/summarize an export"),
+    "report": ("harp_tpu_torch.report",
+               "run report: merge a telemetry export (+ metrics JSONL)"),
+    "timeline": ("harp_tpu_torch.utils.steptrace",
+                 "superstep timeline: validate/summarize an export"),
+    "health": ("harp_tpu_torch.health.cli",
+               "health sentinel, offline: summarize an export's findings"),
 }
 
 

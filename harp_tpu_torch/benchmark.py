@@ -257,6 +257,9 @@ def main(argv=None) -> int:
         for s in sizes(args.min_kb, args.max_mb):
             print(json.dumps(bench(verb, mesh, s, args.reps, label)),
                   flush=True)
+    from harp_tpu_torch.report import maybe_emit
+
+    maybe_emit("bench")
     return 0
 
 

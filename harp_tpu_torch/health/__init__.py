@@ -1,7 +1,8 @@
 """Health sentinel: the port of ``harp_tpu.health`` (see
-:mod:`harp_tpu_torch.health.sentinel`).  The evidence grader
-(``health/grade.py``) and the ``health`` CLI are not ported yet (ROADMAP.md,
-Queue 1, item 8)."""
+:mod:`harp_tpu_torch.health.sentinel`; the ``health`` CLI is
+:mod:`harp_tpu_torch.health.cli`).  The evidence grader
+(``health/grade.py``) rides ``perfmodel/`` and is not ported yet
+(ROADMAP.md, Queue 1, item 9)."""
 
 from harp_tpu_torch.health.sentinel import (  # noqa: F401
     DETECTORS, SEVERITIES, VERDICTS, FAST_BURN_MIN, PAGE_BURN,

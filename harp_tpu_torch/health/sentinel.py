@@ -18,12 +18,15 @@ the reference's frozen vocabularies (:data:`DETECTORS`,
   ledger's peak eating into the card's capacity, or drifting above a
   baseline peak.
 
-Not ported yet (ROADMAP.md, Queue 1, item 8, with ``steptrace`` and
-``skew``): the skew trigger (:meth:`HealthMonitor.observe_skew`) and its
-handshake with the elastic driver (:meth:`HealthMonitor.
-consume_skew_trigger`) raise ``NotImplementedError``; with no superstep
-timeline there is nothing for a new finding to mark.  The evidence grader
-(``health/grade.py``) rides ``perfmodel`` (item 9).
+- **skew trigger** (:meth:`HealthMonitor.observe_skew`): K consecutive
+  skew-ledger records of a phase over :data:`WASTED_FRAC_TRIGGER` fire a
+  finding with the ``suggest_rebalance`` plan inline; the elastic loop
+  takes it exactly once (:meth:`HealthMonitor.consume_skew_trigger`), and
+  a recovery below the threshold re-arms it.
+
+A new finding is a ``health`` mark on an open superstep timeline
+(``steptrace``).  Not ported yet: the evidence grader (``health/grade.py``)
+rides ``perfmodel`` (ROADMAP.md, Queue 1, item 9).
 
 Every observe entry returns before it touches state while telemetry is
 off, and none touches a tensor.
@@ -143,6 +146,12 @@ class HealthMonitor:
             row = {"kind": "health", "detector": detector,
                    "severity": severity, "_seq": self._seq}
             self._rows[k] = row
+            # one superstep-timeline mark per new finding (updates mutate
+            # the row in place)
+            from harp_tpu_torch.utils import steptrace
+
+            if steptrace.tracer._run is not None:
+                steptrace.tracer.on_health(detector, key)
         elif _SEV_RANK[severity] > _SEV_RANK[row["severity"]]:
             row["severity"] = severity
         return row
@@ -154,17 +163,78 @@ class HealthMonitor:
 
     # -- skew trigger -------------------------------------------------------
     def observe_skew(self, phase: str, ledger) -> None:
-        """The skew trigger reads the SkewLedger, which is not ported."""
-        raise NotImplementedError(
-            "health.observe_skew reads the skew spine (utils/skew.py), which "
-            "is not ported yet (ROADMAP.md, Queue 1, item 8)")
+        """One SkewLedger record for ``phase`` landed (the module-level
+        ``skew.record_execution``/``record_partition`` hooks call this).
+        Fires after :data:`TRIGGER_SUPERSTEPS` consecutive records with
+        ``wasted_frac >= WASTED_FRAC_TRIGGER``, carrying the
+        ``suggest_rebalance`` plan inline; latched until the phase
+        recovers below the threshold (no per-superstep re-fire spam)."""
+        if not telemetry.enabled():
+            return
+        rec = ledger._phases.get(phase)
+        if rec is None:
+            return
+        from harp_tpu_torch.utils.skew import SkewLedger
+
+        imb = SkewLedger._imbalance(rec)
+        wf = imb.get("wasted_frac")
+        st = self._skew.setdefault(
+            phase, {"consec": 0, "supersteps": 0, "latched": False,
+                    "consumed": False})
+        st["supersteps"] += 1
+        if wf is None or wf < WASTED_FRAC_TRIGGER:
+            st["consec"] = 0
+            st["latched"] = False
+            # the latch release re-arms the handshake: a LATER re-fire
+            # hands a fresh plan to consume_skew_trigger
+            st["consumed"] = False
+            return
+        st["consec"] += 1
+        if st["consec"] < TRIGGER_SUPERSTEPS or st["latched"]:
+            return
+        st["latched"] = True
+        row = self.upsert("skew_trigger", phase, severity="warn")
+        row.update({
+            "phase": phase, "wasted_frac": wf,
+            "max_mean_ratio": imb.get("max_mean_ratio"),
+            "supersteps": st["supersteps"],
+            "consecutive": st["consec"],
+            # the elastic-execution handoff: apply_rebalance-shaped; the
+            # elastic loops consume it between supersteps via
+            # :meth:`consume_skew_trigger` and replay it through
+            # schedule.apply_rebalance
+            "plan": ledger.suggest_rebalance(phase),
+        })
 
     def consume_skew_trigger(self, phase: str) -> dict | None:
-        """The elastic driver's handshake on a skew trigger."""
-        raise NotImplementedError(
-            "health.consume_skew_trigger hands a skew trigger to the elastic "
-            "driver and marks the steptrace timeline, neither ported yet "
-            "(ROADMAP.md, Queue 1, item 8)")
+        """The sentinel↔trainer handshake: hand the latched
+        ``skew_trigger`` finding for ``phase`` to the elastic loop
+        EXACTLY ONCE.
+
+        Returns the finding row (inline ``plan`` included) the first
+        time the elastic loop asks after the trigger fired; every later call
+        returns None until the phase recovers below the threshold (the
+        latch release) and a NEW trigger fires — so one fired plan can
+        never be applied twice, and a still-skewed phase cannot spam
+        re-application of a stale plan.  No-op (None) while telemetry
+        is off: the zero-cost contract extends to the acting half.
+        """
+        if not telemetry.enabled():
+            return None
+        st = self._skew.get(phase)
+        if st is None or not st.get("latched") or st.get("consumed"):
+            return None
+        st["consumed"] = True
+        row = self._rows.get(("skew_trigger", phase))
+        if row is not None:
+            row["consumed"] = True  # visible in the exported evidence
+        from harp_tpu_torch.utils import steptrace
+
+        if steptrace.tracer._run is not None:
+            # actuation mark: the handshake firing lands on the
+            # superstep timeline next to the rebalance it triggers
+            steptrace.tracer.on_skew_consume(phase)
+        return row
 
     # -- budget drift -------------------------------------------------------
     def observe_budget(self, tag: str,

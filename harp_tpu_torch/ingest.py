@@ -42,8 +42,9 @@ pipeline.  When the consumer granted no meaningful compute window to hide
 under (an idle consumer, a serial run) the score is vacuously 1.0.  With
 ``stall_warn`` set, a score below it emits a ``RuntimeWarning``.
 
-Not ported yet: the flight-recorder budget that wraps the reference's
-pipeline loops (``telemetry.budget``; ROADMAP.md, Queue 1, item 8).
+The pipeline's callers hold their loops to warn-mode flight budgets
+(``flightrec.budget``): streaming KMeans's chunk loop, the MLP's epoch and
+``fileformat.load_sharded_csv``'s reads.
 """
 
 from __future__ import annotations

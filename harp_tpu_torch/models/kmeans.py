@@ -33,6 +33,14 @@ centroids checkpointed between chunks; a crashed run, or a rerun on the
 same directory, resumes from the latest chunk and ends on the same bits as
 an uninterrupted run (each chunk is the same iterations on the same
 operands).
+
+Telemetry: a plain ``fit`` is one dispatch (``kmeans.fit`` on the flight
+recorder: the whole Lloyd loop) and one readback (the inertia and the
+centroids together); with telemetry on it is one superstep-timeline run of
+one superstep, and its per-worker point counts (each worker's shard, known
+on the host) land on the skew ledger.  The checkpointed form is one run
+with a superstep a chunk.  The CLI ends in the run report
+(``report.maybe_emit``).
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from harp_tpu_torch.ops import kmeans_kernel
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import (WorkerMesh, num_workers,
                                          resolve_mesh, worker_id)
-from harp_tpu_torch.utils import telemetry
+from harp_tpu_torch.utils import flightrec, skew, steptrace, telemetry
 from harp_tpu_torch.utils.timing import device_sync
 
 
@@ -393,13 +401,29 @@ def fit(points, k=100, iters=10, mesh: WorkerMesh | None = None, seed=0,
         return _fit_ckpt(mesh, cfg, pts, centroids, x2, iters, ckpt_dir,
                          ckpt_every=ckpt_every, max_restarts=max_restarts,
                          fault=fault)
-    inertia = torch.zeros((), dtype=torch.float32, device=mesh.device)
-    with telemetry.span("kmeans.fit", iters=iters, k=k), \
-            telemetry.ledger.run("kmeans.fit", steps=iters):
+    def lloyd(c):
+        inertia = torch.zeros((), dtype=torch.float32, device=mesh.device)
         for _ in range(iters):
-            centroids, inertia = kmeans_step(pts, centroids, cfg, x2=x2)
-        inertia_val = device_sync(inertia)
-    return centroids.to(torch.float32).cpu().numpy(), inertia_val
+            c, inertia = kmeans_step(pts, c, cfg, x2=x2)
+        return c, inertia
+
+    fit_fn = flightrec.track(lloyd, "kmeans.fit")
+    rows = (pts[0] if quantize == "int8" else pts).shape[0]
+    # the whole Lloyd loop is ONE superstep: one dispatch, one readback
+    with telemetry.span("kmeans.fit", iters=iters, k=k), \
+            telemetry.ledger.run("kmeans.fit", steps=iters), \
+            steptrace.run("kmeans.fit"), \
+            steptrace.superstep("kmeans.fit", 0):
+        t0 = time.perf_counter()
+        centroids, inertia = fit_fn(centroids)
+        st = flightrec.readback(torch.cat([
+            inertia.reshape(1), centroids.to(torch.float32).reshape(-1)]))
+        # every worker's shard is ``rows`` points (shard_array splits
+        # evenly), so the per-worker counts need no device work
+        skew.record_execution("kmeans.fit", [rows] * mesh.num_workers,
+                              unit="points",
+                              wall_s=time.perf_counter() - t0)
+    return st[1:].reshape(k, -1), float(st[0])
 
 
 def _fit_ckpt(mesh, cfg, pts, centroids, x2, iters, ckpt_dir, *,
@@ -420,14 +444,16 @@ def _fit_ckpt(mesh, cfg, pts, centroids, x2, iters, ckpt_dir, *,
                 "inertia": torch.zeros((), dtype=torch.float32, device=dev)}
 
     def step(ci, state):
-        c = to_device(state["centroids"], dev, centroids.dtype)
-        inertia = state["inertia"]
-        for _ in range(lens[ci]):
-            c, inertia = kmeans_step(pts, c, cfg, x2=x2)
-        return {"centroids": c, "inertia": inertia}
+        with steptrace.superstep("kmeans.fit_ckpt", ci):
+            c = to_device(state["centroids"], dev, centroids.dtype)
+            inertia = state["inertia"]
+            for _ in range(lens[ci]):
+                c, inertia = kmeans_step(pts, c, cfg, x2=x2)
+            return {"centroids": c, "inertia": inertia}
 
     with telemetry.span("kmeans.fit_ckpt", iters=iters, k=cfg.k), \
-            telemetry.ledger.run("kmeans.fit_ckpt", steps=iters):
+            telemetry.ledger.run("kmeans.fit_ckpt", steps=iters), \
+            steptrace.run("kmeans.fit_ckpt"):
         final = run_with_recovery(make_state, step, len(lens), mgr,
                                   ckpt_every=1, max_restarts=max_restarts,
                                   fault=fault)
@@ -545,6 +571,7 @@ def main(argv=None):
                         "runs on the CPU)")
     args = p.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    from harp_tpu_torch.report import maybe_emit
     from harp_tpu_torch.utils.fault import resolve_resume
 
     resumed_from = resolve_resume(args.ckpt_dir, args.resume)
@@ -555,6 +582,7 @@ def main(argv=None):
                         quantize=args.quantize,
                         psum_schedule=args.psum_schedule)
         print(benchmark_json("kmeans_bench", out, mesh.device))
+        maybe_emit("kmeans_bench")
     else:
         if args.input:
             from harp_tpu_torch.native.datasource import load_csv_glob
@@ -575,6 +603,7 @@ def main(argv=None):
             "d": pts.shape[1], "inertia": inertia,
             "ckpt_dir": args.ckpt_dir, "resumed_from": resumed_from},
             mesh.device))
+        maybe_emit("kmeans")
     return 0
 
 

@@ -40,9 +40,12 @@ fit_epochs` (the centroids and the inertia history checkpointed every
 ``.parquet`` inputs stream through :class:`~harp_tpu_torch.native.
 datasource.ParquetPoints`.
 
-Not ported yet (ROADMAP.md, Queue 1, item 8): the CLI's
-``--elastic``/``--max-worker-loss`` and the flight-recorder budget around
-the chunk loop.  Each raises ``NotImplementedError`` or is left out.
+With telemetry on, each epoch's chunk loop is held to a warn-mode flight
+budget: nothing is built or captured after the first epoch (the staging
+ring's copies are not counted as placements, so H2D is not bounded).  The
+CLI's ``--elastic``/``--max-worker-loss`` run the elastic Lloyd loop
+(:func:`harp_tpu_torch.elastic.apps.kmeans_stream_elastic_fit`) on a
+host-sized synthetic corpus.
 """
 
 from __future__ import annotations
@@ -64,10 +67,8 @@ from harp_tpu_torch.models.kmeans import (_INT8_SUM_ROW_LIMIT,
                                           kmeanspp_init)
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
-from harp_tpu_torch.utils import telemetry
+from harp_tpu_torch.utils import flightrec, telemetry
 from harp_tpu_torch.utils.timing import device_sync
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {item})"
 
 
 @dataclasses.dataclass
@@ -357,16 +358,19 @@ def _stream_train(mesh, cfg, pipe, n_chunks, centroids, iters,
         if epoch_reset is not None:
             epoch_reset()
         ops = epoch_operands(centroids, cfg.quantize, col_scale)
-        for shipped in pipe.stream(n_chunks):
-            x = shipped.get()
-            if cfg.quantize != "int8":
-                # a narrow wire widens here: exact, so bit-identical to the
-                # host cast
-                x = x.to(cfg.dtype)
-            s, c, i = chunk_partials(x, ops, cfg.quantize)
-            sums += s
-            counts += c
-            inertia += i
+        # after the first epoch the chunk loop builds and captures nothing
+        with flightrec.budget(compiles=None if not history else 0,
+                              action="warn", tag="kmeans_stream.ingest"):
+            for shipped in pipe.stream(n_chunks):
+                x = shipped.get()
+                if cfg.quantize != "int8":
+                    # a narrow wire widens here: exact, so bit-identical
+                    # to the host cast
+                    x = x.to(cfg.dtype)
+                s, c, i = chunk_partials(x, ops, cfg.quantize)
+                sums += s
+                counts += c
+                inertia += i
         s, c, ep_inertia = C.allreduce((sums, counts, inertia))
         centroids = _normalize_centroids(s, c, centroids)
         history.append(ep_inertia)
@@ -826,6 +830,38 @@ def benchmark_ingest(points, k=1000, iters=2, chunk_points=262_144,
     return out
 
 
+def _elastic_main(args) -> int:
+    """``--elastic``: the corpus is materialized (a repartition relabels
+    rows), so it pairs with a host-sized synthetic ``--n``."""
+    from harp_tpu_torch.elastic.apps import kmeans_stream_elastic_fit
+    from harp_tpu_torch.report import maybe_emit
+    from harp_tpu_torch.utils.metrics import benchmark_json
+
+    if args.input:
+        raise SystemExit(
+            "--elastic pairs with the synthetic corpus; use --n/--d (file "
+            "inputs ride the non-elastic streaming fit)")
+    if args.quantize or args.dtype != "float32":
+        raise SystemExit("--elastic runs the f32 Lloyd epoch; drop "
+                         "--quantize/--dtype")
+    mesh = WorkerMesh(args.device)
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(args.n, args.d)).astype(np.float32)
+    ad = kmeans_stream_elastic_fit(
+        pts, k=args.k, iters=args.iters, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        max_worker_loss=max(args.max_worker_loss, 0), mesh=mesh,
+        chunk_rows=-(-args.chunk // mesh.num_workers))
+    print(benchmark_json("kmeans_stream_elastic_cli", {
+        "k": args.k, "iters": args.iters, "n": args.n, "d": args.d,
+        "inertia": None if ad.sat_out else ad.metric(),
+        "n_workers": ad.mesh.num_workers if ad.mesh.is_member else 0,
+        "worker_losses": ad.losses, "ckpt_dir": args.ckpt_dir},
+        mesh.device))
+    maybe_emit("kmeans_stream")
+    return 0
+
+
 def main(argv=None):
     import argparse
 
@@ -871,16 +907,21 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="require a resume: --ckpt-dir must already hold a "
                         "checkpoint")
-    p.add_argument("--elastic", action="store_true", help="not ported yet")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic Lloyd: take mid-run skew_trigger findings "
+                        "between sweeps (rebalance point packs) and "
+                        "checkpoint mesh-independent centroids")
     p.add_argument("--max-worker-loss", type=int, default=0,
-                   help="not ported yet")
+                   help="elastic: survive up to N permanent worker losses "
+                        "by shrinking to the survivors and replaying the "
+                        "repartition plan from the last checkpoint "
+                        "(implies --elastic; needs --ckpt-dir to resume)")
     p.add_argument("--device", default=None,
                    help="torch device (default: this worker's card; 'cpu' "
                         "runs on the CPU)")
     args = p.parse_args(argv)
     if args.elastic or args.max_worker_loss:
-        raise NotImplementedError("--elastic/--max-worker-loss are "
-                                  + _NOT_PORTED.format(item=8))
+        return _elastic_main(args)
     from harp_tpu_torch.utils.fault import resolve_resume
 
     resumed_from = resolve_resume(args.ckpt_dir, args.resume)

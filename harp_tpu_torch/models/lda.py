@@ -56,9 +56,14 @@ recovered chain is the uninterrupted one; the CLI samples with
 ``--ckpt-dir``/``--resume`` and reads ``doc word [count]`` rows with
 ``--input``.
 
-Not ported yet (ROADMAP.md, Queue 1): ``--elastic``/``--max-worker-loss``
-(item 8) and ``benchmark(pack_cache=...)`` (item 4); each raises
-``NotImplementedError``.
+``--elastic``/``--max-worker-loss`` sample through
+:func:`harp_tpu_torch.elastic.apps.lda_elastic_fit`.  A sweep call is one
+dispatch (``lda.epoch`` on the flight recorder) ending in one readback,
+which carries the per-worker token counts to the skew ledger; with
+telemetry on, loading a corpus records the partition's per-worker tokens.
+
+Not ported yet (ROADMAP.md, Queue 1, item 4): ``benchmark(pack_cache=...)``;
+it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
 from harp_tpu_torch.parallel.rotate import (ROTATE_WIRES, resident_chunk_index,
                                            rotate_pipeline)
-from harp_tpu_torch.utils import telemetry
+from harp_tpu_torch.utils import flightrec, skew, telemetry
 
 _ITEM = "not ported yet (ROADMAP.md, Queue 1, item {})"
 
@@ -314,6 +319,10 @@ class LDA:
         self._gen.manual_seed(seed * 65_537 + self.mesh.rank)
         self._tokens = None
         self.last_work = None
+        # per-worker [(pack_id, load)] grains the elastic loop sets, so
+        # the skew trigger's plan moves whole packs
+        self.skew_units = None
+        self._sweeps_fn = flightrec.track(self._sweeps, "lda.epoch")
         # pushpull: tokens skipped by pull_cap drops in the last
         # sample_epoch/sample_epochs call, over all workers
         self.last_dropped = 0
@@ -435,6 +444,10 @@ class LDA:
         self._tokens = tuple(sh(a, 0) for a in st["tokens"])
         self._tokens_host = tuple(np.asarray(a) for a in pack["tokens"])
         self.n_tokens = int(pack["n_tokens"])
+        if telemetry.enabled():
+            _, _, gm = self._global_token_ids(self._tokens_host)
+            skew.record_partition("lda.partition", gm.reshape(n, -1).sum(1),
+                                  unit="tokens", padded_total=gm.size)
         self._plans = None
         if cfg.algo in _TILED_ALGOS:
             lo = self.mesh.rank * self._n_slices
@@ -595,11 +608,12 @@ class LDA:
             else:
                 work = self._epoch(noise)
         if drop is not None:  # one stacked readback
-            stats = torch.cat([drop.to(torch.float32)[None], work]).cpu()
+            stats = flightrec.readback(
+                torch.cat([drop.to(torch.float32)[None], work]))
             self.last_dropped = int(stats[0])
-            self.last_work = stats[1:].numpy()
+            self.last_work = stats[1:]
         elif work is not None:
-            self.last_work = work.cpu().numpy()
+            self.last_work = flightrec.readback(work)
 
     def sample_epoch(self, noise: NoiseFn | None = None):
         """One Gibbs sweep, ending in one readback (the work vector, and
@@ -608,7 +622,12 @@ class LDA:
         self._require_tokens("sample_epoch")
         with telemetry.span("lda.epoch"), \
                 telemetry.ledger.run("lda.epochs", steps=1):
-            self._sweeps(1, noise)
+            t0 = time.perf_counter()
+            self._sweeps_fn(1, noise)
+            skew.record_execution("lda.epochs", self.last_work,
+                                  unit="tokens",
+                                  wall_s=time.perf_counter() - t0,
+                                  units=self.skew_units)
 
     def sample_epochs(self, epochs: int):
         """``epochs`` sweeps as a Python loop that never waits for the
@@ -616,7 +635,13 @@ class LDA:
         self._require_tokens("sample_epochs")
         with telemetry.span("lda.epochs", epochs=epochs), \
                 telemetry.ledger.run("lda.epochs", steps=epochs):
-            self._sweeps(epochs)
+            t0 = time.perf_counter()
+            self._sweeps_fn(epochs)
+            if self.last_work is not None:
+                skew.record_execution("lda.epochs", self.last_work,
+                                      unit="tokens",
+                                      wall_s=time.perf_counter() - t0,
+                                      units=self.skew_units)
 
     def fit(self, epochs: int, ckpt_dir: str | None = None, *,
             ckpt_every: int = 5, max_restarts: int = 3, fault=None):
@@ -915,17 +940,54 @@ def main(argv=None):
                    help="token files ('doc word [count]' rows); implies "
                         "sampling mode. --docs/--vocab are raised to max "
                         "id + 1 as needed")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic training: take mid-run skew_trigger "
+                        "findings between sweeps (rebalance doc packs, "
+                        "chain kept) and checkpoint mesh-independent state")
     p.add_argument("--max-worker-loss", type=int, default=0,
-                   help="not ported yet")
-    p.add_argument("--elastic", action="store_true", help="not ported yet")
+                   help="elastic: survive up to N permanent worker losses "
+                        "by shrinking to the survivors and replaying the "
+                        "repartition plan from the last checkpoint "
+                        "(implies --elastic; needs --ckpt-dir to resume)")
     args = p.parse_args(argv)
-    if args.elastic or args.max_worker_loss:
-        raise NotImplementedError(
-            "--elastic/--max-worker-loss are " + _ITEM.format(8))
+    from harp_tpu_torch.report import maybe_emit
     from harp_tpu_torch.utils.fault import resolve_resume
 
     resumed_from = resolve_resume(args.ckpt_dir, args.resume)
     mesh = WorkerMesh(args.device)
+    if args.elastic or args.max_worker_loss:
+        if args.input:
+            raise SystemExit(
+                "--elastic pairs with the synthetic corpus; use "
+                "--docs/--vocab/--tokens-per-doc (file inputs ride the "
+                "non-elastic fit)")
+        from harp_tpu_torch.elastic.apps import lda_elastic_fit
+
+        n_docs, vocab = args.docs or 100_000, args.vocab or 50_000
+        d_ids, w_ids = synthetic_corpus(n_docs, vocab,
+                                        max(2, args.topics // 8),
+                                        args.tokens_per_doc)
+        ad = lda_elastic_fit(
+            d_ids, w_ids, n_docs=n_docs, vocab_size=vocab,
+            cfg=_make_cfg(args.topics, args.algo, args.chunk,
+                          args.d_tile, args.w_tile, args.entry_cap,
+                          args.pull_cap, args.ndk_dtype,
+                          False if args.no_dedup_pulls else None,
+                          args.sampler, args.rng_impl,
+                          rotate_chunks=args.rotate_chunks,
+                          rotate_wire=args.rotate_wire),
+            epochs=args.epochs, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every,
+            max_worker_loss=max(args.max_worker_loss, 0), mesh=mesh)
+        print(benchmark_json("lda_elastic_cli", {
+            "epochs": args.epochs,
+            "log_likelihood": (None if ad.sat_out
+                               else round(ad.metric(), 4)),
+            "n_workers": ad.mesh.num_workers if ad.mesh.is_member else 0,
+            "worker_losses": ad.losses, "ckpt_dir": args.ckpt_dir},
+            mesh.device))
+        maybe_emit("lda")
+        return 0
     if args.input or args.ckpt_dir:
         if args.input:
             from harp_tpu_torch.native.datasource import load_triples_glob
@@ -968,6 +1030,7 @@ def main(argv=None):
             "resumed_from": resumed_from,
             "log_likelihood": round(model.log_likelihood(), 4)},
             mesh.device))
+        maybe_emit("lda")
         return 0
     print(benchmark_json("lda_cli", benchmark(
         args.docs or 100_000, args.vocab or 50_000, args.topics,
@@ -979,6 +1042,7 @@ def main(argv=None):
         sampler=args.sampler, rng_impl=args.rng_impl,
         rotate_chunks=args.rotate_chunks, rotate_wire=args.rotate_wire),
         mesh.device))
+    maybe_emit("lda")
     return 0
 
 

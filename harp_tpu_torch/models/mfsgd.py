@@ -26,11 +26,19 @@ schedule skips entries without a rating.
 
 ``fit(epochs, ckpt_dir)`` checkpoints each worker's W and H shards through
 :func:`harp_tpu_torch.utils.fault.fit_epochs`; the CLI trains with
-``--ckpt-dir``/``--resume`` and reads rating triples with ``--input``.
+``--ckpt-dir``/``--resume`` and reads rating triples with ``--input``, and
+``--elastic``/``--max-worker-loss`` train through
+:func:`harp_tpu_torch.elastic.apps.mfsgd_elastic_fit`.
 
-Not ported yet (ROADMAP.md, Queue 1): ``--elastic``/``--max-worker-loss``
-(item 8) and ``carry_w`` (a lever of the reference's XLA path; item 4);
-each raises ``NotImplementedError``.
+``train_epoch`` is one dispatch (``mfsgd.epoch`` on the flight recorder)
+and one readback of its statistics, which carries the per-worker rating
+counts to the skew ledger (``skew.record_execution``); ``train_epochs``
+is one dispatch (``mfsgd.epochs``) and one readback for all its epochs.
+With telemetry on, ``set_ratings`` records the partition's per-worker
+ratings.
+
+Not ported yet (ROADMAP.md, Queue 1, item 4): ``carry_w`` (a lever of the
+reference's XLA path); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
 from harp_tpu_torch.parallel.rotate import (ROTATE_WIRES, resident_chunk_index,
                                            rotate_pipeline)
-from harp_tpu_torch.utils import telemetry
+from harp_tpu_torch.utils import flightrec, skew, telemetry
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {})"
 
@@ -305,6 +313,11 @@ class MFSGD:
         self.H = self.mesh.shard_array(state["H"], 0)
         self._blocks = None
         self._schedules = None
+        # per-worker [(pack_id, load)] grains the elastic loop sets, so
+        # the skew trigger's plan moves whole packs
+        self.skew_units = None
+        self._epoch_fn = flightrec.track(self._epoch, "mfsgd.epoch")
+        self._epochs_fn = flightrec.track(self._epochs, "mfsgd.epochs")
 
     def set_ratings(self, users, items, vals):
         """Partition the global rating triples (every worker passes the
@@ -319,6 +332,11 @@ class MFSGD:
                 users, items, vals, self.n_users, self.n_items, n, ut, it,
                 self.cfg.entry_cap, n_slices=ns)
             assert (uo, io) == (self.u_own, self.i_own)
+            if telemetry.enabled():
+                valid = eu < ut  # the real ratings of each block
+                skew.record_partition(
+                    "mfsgd.partition", valid.reshape(n, -1).sum(1),
+                    unit="ratings", padded_total=valid.size)
             blocks = (eu, ei, ev, ou, oi)
             lo = self.mesh.rank * ns
             self._schedules = [K3.LevelSchedule.build(
@@ -328,6 +346,10 @@ class MFSGD:
             bu, bi, bv, bm, ub, ibc = partition_ratings(
                 users, items, vals, self.n_users, self.n_items, n,
                 self.cfg.chunk, n_slices=ns)
+            if telemetry.enabled():
+                skew.record_partition(
+                    "mfsgd.partition", (bm > 0).reshape(n, -1).sum(1),
+                    unit="ratings", padded_total=bm.size)
             blocks = (bu, bi, bv, bm)
         assert (ub, nc * ibc) == (self.u_bound, self.i_bound)
         self._blocks = tuple(self.mesh.shard_array(a, 0) for a in blocks)
@@ -368,33 +390,56 @@ class MFSGD:
         se, cnt = C.allreduce((se, cnt))
         return W, H, se, cnt, work
 
+    def _epochs(self, W, H, epochs: int):
+        """``epochs`` epochs in one call: ``(W, H, stats)``, stats every
+        epoch's (se, cnt) then the last epoch's per-worker counts."""
+        stats = []
+        for _ in range(epochs):
+            W, H, se, cnt, work = self._epoch(W, H)
+            stats += [se, cnt]
+        return W, H, torch.cat([torch.stack(stats), work.reshape(-1)])
+
     def _require_ratings(self, what: str) -> None:
         if self._blocks is None:
             raise RuntimeError(f"call set_ratings() before {what}()")
 
     def train_epoch(self) -> float:
-        """One rotation epoch; returns the training RMSE over the visited
-        ratings (one readback)."""
+        """One rotation epoch (one dispatch); returns the training RMSE
+        over the visited ratings.  Its one readback also carries the
+        per-worker rating counts to the skew ledger."""
         self._require_ratings("train_epoch")
         with telemetry.span("mfsgd.epoch"), \
                 telemetry.ledger.run("mfsgd.epochs", steps=1):
-            self.W, self.H, se, cnt, _ = self._epoch(self.W, self.H)
-            se, cnt = torch.stack([se, cnt]).cpu().tolist()
-        return float(np.sqrt(max(se, 0.0) / max(cnt, 1.0)))
+            t0 = time.perf_counter()
+            self.W, self.H, se, cnt, work = self._epoch_fn(self.W, self.H)
+            stats = flightrec.readback(torch.cat([torch.stack([se, cnt]),
+                                                  work.reshape(-1)]))
+            skew.record_execution("mfsgd.epochs", stats[2:],
+                                  unit="ratings",
+                                  wall_s=time.perf_counter() - t0,
+                                  units=self.skew_units)
+        return float(np.sqrt(max(float(stats[0]), 0.0)
+                             / max(float(stats[1]), 1.0)))
 
     def train_epochs(self, epochs: int) -> list[float]:
         """``epochs`` epochs as a Python loop that never waits for the
-        device, with ONE readback of every epoch's statistics at its end;
-        returns the per-epoch RMSEs."""
+        device, with ONE readback of every epoch's statistics (and the
+        last epoch's per-worker rating counts) at its end; returns the
+        per-epoch RMSEs."""
         self._require_ratings("train_epochs")
-        stats = []
+        if epochs <= 0:
+            return []
         with telemetry.span("mfsgd.epochs", epochs=epochs), \
                 telemetry.ledger.run("mfsgd.epochs", steps=epochs):
-            for _ in range(epochs):
-                self.W, self.H, se, cnt, _ = self._epoch(self.W, self.H)
-                stats.append(torch.stack([se, cnt]))
-            stats = torch.stack(stats).cpu().numpy() if stats else []
-        return [float(np.sqrt(max(s, 0.0) / max(c, 1.0))) for s, c in stats]
+            t0 = time.perf_counter()
+            self.W, self.H, stats = self._epochs_fn(self.W, self.H, epochs)
+            got = flightrec.readback(stats)
+            skew.record_execution("mfsgd.epochs", got[2 * epochs:],
+                                  unit="ratings",
+                                  wall_s=time.perf_counter() - t0,
+                                  units=self.skew_units)
+        pairs = got[:2 * epochs].reshape(epochs, 2)
+        return [float(np.sqrt(max(s, 0.0) / max(c, 1.0))) for s, c in pairs]
 
     def fit(self, epochs: int, ckpt_dir: str | None = None, *,
             ckpt_every: int = 5, max_restarts: int = 3, fault=None):
@@ -564,17 +609,50 @@ def main(argv=None):
                    help="rating triple files ('user item rating' rows, e.g. "
                         "MovieLens); implies training mode. --users/--items "
                         "default to max id + 1")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic training: take mid-run skew_trigger "
+                        "findings between epochs (rebalance user packs "
+                        "over the reshard verb) and checkpoint "
+                        "mesh-independent state")
     p.add_argument("--max-worker-loss", type=int, default=0,
-                   help="not ported yet")
-    p.add_argument("--elastic", action="store_true", help="not ported yet")
+                   help="elastic: survive up to N permanent worker losses "
+                        "by shrinking to the survivors and replaying the "
+                        "repartition plan from the last checkpoint "
+                        "(implies --elastic; needs --ckpt-dir to resume)")
     args = p.parse_args(argv)
-    if args.elastic or args.max_worker_loss:
-        raise NotImplementedError(
-            "--elastic/--max-worker-loss are " + _NOT_PORTED.format(8))
+    from harp_tpu_torch.report import maybe_emit
     from harp_tpu_torch.utils.fault import resolve_resume
 
     resumed_from = resolve_resume(args.ckpt_dir, args.resume)
     mesh = WorkerMesh(args.device)
+    if args.elastic or args.max_worker_loss:
+        if args.input:
+            raise SystemExit(
+                "--elastic pairs with the synthetic corpus; use "
+                "--users/--items/--nnz (file inputs ride the non-elastic "
+                "fit)")
+        from harp_tpu_torch.elastic.apps import mfsgd_elastic_fit
+
+        n_users = args.users or 138_493
+        n_items = args.items or 26_744
+        u, i, v = synthetic_ratings(n_users, n_items, args.nnz)
+        ad = mfsgd_elastic_fit(
+            u, i, v, n_users=n_users, n_items=n_items,
+            cfg=_make_config(args.rank, args.chunk, args.algo,
+                             args.u_tile, args.i_tile, args.entry_cap,
+                             rotate_chunks=args.rotate_chunks,
+                             rotate_wire=args.rotate_wire),
+            epochs=args.epochs, ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every,
+            max_worker_loss=max(args.max_worker_loss, 0), mesh=mesh)
+        print(benchmark_json("mfsgd_elastic_cli", {
+            "epochs": args.epochs,
+            "rmse_final": None if ad.sat_out else ad.metric(),
+            "n_workers": ad.mesh.num_workers if ad.mesh.is_member else 0,
+            "worker_losses": ad.losses, "ckpt_dir": args.ckpt_dir},
+            mesh.device))
+        maybe_emit("mfsgd")
+        return 0
     if args.input or args.ckpt_dir:
         if args.input:
             from harp_tpu_torch.native.datasource import load_triples_glob
@@ -613,6 +691,7 @@ def main(argv=None):
             "nnz": len(u), "users": n_users, "items": n_items,
             "ckpt_dir": args.ckpt_dir, "resumed_from": resumed_from},
             mesh.device))
+        maybe_emit("mfsgd")
         return 0
     print(benchmark_json("mfsgd_cli", benchmark(
         args.users or 138_493, args.items or 26_744, args.nnz, args.rank,
@@ -620,6 +699,7 @@ def main(argv=None):
         u_tile=args.u_tile, i_tile=args.i_tile, entry_cap=args.entry_cap,
         rotate_chunks=args.rotate_chunks, rotate_wire=args.rotate_wire),
         mesh.device))
+    maybe_emit("mfsgd")
     return 0
 
 

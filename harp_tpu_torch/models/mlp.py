@@ -33,8 +33,9 @@ reproduced), seeded alike on every worker.
 ``fit_ckpt`` trains epochs of :meth:`MLPTrainer.fit_resident` with
 checkpoint/resume (:func:`harp_tpu_torch.utils.fault.fit_epochs`).
 
-Not ported yet (ROADMAP.md, Queue 1, item 8): the flight-recorder budget
-around ``fit``'s epoch.
+With telemetry on, each epoch of :meth:`MLPTrainer.fit` is held to a
+warn-mode flight budget: exactly this worker's batch bytes cross to the
+device, and nothing is built after the first epoch.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from harp_tpu_torch.models.kmeans import _exact_f32
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import (Mesh2D, WorkerMesh, mesh_2d,
                                          num_workers, resolve_mesh, worker_id)
+from harp_tpu_torch.utils import flightrec
 from harp_tpu_torch.utils.timing import device_sync
 
 
@@ -492,17 +494,22 @@ class MLPTrainer:
             xb, yb = batch
             return np.asarray(xb, np.float32), np.asarray(yb, np.int64)
 
+        # this worker's f32 rows and int64 labels of every batch
+        epoch_bytes = n_batches * (batch_size // nw) * (x.shape[1] * 4 + 8)
         history = []
         with IngestPipeline(_batch_reader(x, y, batch_size, order), prep,
                             lambda b: self._shard(*b), depth=max(1, prefetch),
                             tag="mlp.fit") as pipe:
-            for _ in range(epochs):
+            for e in range(epochs):
                 order[:] = rng.permutation(n_batches)
-                for xb, yb in pipe.stream(n_batches):
-                    self.params, self.opt_state, loss, acc = self._step(
-                        self.params, self.opt_state, xb, yb)
-                    history.append((float(device_sync(loss)),
-                                    float(device_sync(acc))))
+                with flightrec.budget(h2d_bytes=epoch_bytes,
+                                      compiles=None if e == 0 else 0,
+                                      action="warn", tag="mlp.fit.ingest"):
+                    for xb, yb in pipe.stream(n_batches):
+                        self.params, self.opt_state, loss, acc = self._step(
+                            self.params, self.opt_state, xb, yb)
+                        history.append((float(device_sync(loss)),
+                                        float(device_sync(acc))))
         return history
 
     @torch.no_grad()

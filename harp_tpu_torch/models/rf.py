@@ -26,8 +26,11 @@ another stream than the reference's threefry, with the same distributions.
 ``RandomForest._fit(x, y, draws)`` takes the draws instead (the tests hand
 in the reference's).
 
-Not ported yet: the telemetry, skew and flight-recorder hooks of
-``fit``/``predict`` (ROADMAP.md, Queue 1, item 8).
+Telemetry: with it on, ``fit`` records the even row partition on the skew
+ledger (``rf.partition``, the balanced baseline other phases compare
+against) and holds its placement to a warn-mode flight budget (no
+compiles, exactly the bins and labels this worker ships); ``predict`` is
+one dispatch (``rf.predict``).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from harp_tpu_torch.models.kmeans import _exact_f32
 from harp_tpu_torch.ops import rf_kernel
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
-from harp_tpu_torch.utils import telemetry
+from harp_tpu_torch.utils import flightrec, skew, telemetry
 
 
 @dataclasses.dataclass
@@ -292,6 +295,10 @@ class RandomForest:
         n = (x.shape[0] // nw) * nw
         x, y = x[:n], y[:n]
         _exact_f32(dev)
+        if telemetry.enabled():
+            # rows shard evenly by construction (the truncation above)
+            skew.record_partition("rf.partition", np.full(nw, n // nw),
+                                  unit="rows", padded_total=n)
         self.edges = quantile_bins(x, cfg.n_bins)
         bins = binize_chunked(x, self.edges)
         # bins < n_bins <= 256 ride as bytes (a quarter of K7's reads)
@@ -300,9 +307,13 @@ class RandomForest:
                               for a in draws)
         with telemetry.span("rf.fit", trees=cfg.n_trees), \
                 telemetry.ledger.run("rf.fit"):
-            trees = _train_trees(self.mesh.shard_array(bins, 0),
-                                 self.mesh.shard_array(y.astype(np.int64), 0),
-                                 weights, feat_mask, cfg)
+            # this worker's bins and labels, and nothing built
+            with flightrec.budget(compiles=0,
+                                  h2d_bytes=(bins.nbytes + n * 8) // nw,
+                                  action="warn", tag="rf.ingest"):
+                bins_d = self.mesh.shard_array(bins, 0)
+                y_d = self.mesh.shard_array(y.astype(np.int64), 0)
+            trees = _train_trees(bins_d, y_d, weights, feat_mask, cfg)
             # Harp step: allgather the local trees -> the forest everywhere
             self.forest = tuple(a.cpu().numpy() for a in C.allgather(trees))
         return self
@@ -314,8 +325,9 @@ class RandomForest:
         bins = torch.from_numpy(binize(np.asarray(x, np.float32),
                                        self.edges)).to(dev)
         forest = tuple(torch.from_numpy(a).to(dev) for a in self.forest)
-        return predict_forest(forest, bins, self.cfg.max_depth,
-                              self.cfg.n_classes).cpu().numpy()
+        fn = flightrec.track(predict_forest, "rf.predict")
+        return fn(forest, bins, self.cfg.max_depth,
+                  self.cfg.n_classes).cpu().numpy()
 
     def accuracy(self, x, y):
         return float((self.predict(x) == np.asarray(y)).mean())

@@ -34,8 +34,9 @@ Counts are f32, as in the reference; below 2^24 every sum is exact, so
 small graphs agree bit for bit whatever the summation order.  The count
 path's products run in full f32 (TF32 off on the card).
 
-Not ported yet (ROADMAP.md, Queue 1, item 8): the partition skew record
-(``skew.record_partition``) and the flight-recorder hook around the DP.
+With telemetry on, the partition's real adjacency entries per worker go
+to the skew ledger (``subgraph.partition``), and each trial chunk's DP is
+one dispatch (``subgraph.count``) on the flight recorder.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ import torch
 from harp_tpu_torch.models.kmeans import _exact_f32
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
-from harp_tpu_torch.utils import telemetry
+from harp_tpu_torch.utils import flightrec, skew, telemetry
 
 # ---------------------------------------------------------------------------
 # Templates: rooted trees given as parent lists (parent[i] < i, parent[0] =
@@ -401,12 +402,21 @@ def count_template(edges, n_vertices, cfg: SubgraphConfig,
                                         cfg.overflow_entry_tile)
     else:
         ovf = _partition_overflow(overflow, n_pad, nw)
+    if telemetry.enabled():
+        # real adjacency entries per worker: where "one worker holds the
+        # hub" shows
+        skew.record_partition(
+            "subgraph.partition",
+            msk.reshape(nw, -1).sum(1), unit="edges",
+            padded_total=msk.size)
     nbr_d = mesh.shard_array(nbr, 0).long()
     msk_d = mesh.shard_array(msk, 0)
     ovf_d = tuple(mesh.shard_array(a, 0).long() if a.dtype == np.int32
                   else mesh.shard_array(a, 0) for a in ovf)
-    fn = make_colorful_count_fn(tpl, k, mesh, cfg.overflow_algo,
-                                cfg.overflow_row_tile)
+    fn = flightrec.track(make_colorful_count_fn(tpl, k, mesh,
+                                                cfg.overflow_algo,
+                                                cfg.overflow_row_tile),
+                         "subgraph.count")
 
     rng = np.random.default_rng(cfg.seed)
     chunk = max(1, min(cfg.n_trials, cfg.trial_chunk))
@@ -417,7 +427,7 @@ def count_template(edges, n_vertices, cfg: SubgraphConfig,
         outs = [fn(nbr_d, msk_d, *ovf_d,
                    mesh.shard_array(colors[lo:lo + chunk], 1))
                 for lo in range(0, t_pad, chunk)]
-    rooted = torch.cat(outs).cpu().numpy()[: cfg.n_trials]  # one readback
+    rooted = flightrec.readback(torch.cat(outs))[: cfg.n_trials]
     if split is not None:
         split["prep_sec"] = t1 - t0
         split["dp_sec"] = time.perf_counter() - t1

@@ -55,7 +55,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from harp_tpu_torch.parallel.mesh import num_workers, worker_id
+from harp_tpu_torch.parallel.mesh import (active_group, global_rank,
+                                          num_workers, worker_id)
 from harp_tpu_torch.utils.telemetry import record_comm, tree_leaves
 
 
@@ -75,7 +76,7 @@ def tree_map(fn: Callable, tree: Any):
 def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
     y = x.clone()
     if num_workers() > 1:
-        dist.all_reduce(y, op)
+        dist.all_reduce(y, op, group=active_group())
     return y
 
 
@@ -93,7 +94,7 @@ def _all_gather_stack(x: torch.Tensor) -> torch.Tensor:
         return x.unsqueeze(0).clone()
     wire = (x.to(torch.uint8) if x.dtype == torch.bool else x).reshape(1, -1)
     out = torch.empty((nw, wire.shape[1]), dtype=wire.dtype, device=x.device)
-    _ALL_GATHER(out, wire.contiguous())
+    _ALL_GATHER(out, wire.contiguous(), group=active_group())
     return out.reshape(nw, *x.shape).to(x.dtype)
 
 
@@ -149,7 +150,7 @@ def allgather(tree: Any, *, tiled: bool = True):
 def _bcast(x: torch.Tensor, root: int) -> torch.Tensor:
     y = (x.to(torch.uint8) if x.dtype == torch.bool else x).clone()
     if num_workers() > 1:
-        dist.broadcast(y, src=root)
+        dist.broadcast(y, src=global_rank(root), group=active_group())
     return y.to(x.dtype)
 
 
@@ -222,7 +223,8 @@ def _push_leaf(x: torch.Tensor, comb: Combiner, scatter_dim: int
         else:
             out = torch.empty((block, *y.shape[1:]), dtype=y.dtype,
                               device=y.device)
-            _REDUCE_SCATTER(out, y, dist.ReduceOp.SUM)
+            _REDUCE_SCATTER(out, y, dist.ReduceOp.SUM,
+                            group=active_group())
         out = out.movedim(0, scatter_dim).contiguous()
         return out / nw if comb is Combiner.AVG else out
     # MAX/MIN have no reduce-scatter on every backend: reduce, then keep
@@ -259,7 +261,7 @@ def barrier() -> torch.Tensor:
     z = torch.zeros((), dtype=torch.int32)
     record_comm("barrier", z)
     if num_workers() > 1:
-        dist.barrier()
+        dist.barrier(group=active_group())
     return z
 
 
@@ -286,9 +288,10 @@ def _ring_move(x: torch.Tensor, shift: int) -> torch.Tensor:
     recv = torch.empty_like(send)
     # both sides are posted before any wait: a blocking send-first pair
     # deadlocks gloo, whose sends complete only when received
+    g = active_group()
     works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, (me + shift) % nw),
-        dist.P2POp(dist.irecv, recv, (me - shift) % nw)])
+        dist.P2POp(dist.isend, send, global_rank((me + shift) % nw), g),
+        dist.P2POp(dist.irecv, recv, global_rank((me - shift) % nw), g)])
     for w in works:
         w.wait()
     return recv.to(x.dtype)
@@ -332,7 +335,7 @@ def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int
     # stage [nw, *block]: block j, contiguous, at index j
     stage = torch.stack(wire.chunk(nw, dim=split_dim)).contiguous()
     recv = torch.empty_like(stage)
-    dist.all_to_all_single(recv, stage)
+    dist.all_to_all_single(recv, stage, group=active_group())
     return torch.cat(list(recv.unbind(0)), dim=concat_dim).to(x.dtype)
 
 
@@ -782,25 +785,35 @@ def _hier_groups(group_size: int) -> tuple:
     ``group_size`` workers, and the groups of their equal ranks.  ``None``
     stands for the default group and ``False`` for a stage whose groups
     are single workers (nothing to reduce).  Creating a group is a
-    collective of every worker, so the groups are made once per world and
-    size, every worker creating every group in the same order."""
+    collective of every worker, so the groups are made once per world,
+    group in use and size, every worker creating every group in the same
+    order."""
     n, me = num_workers(), worker_id()
+    active = active_group()
     if group_size == 1:
-        return False, None
+        return False, active
     if group_size == n:
-        return None, False
+        return active, False
     if _HIER["world"] is not dist.group.WORLD:
         _HIER["world"], _HIER["groups"] = dist.group.WORLD, {}
-    if group_size not in _HIER["groups"]:
+    key = (group_size, active)
+    if key not in _HIER["groups"]:
+        if active is None:
+            make = dist.new_group
+        else:  # within a subgroup: its members make the groups
+            from harp_tpu_torch.parallel.mesh import subgroup
+
+            def make(r):
+                return subgroup([global_rank(x) for x in r], active)
         mine = []
         for ranks in ([list(range(g * group_size, (g + 1) * group_size))
                        for g in range(n // group_size)],
                       [list(range(i, n, group_size))
                        for i in range(group_size)]):
-            made = [dist.new_group(r) for r in ranks]
+            made = [make(r) for r in ranks]
             mine.append(next(g for g, r in zip(made, ranks) if me in r))
-        _HIER["groups"][group_size] = tuple(mine)
-    return _HIER["groups"][group_size]
+        _HIER["groups"][key] = tuple(mine)
+    return _HIER["groups"][key]
 
 
 def allreduce_hier(tree: Any, *, group_size: int | None = None):

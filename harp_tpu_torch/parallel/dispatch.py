@@ -6,12 +6,18 @@ fixed ``capacity`` of slots, so every worker sends the same number of
 bytes to every other (the exchange is one ``regroup``).  Items past a
 bucket's capacity go to a trash slot that is cut off before the exchange,
 and are counted as dropped.  MoE dispatch (:mod:`harp_tpu_torch.ops.moe`)
-routes its tokens through it.
+routes its tokens through it.  With telemetry on, the staged buffers'
+bytes (every capacity slot, filled or not: what the exchange moves) are
+recorded on the flight recorder as ``bucket`` bytes.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from harp_tpu_torch.utils import flightrec, telemetry
 
 
 def bucket_by_destination(dest: torch.Tensor, payloads, capacity: int,
@@ -35,6 +41,10 @@ def bucket_by_destination(dest: torch.Tensor, payloads, capacity: int,
       dropped_local: int32 scalar, this worker's dropped VALID items.
     """
     n = dest.shape[0]
+    if telemetry.enabled():
+        flightrec.record_bucket(sum(
+            n_dest * capacity * math.prod(p.shape[1:]) * p.element_size()
+            for p in payloads))
     dest = dest.to(torch.int64)
     # one_hot of an id out of [0, n_dest) is a zero row, as jax.nn.one_hot
     onehot = (dest[:, None] == torch.arange(n_dest, device=dest.device)

@@ -15,6 +15,15 @@ harp_tpu_torch      Harp (``edu.iu.harp.worker.Workers``)
 ``is_master``       ``isMaster()``
 ``device``          the worker's card (or the CPU, on request)
 ==================  =========================================
+
+**Groups.**  A mesh may stand for a subgroup of the world: ``group`` is a
+``torch.distributed`` process group (None: the default group).
+:meth:`WorkerMesh.survivors` makes one without a lost worker — the elastic
+shrink.  :func:`num_workers`, :func:`worker_id` and every collective verb
+read the group of the mesh in use (:func:`use_mesh`, :func:`set_mesh`), so
+code that runs on the whole world is unchanged.  A verb names its peers by
+their rank in that group; :func:`global_rank` maps a group rank to the
+world rank that point-to-point calls take.
 """
 
 from __future__ import annotations
@@ -62,14 +71,58 @@ def init_distributed(init_method: str | None = None,
         timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def active_group():
+    """The process group of the mesh in use (None: the default group)."""
+    return None if _CURRENT_MESH is None else _CURRENT_MESH.group
+
+
 def worker_id() -> int:
-    """This worker's rank — Harp's ``getSelfID()``."""
-    return dist.get_rank() if dist.is_initialized() else 0
+    """This worker's rank in the group in use — Harp's ``getSelfID()``."""
+    if not dist.is_initialized():
+        return 0
+    return dist.get_rank(active_group())
 
 
 def num_workers() -> int:
-    """Worker count — Harp's ``getNumWorkers()``."""
-    return dist.get_world_size() if dist.is_initialized() else 1
+    """Worker count of the group in use — Harp's ``getNumWorkers()``."""
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(active_group())
+
+
+def global_rank(rank: int) -> int:
+    """The world rank of ``rank`` of the group in use (point-to-point calls
+    and a broadcast's root take world ranks)."""
+    g = active_group()
+    return rank if g is None else dist.get_global_rank(g, rank)
+
+
+#: subgroups made by :func:`subgroup`, keyed by (world group, parent group,
+#: world ranks)
+_SUBGROUPS: dict = {}
+
+
+def subgroup(ranks, parent=None) -> object:
+    """A process group of the given world ``ranks``, made once a world and
+    parent, inside the group ``parent`` (None: the world).
+
+    Within the world, every worker of the world calls it (``dist.new_group``
+    is then a collective of the world; a worker outside ``ranks`` gets the
+    non-member marker).  Within a subgroup, only the members of the new
+    group call ``dist.new_group`` (local synchronisation), so a worker that
+    has left the run never has to take part; such a group's name counts the
+    groups each member has made, so the members must have made the same
+    ones.  The group is cached by its ranks."""
+    key = (dist.group.WORLD, parent, tuple(sorted(int(r) for r in ranks)))
+    if key not in _SUBGROUPS:
+        if parent is None:
+            g = dist.new_group(list(key[2]))
+        else:
+            g = dist.new_group(list(key[2]), use_local_synchronization=True)
+        # a non-member gets None back (or the marker): keep the marker
+        _SUBGROUPS[key] = dist.GroupMember.NON_GROUP_MEMBER if g is None \
+            else g
+    return _SUBGROUPS[key]
 
 
 def is_master() -> bool:
@@ -79,18 +132,54 @@ def is_master() -> bool:
 
 class WorkerMesh:
     """The worker group as seen by this process: its rank, the group's
-    size and this worker's device."""
+    size and this worker's device.  ``group``: the process group the mesh
+    stands for (None: the default group); a worker outside it is not a
+    member (:attr:`is_member`) and takes no part in its runs."""
 
-    def __init__(self, device: "torch.device | str | None" = None):
+    def __init__(self, device: "torch.device | str | None" = None, *,
+                 group=None):
         self.device = resolve_device(device)
+        self.group = group
+
+    @property
+    def is_member(self) -> bool:
+        return self.group is not dist.GroupMember.NON_GROUP_MEMBER
 
     @property
     def num_workers(self) -> int:
-        return num_workers()
+        if not dist.is_initialized():
+            return 1
+        return dist.get_world_size(self.group)
 
     @property
     def rank(self) -> int:
-        return worker_id()
+        if not dist.is_initialized():
+            return 0
+        return dist.get_rank(self.group)
+
+    def world_ranks(self) -> list[int]:
+        """The world ranks of this mesh's workers, in group-rank order."""
+        if not dist.is_initialized():
+            return [0]
+        if self.group is None:
+            return list(range(dist.get_world_size()))
+        return [dist.get_global_rank(self.group, r)
+                for r in range(dist.get_world_size(self.group))]
+
+    def survivors(self, lost: int) -> "WorkerMesh":
+        """The mesh without worker ``lost`` (its rank in this mesh): the
+        elastic shrink.  Every worker of this mesh calls it, the lost one
+        included (on the world mesh, making the group is a collective of
+        the world); the lost worker gets a mesh it is not a member of
+        (:attr:`is_member` False) and sits the rest of the run out."""
+        n = self.num_workers
+        if not 0 <= lost < n:
+            raise ValueError(
+                f"lost worker {lost} is not on this mesh ({n} workers)")
+        if n < 2:
+            raise ValueError("cannot shrink a single-worker mesh")
+        ranks = [r for i, r in enumerate(self.world_ranks()) if i != lost]
+        return WorkerMesh(self.device, group=subgroup(ranks, self.group))
 
     def shard_array(self, x, dim: int = 0) -> torch.Tensor:
         """This worker's contiguous block of ``x`` along ``dim``, on
@@ -118,6 +207,8 @@ class WorkerMesh:
         return x.to(self.device)
 
     def __repr__(self) -> str:
+        if not self.is_member:
+            return f"WorkerMesh(not a member, device={self.device})"
         return (f"WorkerMesh(num_workers={self.num_workers}, "
                 f"rank={self.rank}, device={self.device})")
 
@@ -166,13 +257,19 @@ def mesh_2d(n_data: int, n_model: int, device=None) -> Mesh2D:
         return Mesh2D(n_data, n_model, 0, 0, None, None, dev)
     if _GRIDS["world"] is not dist.group.WORLD:
         _GRIDS["world"], _GRIDS["grids"] = dist.group.WORLD, {}
-    key = (n_data, n_model)
+    g = active_group()
+    key = (n_data, n_model, g)
     if key not in _GRIDS["grids"]:
         grid = np.arange(size).reshape(n_data, n_model)
         cols = [grid[:, j].tolist() for j in range(n_model)]
         rows = [grid[i].tolist() for i in range(n_data)]
-        _GRIDS["grids"][key] = ([dist.new_group(r) for r in cols],
-                                [dist.new_group(r) for r in rows])
+        if g is None:
+            make = dist.new_group
+        else:  # a subgroup's grid: world ranks, made by its members only
+            def make(r):
+                return subgroup([global_rank(x) for x in r], g)
+        _GRIDS["grids"][key] = ([make(r) for r in cols],
+                                [make(r) for r in rows])
     data_groups, model_groups = _GRIDS["grids"][key]
     if me >= size:
         return Mesh2D(n_data, n_model, None, None, None, None, dev)
@@ -192,6 +289,11 @@ def resolve_mesh(mesh: WorkerMesh | None, device) -> WorkerMesh:
         raise ValueError(f"device={device!r} disagrees with the mesh's "
                          f"{mesh.device}")
     return mesh
+
+
+def mesh_in_use() -> WorkerMesh | None:
+    """The mesh :func:`use_mesh` / :func:`set_mesh` put in use, if any."""
+    return _CURRENT_MESH
 
 
 def current_mesh() -> WorkerMesh:

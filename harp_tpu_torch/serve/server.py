@@ -772,13 +772,6 @@ def main(argv=None) -> int:
                    help="run on this device (default: this worker's "
                         "card; 'cpu' asks for the CPU)")
     args = p.parse_args(argv)
-    if telemetry.enabled():
-        # the reference's exit report (report.maybe_emit) pulls in the
-        # elastic, health, skew and memrec report sections
-        raise NotImplementedError(
-            "serve with telemetry on ends in the run report (report.py), "
-            "which is not ported yet (ROADMAP.md, Queue 1, item 8); unset "
-            "HARP_TELEMETRY to serve")
     ladder = (tuple(int(r) for r in args.ladder.split(","))
               if args.ladder else DEFAULT_LADDER)
 
@@ -807,6 +800,11 @@ def main(argv=None) -> int:
                             ladder=ladder, mesh=mesh)
             config = f"serve_{args.app}"
         print(benchmark_json(config, res, mesh.device))
+        # with telemetry on, the run report (request trace, flight
+        # recorder, health findings) on stderr and its JSON line on stdout
+        from harp_tpu_torch import report
+
+        report.maybe_emit(config)
         return 0
 
     if args.ckpt is None:

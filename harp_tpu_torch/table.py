@@ -30,7 +30,8 @@ import torch.distributed as dist
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.collective import Combiner
 from harp_tpu_torch.parallel.dispatch import bucket_by_destination
-from harp_tpu_torch.parallel.mesh import WorkerMesh, num_workers, worker_id
+from harp_tpu_torch.parallel.mesh import (WorkerMesh, active_group,
+                                          num_workers, worker_id)
 
 
 @dataclasses.dataclass
@@ -299,7 +300,8 @@ def _kv_process_union(local: KVTable) -> KVTable:
     with a non-empty table must agree on the values' dtype and shape."""
     keys, vals, counts = local.to_arrays()
     gathered: list = [None] * num_workers()
-    dist.all_gather_object(gathered, (keys, vals, counts))
+    dist.all_gather_object(gathered, (keys, vals, counts),
+                           group=active_group())
     sigs = {(v.dtype.str, v.shape[1:]) for k, v, _ in gathered if len(k)}
     if not sigs:
         return local  # every worker is empty

@@ -32,7 +32,13 @@ every worker).  All write into the same ``tmp.<step>``; after a barrier
 rank 0 renames and prunes, and a second barrier releases the group.  On
 restore every worker reads its own file, and the workers agree on success
 (one gather of a flag) so that they fall back together.  A checkpoint
-restores only on the world size that wrote it.
+restores only on the world size that wrote it.  The workers are those of
+the group in use (``parallel.mesh.use_mesh``).
+
+**Replicated state.**  ``CheckpointManager(root, replicated=True)`` is for
+a state every worker holds whole (the elastic loops' canonical state):
+worker 0 of the group writes ``rank_00000`` alone, every worker reads it,
+and it restores on any number of workers.
 """
 
 from __future__ import annotations
@@ -51,22 +57,27 @@ from harp_tpu_torch.utils import flightrec
 
 
 def _world() -> tuple[int, int]:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    """(rank, size) of the group in use (``parallel.mesh.use_mesh``)."""
+    from harp_tpu_torch.parallel.mesh import num_workers, worker_id
+
+    return worker_id(), num_workers()
 
 
 def _barrier() -> None:
+    from harp_tpu_torch.parallel.mesh import active_group
+
     if _world()[1] > 1:
-        dist.barrier()
+        dist.barrier(group=active_group())
 
 
 def _all_ok(ok: bool) -> bool:
     """True when every worker's ``ok`` is."""
+    from harp_tpu_torch.parallel.mesh import active_group
+
     if _world()[1] == 1:
         return ok
     flags: list = [None] * _world()[1]
-    dist.all_gather_object(flags, bool(ok))
+    dist.all_gather_object(flags, bool(ok), group=active_group())
     return all(flags)
 
 
@@ -112,9 +123,11 @@ def _unflatten(rec: dict, arrays) -> Any:
 class CheckpointManager:
     """Save/restore a state nest and its step under ``root``."""
 
-    def __init__(self, root: str, keep: int = 3):
+    def __init__(self, root: str, keep: int = 3, *,
+                 replicated: bool = False):
         self.root = os.path.abspath(root)
         self.keep = keep
+        self.replicated = replicated
         os.makedirs(self.root, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -151,13 +164,16 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)  # from a crashed save
             os.makedirs(tmp)
         _barrier()
-        arrays: list = []
-        tree = _flatten(state, arrays)
-        base = os.path.join(tmp, f"rank_{rank:05d}")
-        with open(base + ".npz", "wb") as f:
-            np.savez(f, **{f"a{i}": a for i, a in enumerate(arrays)})
-        with open(base + ".json", "w") as f:
-            json.dump({"step": step, "world": world, "tree": tree}, f)
+        if rank == 0 or not self.replicated:
+            arrays: list = []
+            tree = _flatten(state, arrays)
+            base = os.path.join(tmp, f"rank_{rank:05d}")
+            with open(base + ".npz", "wb") as f:
+                np.savez(f, **{f"a{i}": a for i, a in enumerate(arrays)})
+            with open(base + ".json", "w") as f:
+                json.dump({"step": step,
+                           "world": None if self.replicated else world,
+                           "tree": tree}, f)
         # the fault plane's ckpt_write site: the bytes are down, the rename
         # that makes them count is not
         flightrec.notify_ckpt_write(final)
@@ -204,10 +220,11 @@ class CheckpointManager:
 
     def _read_step(self, step: int) -> tuple[int, Any]:
         rank, world = _world()
-        base = os.path.join(self._path(step), f"rank_{rank:05d}")
+        base = os.path.join(self._path(step),
+                            f"rank_{0 if self.replicated else rank:05d}")
         with open(base + ".json") as f:
             meta = json.load(f)
-        if meta.get("world") != world:
+        if not self.replicated and meta.get("world") != world:
             raise ValueError(
                 f"{self._path(step)} was written by {meta.get('world')} "
                 f"workers, not {world}")

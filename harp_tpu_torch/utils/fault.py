@@ -16,8 +16,10 @@ iteration 0, with an injector that makes the recovery path testable.
   counted host to device placement, a ``flightrec.readback``, and
   :meth:`CheckpointManager.save` just before its rename.
 
-Not ported yet (ROADMAP.md, Queue 1, item 8): the superstep spans
-(``steptrace``) around :func:`fit_epochs`' epochs.
+With telemetry on, :func:`fit_epochs` is one superstep-timeline run
+(:mod:`harp_tpu_torch.utils.steptrace`) and each epoch a terminated
+superstep span; a restart's restore and every fired injector event are
+marks on it.
 """
 
 from __future__ import annotations
@@ -239,14 +241,16 @@ class FaultInjector:
     @staticmethod
     def _mark(site: str, ordinal: int, action: str) -> None:
         """A fired event is a ``source:"fault"`` mark on the request
-        tracer's timeline (a no-op while telemetry is off)."""
-        from harp_tpu_torch.utils import reqtrace, telemetry
+        tracer's timeline and, inside a training run, on the superstep
+        timeline (a no-op while telemetry is off)."""
+        from harp_tpu_torch.utils import reqtrace, steptrace, telemetry
 
         if telemetry.enabled():
             reqtrace.tracer.mark(
                 "fault", f"injected_{action}",
                 time.perf_counter() - telemetry.tracer._t0,
                 site=site, ordinal=ordinal)
+            steptrace.tracer.on_fault(site, ordinal, action)
 
     @contextlib.contextmanager
     def arm(self):
@@ -318,8 +322,9 @@ def fit_epochs(
     - a resume with no epochs left still installs the restored state;
     - ``fault`` without ``ckpt_dir`` is refused rather than ignored.
 
-    ``phase`` names the run's telemetry span."""
-    from harp_tpu_torch.utils import telemetry
+    ``phase`` names the run's telemetry span and its superstep-timeline
+    run; each ``train_one`` is one superstep span."""
+    from harp_tpu_torch.utils import steptrace, telemetry
 
     if ckpt_dir is None:
         if fault is not None:
@@ -327,9 +332,10 @@ def fit_epochs(
                 "fault injection requires ckpt_dir (recovery restarts from "
                 "checkpoints; without one the injector would be silently "
                 "ignored)")
-        with telemetry.span(phase, epochs=epochs):
-            for _ in range(epochs):
-                train_one()
+        with telemetry.span(phase, epochs=epochs), steptrace.run(phase):
+            for i in range(epochs):
+                with steptrace.superstep(phase, i):
+                    train_one()
         return
 
     from harp_tpu_torch.utils.checkpoint import CheckpointManager
@@ -341,10 +347,11 @@ def fit_epochs(
 
     def step(i, state):
         set_state(state)
-        train_one()
+        with steptrace.superstep(phase, i):
+            train_one()
         return get_state()
 
-    with telemetry.span(phase, epochs=epochs):
+    with telemetry.span(phase, epochs=epochs), steptrace.run(phase):
         final = run_with_recovery(lambda: init, step, epochs, mgr,
                                   ckpt_every=ckpt_every,
                                   max_restarts=max_restarts, fault=fault)
@@ -373,12 +380,20 @@ def run_with_recovery(
     once unless ``on_permanent`` takes it (and does not count against
     ``max_restarts``)."""
     restarts = 0
+    first = True
     while True:
         if ckpt.latest_step() is None:
             start, state = 0, make_state()
         else:
             start, state = ckpt.restore()
             start += 1
+            if not first:
+                # a restart's restore is a ckpt mark on the superstep
+                # timeline; a fresh call resuming a directory is not
+                from harp_tpu_torch.utils import steptrace
+
+                steptrace.tracer.note_restore(start)
+        first = False
         try:
             for i in range(start, n_iters):
                 if fault is not None:

@@ -7,7 +7,8 @@ budgets that a test or a serving loop enforces — the port of
 its ``BUILD_LOG``) and a CUDA-graph capture made through
 :func:`harp_tpu_torch.utils.timing.capture_graph`.  PyTorch runs eagerly,
 so nothing else compiles; a serving loop that captures or builds in its
-steady state shows up here, with the span it happened under.
+steady state shows up here, with the span it happened under, and an
+open superstep-timeline run (``steptrace``) marks each one.
 
 **TransferLedger** counts H2D bytes and calls, blocking D2H readbacks and
 their bytes, and dispatches, per (op, call site, span).  The port's
@@ -88,6 +89,10 @@ class CompileWatch:
                              "t": round(time.perf_counter()
                                         - telemetry.tracer._t0, 6),
                              "event": event, "name": name})
+        from harp_tpu_torch.utils import steptrace
+
+        if steptrace.tracer._run is not None:
+            steptrace.tracer.on_compile(duration, event, name)
 
     def summary(self) -> dict:
         """{"count", "total_s", "by_span": {span_path: {count, total_s}}}."""

@@ -28,9 +28,13 @@ The HBM capacity is the card's ``total_memory``
 (``torch.cuda.get_device_properties``), read once this process uses the
 card; it stays 0 (no pressure check) on the CPU.
 
+Supersteps: ``steptrace.superstep`` opens a window per span
+(:meth:`MemLedger.begin_window`) and threads the window's peak onto the
+timeline as a ``memory`` mark (:func:`note_superstep`).
+
 Not ported yet (ROADMAP.md, Queue 1, item 9): the VMEM gate
 (:func:`require_vmem_fit`, a Pallas budget, and ``perfmodel.presize``'s
-band) and the superstep windows' marks (``steptrace``).
+band).
 
 CLI: ``python -m harp_tpu_torch memory run.jsonl [--json]``: exit 0
 clean, 1 irreconciled, 2 unreadable.
@@ -223,6 +227,13 @@ class MemLedger:
         self._execs[name] = row
         self._rows.append(row)
 
+    # -- superstep window ---------------------------------------------
+    def begin_window(self) -> None:
+        self._win_peak = self.live_bytes
+
+    def window_peak(self) -> int:
+        return self._win_peak
+
     # -- summaries ----------------------------------------------------
     def headroom_frac(self) -> float:
         if self.hbm_bytes <= 0:
@@ -328,6 +339,16 @@ def note_executable(name: str, footprint: dict | None,
     if not telemetry.enabled() or not footprint:
         return
     ledger.executable(name, footprint, source)
+
+
+def note_superstep(tracer) -> None:
+    """Thread the window peak onto an open steptrace span as a mark (a
+    no-op while the ledger has recorded nothing)."""
+    if not telemetry.enabled() or not ledger._rows:
+        return
+    tracer.mark("memory", "superstep_peak",
+                peak_hbm_bytes=ledger.window_peak(),
+                live_hbm_bytes=ledger.live_bytes)
 
 
 def require_vmem_fit(kernel: str, predicted_bytes: int, *,

@@ -1,20 +1,62 @@
-"""One JSON line per CLI benchmark result, stamped with its provenance.
+"""Per-iteration metrics as JSONL, and one JSON line per CLI benchmark
+result stamped with its provenance — the port of
+``harp_tpu.utils.metrics``.
 
-The port's copy of ``harp_tpu.utils.metrics.benchmark_json``: the stamp
-names the device the result ran on (``backend`` is ``cuda`` or ``cpu``,
-with the card's name where there is one), so a CPU row can never pass as
-a device measurement.
+:class:`MetricsLogger` is Harp's per-iteration log lines, structured: one
+JSON object an iteration, appended to a file and mirrored to the
+``harp_tpu_torch.metrics`` logger.  :func:`benchmark_json`'s stamp names
+the device the result ran on (``backend`` is ``cuda`` or ``cpu``, with the
+card's name where there is one), so a CPU row can never pass as a device
+measurement.
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import logging
 import subprocess
-from typing import Any
+import time
+from typing import IO, Any
 
 import numpy as np
 import torch
+
+
+log = logging.getLogger("harp_tpu_torch.metrics")
+
+
+class MetricsLogger:
+    """Per-iteration JSONL.  Use it as a context manager (``with
+    MetricsLogger(path) as m: ...``) so the file closes on any exit;
+    :meth:`close` is idempotent, so a caller that closes explicitly and a
+    surrounding ``with`` can coexist."""
+
+    def __init__(self, path: str | None = None):
+        self._fh: IO | None = open(path, "a") if path else None
+        self._t0 = time.perf_counter()
+
+    def __enter__(self) -> "MetricsLogger":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    def log(self, step: int | None = None, **metrics: Any) -> dict:
+        rec = {"t": round(time.perf_counter() - self._t0, 6),
+               **{k: _plain(v) for k, v in metrics.items()}}
+        if step is not None:
+            rec["step"] = step
+        if self._fh:
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+        log.info("%s", rec)
+        return rec
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
 
 
 def _commit() -> str | None:

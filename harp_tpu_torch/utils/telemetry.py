@@ -18,9 +18,13 @@ attributes.
 Both are off unless ``HARP_TELEMETRY=1`` is set or :func:`enable` /
 :func:`scope` turns them on; when off, ``record_comm`` returns before
 touching its argument.  The host planes (the flight recorder, the request
-tracer, the health sentinel and the memory ledger) share this switch;
-:func:`scope` resets them with the ledger and :func:`export` writes them
-all to one JSONL file (``HARP_TELEMETRY_OUT`` names it for a CLI).
+tracer, the health sentinel, the memory ledger, the skew ledger, the
+superstep timeline and the elastic ledger) share this switch; :func:`scope`
+resets them with the ledger and :func:`export` writes them all to one
+JSONL file (``HARP_TELEMETRY_OUT`` names it for a CLI), the input of the
+``report``, ``trace``, ``timeline``, ``health`` and ``memory`` CLIs.
+:func:`export_timeline` merges the timestamped spines into one causal
+``kind:"trace"`` file.
 """
 
 from __future__ import annotations
@@ -67,13 +71,17 @@ def scope(on: bool = True, *, reset: bool = True):
     if reset:
         ledger.reset()
         tracer.reset()
-        from harp_tpu_torch import health
-        from harp_tpu_torch.utils import flightrec, memrec, reqtrace
+        from harp_tpu_torch import elastic, health
+        from harp_tpu_torch.utils import (flightrec, memrec, reqtrace, skew,
+                                          steptrace)
 
         flightrec.reset()
         reqtrace.reset()
         health.reset()
         memrec.reset()
+        skew.reset()
+        steptrace.reset()
+        elastic.reset()
     try:
         yield
     finally:
@@ -209,8 +217,17 @@ class SpanTracer:
         finally:
             self._stack.pop()
             self.records.append({"span": name, "path": path,
+                                 "t0": round(t0 - self._t0, 6),
                                  "dur": time.perf_counter() - t0,
                                  "depth": depth, **attrs})
+
+    def summary(self) -> dict:
+        """{name: {mean_s, total_s, n}} over the recorded spans."""
+        agg: dict[str, list[float]] = {}
+        for r in self.records:
+            agg.setdefault(r["span"], []).append(float(r["dur"]))
+        return {k: {"mean_s": sum(v) / len(v), "total_s": sum(v),
+                    "n": len(v)} for k, v in agg.items()}
 
     def export_jsonl(self, fh) -> None:
         for r in self.records:
@@ -232,31 +249,96 @@ def record_comm(verb: str, tree: Any, *, combiner: str | None = None,
     if not _ENABLED:
         return
     ledger.record(verb, tree, combiner=combiner, wire_dtype=wire_dtype)
+    from harp_tpu_torch.utils import steptrace
+
+    if steptrace.tracer._run is not None:
+        steptrace.tracer.on_comm(verb)
 
 
 def export(path: str) -> None:
     """Write every collected record as one JSONL file: spans, the comm
-    ledger, the flight recorder, the request trace, the health findings
-    and the memory ledger (the input of ``python -m harp_tpu_torch trace``
-    and ``python -m harp_tpu_torch memory``)."""
-    from harp_tpu_torch import health
-    from harp_tpu_torch.utils import flightrec, memrec, reqtrace
+    ledger, the flight recorder, the skew ledger, the request trace, the
+    health findings, the elastic actions, the superstep timeline and the
+    memory ledger (the input of the ``report``, ``trace``, ``timeline``,
+    ``health`` and ``memory`` CLIs)."""
+    from harp_tpu_torch import elastic, health
+    from harp_tpu_torch.utils import (flightrec, memrec, reqtrace, skew,
+                                      steptrace)
 
     with open(path, "w") as fh:
         tracer.export_jsonl(fh)
         ledger.export_jsonl(fh)
         flightrec.export_jsonl(fh)
+        skew.export_jsonl(fh)
         reqtrace.tracer.export_jsonl(fh)
         health.export_jsonl(fh)
+        elastic.export_jsonl(fh)
+        steptrace.export_jsonl(fh)
         memrec.export_jsonl(fh)
+
+
+def export_timeline(path: str) -> None:
+    """Merge every timestamped spine into one causally ordered
+    ``kind:"trace"`` JSONL: the request trace and its marks as they are,
+    host spans (at their start) and compiles (kernel builds and graph
+    captures, at their wall offset) as marks, each source normalised to
+    its own origin; then the aggregate spines (comm ledger, transfer
+    totals, skew phases) as ``summary`` rows at the last timestamp, and
+    the superstep timeline's ``kind:"steptrace"`` rows unmodified."""
+    from harp_tpu_torch.utils import flightrec, reqtrace, skew, steptrace
+
+    def _normalized(rows: list[dict]) -> list[dict]:
+        if not rows:
+            return []
+        t0 = min(float(r["ts"]) for r in rows)
+        return [{**r, "ts": round(float(r["ts"]) - t0, 6)} for r in rows]
+
+    rows = _normalized(reqtrace.tracer.rows())
+    host: list[dict] = [
+        {"kind": "trace", "ev": "mark", "source": "span", "ts": r["t0"],
+         "name": r["span"], "path": r["path"], "dur": r["dur"],
+         "depth": r["depth"]}
+        for r in tracer.records]
+    host += [
+        {"kind": "trace", "ev": "mark", "source": "compile",
+         "ts": r.get("t", 0.0), "name": r.get("event") or "compile",
+         "dur": r["dur"], "span": r["span"]}
+        for r in flightrec.compile_watch.records]
+    rows += _normalized(host)
+    rows.sort(key=lambda r: r["ts"])
+    t_end = rows[-1]["ts"] if rows else 0.0
+    for tag, t in sorted(ledger.summary().items()):
+        rows.append({"kind": "trace", "ev": "summary", "source": "comm",
+                     "ts": t_end, "name": tag,
+                     "executions": t["executions"],
+                     "total_bytes": t["total_bytes"]})
+    tr = flightrec.transfers.summary()
+    if tr["sites"]:
+        rows.append({"kind": "trace", "ev": "summary",
+                     "source": "transfer", "ts": t_end, "name": "totals",
+                     "h2d_bytes": tr["h2d_bytes"],
+                     "dispatches": tr["dispatches"],
+                     "readbacks": tr["readbacks"]})
+    for phase, s in skew.ledger.summary().items():
+        rows.append({"kind": "trace", "ev": "summary", "source": "skew",
+                     "ts": t_end, "name": phase,
+                     "max_mean_ratio": s.get("max_mean_ratio")})
+    stamp = flightrec.provenance_stamp()
+    with open(path, "w") as fh:
+        for row in rows:
+            fh.write(json.dumps({**row, **stamp}, default=str) + "\n")
+        steptrace.tracer.export_jsonl(fh, stamp)
+
+
+#: the record kinds an export holds
+KINDS = ("span", "comm", "compile", "transfer", "skew", "trace", "health",
+         "elastic", "steptrace", "memory")
 
 
 def load_rows(path: str) -> dict[str, list[dict]]:
     """Read an :func:`export` file back, keyed by record kind (an unknown
     kind lands under ``"comm"``, as in the reference)."""
-    out: dict[str, list[dict]] = {k: [] for k in (
-        "span", "comm", "compile", "transfer", "trace", "health",
-        "memory")}
+    out: dict[str, list[dict]] = {k: [] for k in KINDS}
     with open(path) as fh:
         for line in fh:
             line = line.strip()
@@ -266,3 +348,9 @@ def load_rows(path: str) -> dict[str, list[dict]]:
             kind = row.get("kind")
             out[kind if kind in out else "comm"].append(row)
     return out
+
+
+def load_jsonl(path: str) -> tuple[list[dict], list[dict]]:
+    """(span rows, comm rows) of an :func:`export` file."""
+    rows = load_rows(path)
+    return rows["span"], rows["comm"]

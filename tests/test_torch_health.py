@@ -5,8 +5,11 @@
   same burn rates, breaches, peaks, snapshots and findings.
 - The monitor's budget-drift and memory-pressure detectors on the same
   observations: the same rows and summaries; the export's rows.
-- What waits for the skew and steptrace spines raises
-  ``NotImplementedError`` naming ROADMAP.md Queue 1 item 8.
+- The skew trigger and its handshake on the same records: the
+  reference's finding and the row the elastic loop takes.
+- The ``health`` CLI's summary of an export (exit 0 healthy, 1
+  actionable, 2 unreadable) is the reference's; grading bench rows and
+  the model gate wait for ROADMAP.md Queue 1 item 9.
 """
 
 import io
@@ -129,8 +132,82 @@ def test_export_stamps_health_rows(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: PH.monitor.observe_skew("phase", None),
-    lambda: PH.monitor.consume_skew_trigger("phase")])
+    lambda mon, led: mon.observe_skew("phase", led),
+    lambda mon, led: mon.consume_skew_trigger("phase")])
 def test_the_skew_detectors_wait_for_item_8(call):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        call()
+    """Item 8 has ported them: free while off, and on the same records the
+    reference's trigger row and handshake."""
+    from harp_tpu.utils import skew as JS
+    from harp_tpu_torch.utils import skew as PS
+
+    assert call(PH.monitor, PS.ledger) is None  # telemetry off
+
+    def drive(mod, hl, tel):
+        with tel.scope(True):
+            for _ in range(hl.TRIGGER_SUPERSTEPS):
+                mod.record_execution("phase", [9, 1, 1, 1], unit="u")
+            got = call(hl.monitor, mod.ledger)
+            rows = [{k: v for k, v in r.items() if k != "_seq"}
+                    for r in hl.monitor.findings()]
+        if isinstance(got, dict):
+            got = {k: v for k, v in got.items() if k != "_seq"}
+        return got, rows
+
+    ours, theirs = drive(PS, PH, PT), drive(JS, JH, JT)
+    assert ours == theirs
+    assert ours[1][0]["detector"] == "skew_trigger"
+
+
+def _write(path, rows):
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows)
+                    + "not json\n")
+
+
+@pytest.mark.parametrize("rows,code", [
+    ([], 0),
+    ([{"kind": "health", "detector": "budget_drift", "severity": "info",
+       "tag": "t", "violations": 1, "worst": "x"}], 0),
+    ([{"kind": "health", "detector": "skew_trigger", "severity": "warn",
+       "phase": "p", "wasted_frac": 0.5, "consecutive": 3,
+       "plan": {"moves": [{"from": 0, "to": 1, "work": 1.0}],
+                "ratio_before": 2.0, "ratio_after": 1.0}},
+      {"kind": "span", "span": "x", "dur": 1.0}], 1),
+    ([{"kind": "health", "detector": "slo_burn", "severity": "page",
+       "tag": "serve", "fast_burn": 9.0, "slow_burn": 7.0, "offered": 10,
+       "served": 5, "shed": 5, "failed": 0, "deadline_missed": 0}], 1),
+])
+def test_the_health_cli_summarizes_an_export_as_the_reference(tmp_path,
+                                                              capsys, rows,
+                                                              code):
+    from harp_tpu.health import cli as JCLI
+    from harp_tpu_torch.health import cli as PCLI
+
+    path = tmp_path / "run.jsonl"
+    _write(path, rows)
+    assert PCLI.main([str(path)]) == code
+    text = capsys.readouterr().out
+    assert text.startswith("== harp-tpu health ==")
+    assert PCLI.main([str(path), "--json"]) == code
+    ours = json.loads(capsys.readouterr().out)
+    assert JCLI.main([str(path), "--json", "--no-grade-bench"]) == code
+    theirs = json.loads(capsys.readouterr().out)
+    keys = ("findings", "by_detector", "worst_severity", "actionable",
+            "graded_configs")
+    assert {k: ours[k] for k in keys} == {k: theirs[k] for k in keys}
+    assert ours["config"] == "health"
+
+
+def test_the_health_cli_refuses_an_unreadable_file(tmp_path, capsys):
+    from harp_tpu_torch.health import cli as PCLI
+
+    assert PCLI.main([str(tmp_path / "missing.jsonl")]) == 2
+    assert "cannot read" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--grade-model"],
+                                  ["x.jsonl", "--grade-bench"]])
+def test_the_health_cli_grading_waits_for_item_9(argv):
+    from harp_tpu_torch.health import cli as PCLI
+
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+        PCLI.main(argv)

@@ -357,8 +357,9 @@ def test_config_validation_and_unported_paths(tmp_path):
         got = fn(pts, k=2, iters=2, mesh=CPU,
                  ckpt_dir=str(tmp_path / fn.__name__))
         np.testing.assert_array_equal(got[0], want[0])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        KS.main(["--elastic", "--device", "cpu"])
+    # elastic Lloyd is ported: it runs on a small synthetic corpus
+    assert KS.main(["--elastic", "--n", "256", "--d", "3", "--k", "2",
+                    "--iters", "1", "--device", "cpu"]) == 0
     with pytest.raises(SystemExit, match="--input"):
         KS.main(["--ckpt-dir", str(tmp_path), "--device", "cpu"])
 

@@ -423,9 +423,9 @@ def dataclass_defaults(cls):
                                   "--input", "--elastic",
                                   "--max-worker-loss"])
 def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
-    """pack_cache and the elastic flags still raise naming their ROADMAP
-    item; the checkpoint and input options are ported, and each case
-    checks its ported behaviour instead."""
+    """pack_cache still raises naming its ROADMAP item; the checkpoint,
+    input and elastic options are ported, and each case checks its ported
+    behaviour instead."""
     if what == "fit-ckpt":
         a, b = _small(), _small()
         a.fit(2)
@@ -446,13 +446,18 @@ def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
         with pytest.raises(want[0], match=want[1]):
             L.main([what, *arg, *dev])
         return
+    if what in ("--elastic", "--max-worker-loss"):
+        # the elastic loop on a small synthetic corpus (one worker)
+        arg = {"--max-worker-loss": ["1"]}.get(what, [])
+        assert L.main([what, *arg, "--docs", "32", "--vocab", "24",
+                       "--topics", "4", "--tokens-per-doc", "6",
+                       "--epochs", "1", "--algo", "dense", "--d-tile", "8",
+                       "--w-tile", "8", "--entry-cap", "16", "--device",
+                       "cpu"]) == 0
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP.*item"):
-        if what == "pack_cache":
-            L.benchmark(n_docs=8, vocab_size=8, n_topics=2,
-                        tokens_per_doc=2, pack_cache="x", device="cpu")
-        else:
-            arg = {"--max-worker-loss": ["1"]}.get(what, [])
-            L.main([what, *arg, "--device", "cpu"])
+        L.benchmark(n_docs=8, vocab_size=8, n_topics=2,
+                    tokens_per_doc=2, pack_cache="x", device="cpu")
 
 
 def test_state_checks_and_convert():

@@ -230,9 +230,9 @@ def test_config_validation_matches_reference():
                                   "--ckpt-dir", "--resume", "--input",
                                   "--elastic", "--max-worker-loss"])
 def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
-    """carry_w and the elastic flags still raise naming their ROADMAP
-    item; the checkpoint and input options are ported, and each case
-    checks its ported behaviour instead."""
+    """carry_w still raises naming its ROADMAP item; the checkpoint, input
+    and elastic options are ported, and each case checks its ported
+    behaviour instead."""
     if what == "fit-ckpt":
         (a, _), (b, _) = _small_model(), _small_model()
         assert a.fit(2) == b.fit(2, str(tmp_path / "c"))
@@ -252,12 +252,16 @@ def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
         with pytest.raises(want[0], match=want[1]):
             MF.main([what, *arg, *dev])
         return
+    if what in ("--elastic", "--max-worker-loss"):
+        # the elastic loop on a small synthetic corpus (one worker)
+        arg = {"--max-worker-loss": ["1"]}.get(what, [])
+        assert MF.main([what, *arg, "--users", "64", "--items", "32",
+                        "--nnz", "800", "--rank", "4", "--epochs", "1",
+                        "--u-tile", "16", "--i-tile", "16", "--device",
+                        "cpu"]) == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "carry_w":
-            MF.MFSGDConfig(algo="dense", carry_w=True)
-        else:
-            arg = {"--max-worker-loss": ["1"]}.get(what, [])
-            MF.main([what, *arg, "--device", "cpu"])
+        MF.MFSGDConfig(algo="dense", carry_w=True)
 
 
 def test_fit_and_state_checks():

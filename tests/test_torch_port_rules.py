@@ -15,6 +15,11 @@ import pytest
 import torch
 
 from harp_tpu_torch import benchmark as BM
+from harp_tpu_torch import mapper as MP
+from harp_tpu_torch import report as RP
+from harp_tpu_torch.elastic import apps as EA
+from harp_tpu_torch.health import cli as HC
+from harp_tpu_torch.utils import skew as SK
 from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import ccd as CD
@@ -29,17 +34,16 @@ from harp_tpu_torch.models import svm as SV
 from harp_tpu_torch.models import wdamds as WD
 from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
-from harp_tpu_torch import health as HL
 from harp_tpu_torch.parallel import mesh as M
 from harp_tpu_torch.parallel import pipeline as PP
 from harp_tpu_torch.serve import bench as SB
 from harp_tpu_torch.serve import server as SR
 from harp_tpu_torch.utils import memrec as MR
-from harp_tpu_torch.utils import telemetry as TM
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "harp_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "torch_world.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_world.py",
+    REPO / "tests" / "torch_plane_world.py"]
 FORBIDDEN = {"jax", "jaxlib", "harp_tpu", "orbax", "ml_dtypes"}
 
 
@@ -117,8 +121,13 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.serve.bench", "harp_tpu_torch.serve.transport",
             "harp_tpu_torch.utils.flightrec", "harp_tpu_torch.utils.reqtrace",
             "harp_tpu_torch.utils.perfetto", "harp_tpu_torch.utils.memrec",
-            "harp_tpu_torch.health", "harp_tpu_torch.health.sentinel"
-            } <= set(mods)
+            "harp_tpu_torch.health", "harp_tpu_torch.health.sentinel",
+            "harp_tpu_torch.health.cli", "harp_tpu_torch.report",
+            "harp_tpu_torch.utils.steptrace", "harp_tpu_torch.utils.skew",
+            "harp_tpu_torch.schedule", "harp_tpu_torch.mapper",
+            "harp_tpu_torch.elastic", "harp_tpu_torch.elastic.ledger",
+            "harp_tpu_torch.elastic.rebalance", "harp_tpu_torch.elastic.move",
+            "harp_tpu_torch.elastic.apps"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -174,7 +183,10 @@ STATS_APPS = {
                                    "serve-Server", "serve-benchmark",
                                    "serve-benchmark_sustained", "serve-cli",
                                    "serve-cli-ckpt", "pipeline_forward",
-                                   "pipeline_loss_and_grads"])
+                                   "pipeline_loss_and_grads",
+                                   "mapper-CollectiveApp.run",
+                                   "mfsgd_elastic_fit", "lda_elastic_fit",
+                                   "kmeans_stream_elastic_fit"])
 def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -203,6 +215,17 @@ def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
             SR.main(["kmeans", "--bench", "--requests", "1"])
         elif entry == "serve-cli-ckpt":
             SR.main(["kmeans", "--ckpt", str(tmp_path / "none")])
+        elif entry == "mapper-CollectiveApp.run":
+            MP.CollectiveApp().run()
+        elif entry == "mfsgd_elastic_fit":
+            EA.mfsgd_elastic_fit(np.zeros(4, np.int64), np.zeros(4, np.int64),
+                                 np.ones(4, np.float32), n_users=16,
+                                 n_items=8)
+        elif entry == "lda_elastic_fit":
+            EA.lda_elastic_fit(np.zeros(4, np.int64), np.zeros(4, np.int64),
+                               n_docs=16, vocab_size=8)
+        elif entry == "kmeans_stream_elastic_fit":
+            EA.kmeans_stream_elastic_fit(pts, k=2)
         elif entry == "pipeline_forward":
             PP.pipeline_forward(lambda p, h: h, {}, np.zeros((1, 2, 4)))
         elif entry == "pipeline_loss_and_grads":
@@ -383,32 +406,25 @@ def _queue1_items() -> dict[int, str]:
 _PTS = np.zeros((16, 4), np.float32)
 
 
-def _serve_with_telemetry():
-    """The serve CLI's exit report waits for report.py: with telemetry on
-    it refuses before it serves."""
-    with TM.scope(True):
-        SR.main(["kmeans", "--bench", "--device", "cpu"])
-
-
 #: (what, a call that is not ported yet, a phrase of the ROADMAP item that
 #: its message must name)
 UNPORTED = [
-    ("stream-elastic", lambda: KS.main(["--elastic", "--device", "cpu"]),
-     "`elastic/`"),
     ("lda-pack_cache", lambda: LD.benchmark(
         n_docs=16, vocab_size=8, n_topics=4, tokens_per_doc=2,
         pack_cache="x", device="cpu"), "pack_cache"),
     ("mfsgd-carry_w", lambda: MF.MFSGDConfig(algo="dense", carry_w=True),
      "carry_w"),
-    ("mfsgd-elastic", lambda: MF.main(["--elastic", "--device", "cpu"]),
-     "`elastic/`"),
-    ("serve-telemetry-report", _serve_with_telemetry, "`report.py`"),
-    ("health-skew", lambda: HL.monitor.observe_skew("p", None),
-     "`steptrace`"),
-    ("health-skew-consume", lambda: HL.monitor.consume_skew_trigger("p"),
-     "`steptrace`"),
     ("memrec-vmem-gate", lambda: MR.require_vmem_fit("k", 1, budget=2),
      "`perfmodel/`"),
+    ("report-trace-logdir", lambda: RP.main(["--trace-logdir", "x"]),
+     "`utils/profiling.py`"),
+    ("health-grade-model", lambda: HC.main(["--grade-model"]),
+     "`perfmodel/`"),
+    ("health-grade-bench", lambda: HC.main(["x.jsonl", "--grade-bench"]),
+     "`perfmodel/`"),
+    ("skew-wasted-pct-of-peak",
+     lambda: SK.wasted_pct_of_peak("kmeans", {}, "p"),
+     "`utils/roofline.py`"),
 ]
 
 
