@@ -41,8 +41,9 @@ fatal when it fails (exit code != 0 and no result line):
    train_epochs(3), K3 launched once per rotation step (2 per epoch),
    finite RMSEs falling below the first epoch's, and the card agreeing with
    the CPU on a small input for all three algos;
-8. models.mfsgd.benchmark at that width for pallas, and the CLI
-   (python -m harp_tpu_torch mfsgd --algo pallas --epochs 3);
+8. models.mfsgd.benchmark at that width for pallas, and the CLI at 2M
+   ratings (python -m harp_tpu_torch mfsgd --algo pallas --epochs 3 --nnz
+   2000000);
 9. K4 (cgs_entry_update, through its step entry point cgs_step) against
    its plain version at the LDA benchmark width (100k docs x 50k words,
    1000 topics, 100 tokens a doc; 512 x 512 tiles, C = 768, cc from
@@ -121,7 +122,7 @@ fatal when it fails (exit code != 0 and no result line):
    bit-equal; ms, graph_ms, bound), models.kmeans._partials_block_int8
    timed beside it, and K2 beside _partials_block (the f32 chunk route) at
    the same shape (stream_chunk_phase);
-26. models.kmeans_stream.fit_streaming on a seeded 2M x 300 host array, k =
+26. models.kmeans_stream.fit_streaming on a seeded 1M x 300 host array, k =
    1000, explicit init, f32 and int8, at prefetch 0, 1, 2 and 4: every
    depth bit-identical, the int8 stream launching K1 once a chunk an epoch
    (counts set to 0 just before the int8 prefetch-2 fit, read just after),
@@ -198,9 +199,9 @@ fatal when it fails (exit code != 0 and no result line):
    uninterrupted one after an injected ckpt_write fault (one step
    replayed) and a worker failure: KMeans 1M x 300, k = 100, 10 iterations,
    ckpt_every 2, int8 on K1 and f32 use_pallas on K2 (launch counts show
-   the replay); MF-SGD on K3 and LDA on K4, 4 epochs; CCD++ (rtol 1e-4)
-   and the MLP's fit_ckpt (rtol 1e-5) beside the spread of two
-   uninterrupted CCD++ runs; streaming int8 at 2.5e6 x 300, k = 1000,
+   the replay); MF-SGD on K3, LDA on K4 and CCD++, 4 epochs (a second
+   uninterrupted CCD++ run bit-equal too), and the MLP's fit_ckpt
+   (rtol 1e-5); streaming int8 at 1e6 x 300, k = 1000,
    killed after two epochs and resumed by the CLI's --resume; the seconds
    and bytes a checkpoint costs; a lone ckpt_write fault leaves its tmp.*
    and no damage (durable_phase);
@@ -247,11 +248,25 @@ fatal when it fails (exit code != 0 and no result line):
    k = 1000, f32, bit-equal to fit_streaming; a worker loss on one worker
    (--max-worker-loss 1) fails loudly; the seconds of each part and the
    host prep (elastic_phase);
-44. one JSON line of the kernels, the card's name and power limit, and
+44. the measurement layer (measurement_phase): the schedulers' stream
+   order on the card (a Dynamic and a Static scheduler: items written on
+   the caller's stream after start, large results read straight after
+   hand-out); every kernel of ops/kernel_registry.py at its registered
+   shape, one launch each (LAUNCHES grows by the registered count, the
+   plain version agrees within the kernel's class, shared memory within
+   the card's opt-in limit); the KMeans int8 fit at graded config #1
+   under utils.profiling.trace, attributed to the mechanism buckets (K1's
+   share, the idle share; "not measured" when the trace is short of K1's
+   launches); the benchmark rows of phases 5, 8, 12 and 34 on the card's
+   roofline, none over 100 %; python -m harp_tpu_torch profile --all
+   --json, every row reconciled or naming its dropped records; and
+   checked_jit on the card;
+45. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
-them); bounds use the H100 SXM data-sheet rates below.
+them); bounds and rates come from harp_tpu_torch/ops/kernel_registry.py and
+harp_tpu_torch/utils/roofline.py (the H100 SXM data sheet).
 """
 
 from __future__ import annotations
@@ -268,10 +283,12 @@ import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, tensor-core op/s and
-# f32 op/s outside the tensor cores
-HBM_BYTES_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+# the kernels' bounds and the card's rates (NVIDIA H100 SXM data sheet):
+# harp_tpu_torch/ops/kernel_registry.py and harp_tpu_torch/utils/roofline.py
+from harp_tpu_torch.ops.kernel_registry import (  # noqa: E402
+    k3_bound_ms, k3_work, k4_bound_ms, k4_work, k5_bound_ms, k6_bound_ms,
+    k7_bound_ms, k8_bound_ms, k8_pairs, k12_bound_ms)
+
 
 N, D, K, ITERS = 1_000_000, 300, 100, 10
 SHAPES = [(N, D, K), (N + 3, D, K), (N, D, 1000)]
@@ -283,15 +300,6 @@ ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS = 138_493, 26_744, 20_000_000, 64, 3
 # #3 scaled to one card) and the graded enwiki-1M doc count
 LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_TPD, LDA_EPOCHS = 100_000, 50_000, 1000, 100, 2
 ENWIKI_DOCS = 1_000_000
-# H100 SXM special-function (MUFU) rate: 16 results per clock per SM
-# (CUDA C++ Programming Guide, arithmetic throughput, compute capability
-# 9.0) x 132 SMs x 1.98 GHz boost clock
-SFU_OPS_S = 16 * 132 * 1.98e9
-# H100 SXM shared memory: 32 banks of 4 bytes, one access per bank and
-# clock (CUDA C++ Programming Guide, shared memory of compute capability
-# 9.0) x 132 SMs x 1.98 GHz: at most one 4-byte atomic update per bank and
-# clock
-SMEM_UPDATES_S = 32 * 132 * 1.98e9
 # K4 against its plain version on the first entries of a rotation step that
 # span this many of its ~44,800 chunks (the plain whole step took 105-155 s)
 K4_PLAIN_CHUNKS = 4096
@@ -308,11 +316,11 @@ SVM_ACC_FLOOR, RF_ACC_FLOOR = 0.97, 0.97
 
 # streaming KMeans at the north star (BASELINE.json: 1B points, k = 1000,
 # d = 300) on one card, in chunks of the reference's StreamConfig default;
-# f32 at the CLI's default n; a seeded 2M-row host array (a ragged last
-# chunk) for fit_streaming and, its first 1M rows, for the .npy ingest
+# f32 at the CLI's default n; a seeded 1M-row host array (a ragged last
+# chunk) for fit_streaming and the .npy ingest
 STREAM_N, STREAM_F32_N, STREAM_D, STREAM_K = 1_000_000_000, 100_000_000, 300, 1000
 STREAM_CHUNK, STREAM_ITERS, STREAM_BENCH_ITERS = 262_144, 2, 3
-STREAM_HOST_N, STREAM_NPY_N, STREAM_CSV_FILES, STREAM_CSV_ROWS = 2_000_000, 1_000_000, 4, 2048
+STREAM_HOST_N, STREAM_NPY_N, STREAM_CSV_FILES, STREAM_CSV_ROWS = 1_000_000, 1_000_000, 4, 2048
 
 # Mistral-7B-v0.1's attention block (its config.json: hidden_size 4096, 32
 # attention heads, 8 KV heads, head dim 128, sliding_window 4096,
@@ -344,12 +352,11 @@ SVMS_N, SVMS_D, SVMS_DENSITY, SVMS_SMALL, SVMS_ACC_FLOOR = (
 # durable runs: KMeans graded config #1 checkpointed every 2 iterations;
 # MF-SGD and CCD++ at MovieLens-20M width with 2M ratings, LDA at the
 # benchmark's vocabulary and topics with 20k docs; streaming int8 at
-# 2.5e6 x 300, k = 1000 (an epoch of real int8 data costs ~1 s a chunk of
-# host quantization: 1e7 rows took 39 s an epoch, over the time limit)
+# 1e6 x 300, k = 1000, four chunks an epoch (an epoch of real int8 data
+# costs ~1 s a chunk of host quantization: 1e7 rows took 39 s an epoch,
+# 2.5e6 rows 9.6 s, which the script's time limit could not keep)
 DUR_EVERY, DUR_ML_NNZ, DUR_LDA_DOCS, DUR_EPOCHS = 2, 2_000_000, 20_000, 4
-DUR_STREAM_N, DUR_STREAM_EPOCHS = 2_500_000, 4
-# CCD++'s tolerance for another f32 order of its sums (tests/test_torch_ccd.py)
-CCD_RTOL = 1e-4
+DUR_STREAM_N, DUR_STREAM_EPOCHS = 1_000_000, 4
 # the serving plane at full width (phase 40): each engine's synthetic state
 # shape, or (MF-SGD) phase 39's checkpoint; the bench's default ladder
 SERVE_SHAPES = {"kmeans": {"k": 1000, "d": 300},
@@ -374,6 +381,11 @@ SERVE_CHECK_BURSTS = ((1, 5, 64, 300, 512, 148), (40, 24), (1,))
 SERVE_CHECK_BURSTS_LDA = ((1, 5, 58), (64,), (8,), (1,))
 # the pipeline at S = 1 (phase 41)
 PIPE_M, PIPE_MB, PIPE_W = 8, 256, 512
+
+
+#: the benchmark rows phase 44 annotates with the card's roofline:
+#: label -> (roofline config, row); phases 5, 8, 12 and 34 fill it
+BENCH_ROWS: dict[str, tuple[str, dict]] = {}
 
 
 def fail(msg: str) -> None:
@@ -402,12 +414,6 @@ def run_cli(app: str, *args: str) -> dict:
     return row
 
 
-def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def blobs(n, d, k, gen, dev, spread=8.0, noise=0.5):
     """Separated clusters drawn on the card from ``gen``."""
     import torch
@@ -417,42 +423,6 @@ def blobs(n, d, k, gen, dev, spread=8.0, noise=0.5):
     pts = centers[assign] + noise * torch.randn((n, d), generator=gen,
                                                 device=dev)
     return pts, centers
-
-
-def distinct_rows(ids, real, tile) -> int:
-    """Sum over entries (rows of ``ids`` [NE, C]) of the distinct tile rows
-    that the entry's real slots touch."""
-    import numpy as np
-
-    s = np.sort(np.where(real, ids, tile), axis=-1)
-    new = np.ones(s.shape, bool)
-    new[:, 1:] = s[:, 1:] != s[:, :-1]
-    return int((new & (s < tile)).sum())
-
-
-def k3_work(eu, ei, u_tile, i_tile) -> dict:
-    """What one rotation step's entries ask of K3, counted from the data:
-    slots, real ratings, and the distinct W and H tile rows of each entry
-    summed over the entries (rows no rating of an entry touches keep a zero
-    gradient and need no apply)."""
-    real = eu < u_tile
-    return {"entries": eu.shape[0], "slots": eu.size,
-            "ratings": int(real.sum()),
-            "rows": distinct_rows(eu, real, u_tile)
-            + distinct_rows(ei, real, i_tile)}
-
-
-def k3_bound_ms(work, u_bound, h_rows, rank) -> tuple[float, str]:
-    """K3's least time for one rotation step: bytes are eu for every slot
-    (4 bytes: it marks the pads), ei and ev for the real ratings (8 bytes),
-    ou and oi once, and W and H read and written once; operations are 10
-    f32 flops a rating and rank element (dot 2, the two gradients 3 each,
-    their two sums 2) plus the apply, 2 a rank element of each distinct row
-    an entry touches, on the CUDA cores (67 TFLOP/s f32)."""
-    nbytes = (4 * work["slots"] + 8 * work["ratings"] + 8 * work["entries"]
-              + 2 * 4 * (u_bound + h_rows) * rank)
-    ops = 10.0 * work["ratings"] * rank + 2.0 * work["rows"] * rank
-    return bound_ms(nbytes, ops, "f32")
 
 
 def kernel_launches(fn) -> int:
@@ -609,21 +579,6 @@ def k3_phase(dev, card: str) -> dict:
               f"[{card}]")
         del W, H, ent
     return row
-
-
-def k12_bound_ms(n: int, d: int, k: int, int8: bool) -> tuple[float, str]:
-    """K1's or K2's least time at (n, d, k): its inputs read once and its
-    outputs written once, 2 n k d tensor-core operations (int8 or bf16).
-    K1 reads int8 points and centroids and its f32 scalars (c_scale and c2
-    a centroid, col_scale a feature); K2 reads f32 points and centroids
-    only (its wrapper derives c2).  Both write the [k, d] sums, the counts
-    and the best-score sum (4 bytes each)."""
-    if int8:
-        nbytes = n * d + k * d + 4 * (2 * k + d)
-    else:
-        nbytes = 4 * n * d + 4 * k * d
-    nbytes += 4 * (k * d + k + 1)
-    return bound_ms(nbytes, 2.0 * n * k * d, "int8" if int8 else "bf16")
 
 
 def k1_phase(dev, card: str, gen) -> dict:
@@ -851,6 +806,7 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
     # -- 8. benchmark and CLI -------------------------------------------------
     out = MF.benchmark(ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS,
                        algo="pallas")
+    BENCH_ROWS["MF-SGD pallas"] = ("mfsgd_pallas", out)
     if not (np.isfinite(out["rmse_final"])
             and out["rmse_final"] < out["rmse_first_epoch"]):
         fail(f"MF-SGD benchmark: RMSE not finite and falling: {out}")
@@ -859,36 +815,13 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
           f"{out['rmse_first_epoch']:.6f} -> {out['rmse_final']:.6f}, prep "
           f"{out['prep_sec']:.1f} s; K3 {row['ms']:.4f} ms/call x 2 calls "
           f"an epoch [{card}]")
-    crow = run_cli("mfsgd", "--algo", "pallas", "--epochs", str(EPOCHS))
+    # the CLI at the durable runs' 2M ratings: the width is the same, and
+    # the benchmark above already times the 20M-rating epoch
+    crow = run_cli("mfsgd", "--algo", "pallas", "--epochs", str(EPOCHS),
+                   "--nnz", str(DUR_ML_NNZ))
     if not np.isfinite(crow["rmse_final"]):
         fail(f"MF-SGD CLI row is not finite: {crow}")
     return row, launches
-
-
-def k4_work(ed, d_tile) -> dict:
-    """What one rotation step's entries ask of K4, counted from the data."""
-    real = ed < d_tile
-    return {"entries": ed.shape[0], "slots": ed.size,
-            "tokens": int(real.sum())}
-
-
-def k4_bound_ms(work, ndk_bytes, nwk_bytes, K) -> tuple[float, str]:
-    """K4's least time for one rotation step.  Bytes: cd for every slot (4
-    B: it marks the pads), cw and z read and z written for the real tokens
-    (12 B), od/ow and the two seed words per entry (16 B), nk read and
-    written, and Ndk and the word chunk read and written once.  Operations:
-    ~10 f32 operations per real token and topic (three gathers less the own
-    assignment, three prior adds and clamps, the ratio's two products and
-    one division, the compare) on the CUDA cores at 67 TFLOP/s, and one log
-    each on the special-function units (SFU_OPS_S); the two run side by
-    side, so the slower one bounds."""
-    nbytes = (4 * work["slots"] + 12 * work["tokens"] + 16 * work["entries"]
-              + 8 * K + 2 * (ndk_bytes + nwk_bytes))
-    el = work["tokens"] * K
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(10.0 * el / PEAK_OPS["f32"], el / SFU_OPS_S)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def traced_launches(prof, name: str, launched: int, wall: float
@@ -1148,6 +1081,7 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     out = LD.benchmark(LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_TPD, LDA_EPOCHS,
                        algo="pallas")
     launches = K4.LAUNCHES["cgs_entry_update"]  # ... and ends here
+    BENCH_ROWS["LDA pallas"] = ("lda_pallas", out)
     if launches != 2 * (1 + LDA_EPOCHS):
         fail(f"LDA benchmark: K4 launches {launches}, expected 2 per epoch")
     if not np.isfinite(out["log_likelihood"]):
@@ -1262,9 +1196,7 @@ def k5_phase(dev, card: str) -> dict:
         ms = cuda_ms(lambda: K5.pegasos_grad(*args), reps=50, warmup=3)
         plain = cuda_ms(lambda: K5.pegasos_grad_plain(*args), reps=10,
                         warmup=2)
-        # x once, y and sw, w and b in; gw and gs out; 4 f32 op a element
-        nbytes = n * d * x.element_size() + 8 * n + 8 * d + 8
-        b_ms, b_by = bound_ms(nbytes, 4.0 * n * d, "f32")
+        b_ms, b_by = k5_bound_ms(n, d, x.element_size())
         done.append((xdt, args, float(gs1), err, float(tol.min()), ms, plain,
                      b_ms, b_by))
         if xdt == torch.float32:  # the main path's x
@@ -1335,19 +1267,6 @@ def svm_phases(dev, card: str) -> tuple[dict, int]:
     if not crow["train_acc"] > SVM_ACC_FLOOR:
         fail(f"SVM CLI: train_acc {crow['train_acc']}")
     return row, launches
-
-
-def k6_bound_ms(n_loc: int, N: int, dim: int, dsize: int
-                ) -> tuple[float, str]:
-    """K6's least time: δ once, X, Xl and the row mask in, the block out;
-    ~20 f32 operations a pair on the CUDA cores and one sqrt and one
-    division a pair on the special-function units, side by side."""
-    nbytes = n_loc * N * dsize + 4 * (N * dim + 2 * n_loc * dim + n_loc)
-    pairs = n_loc * N
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = max(20.0 * pairs / PEAK_OPS["f32"], 2.0 * pairs / SFU_OPS_S)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def k6_phase(dev, card: str) -> dict:
@@ -1446,19 +1365,6 @@ def mds_phases(dev, card: str) -> tuple[dict, int]:
           f"{MDS_ITERS} [{card}]")
     run_cli("wdamds", "--algo", "pallas")
     return row, launches
-
-
-def k7_bound_ms(n: int, f: int, T: int, R: int, B: int, nnz: int,
-                bin_bytes: int = 1) -> tuple[float, str]:
-    """K7's least time for one level: the bins once, the row codes and
-    weights of every tree in, the [T, R, f·B] int32 histogram out; or one
-    shared-memory update a weighted increment (a nonzero (tree, sample)
-    weight times each feature: ``nnz`` of them), at one 4-byte update per
-    bank and clock (SMEM_UPDATES_S), where that is larger."""
-    nbytes = n * f * bin_bytes + 8 * T * n + 4 * T * R * f * B
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, nnz * f / SMEM_UPDATES_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def k7_phase(dev, card: str) -> dict:
@@ -1593,31 +1499,6 @@ def rf_phases(dev, card: str) -> tuple[dict, int]:
           f"[{card}]")
     run_cli("rf", "--hist-algo", "pallas")
     return row, launches
-
-
-def k8_pairs(n: int, causal: bool, window: int | None) -> int:
-    """(query, key) pairs the mask keeps in one folded row of length n."""
-    import numpy as np
-
-    q = np.arange(n, dtype=np.int64)
-    if causal:
-        lo = np.zeros_like(q) if window is None else np.maximum(
-            q - window + 1, 0)
-        return int((q - lo + 1).sum())
-    if window is None:
-        return n * n
-    return int((np.minimum(q + window - 1, n - 1)
-                - np.maximum(q - window + 1, 0) + 1).sum())
-
-
-def k8_bound_ms(bh: int, n: int, d: int, bf16: bool, causal: bool,
-                window: int | None) -> tuple[float, str]:
-    """K8's least time: q, k, v read and o written once; 4·d flops (the two
-    products) for each kept pair, at the tensor-core rate for bf16 and the
-    CUDA cores' f32 rate for f32."""
-    nbytes = 4 * bh * n * d * (2 if bf16 else 4)
-    ops = 4.0 * d * k8_pairs(n, causal, window) * bh
-    return bound_ms(nbytes, ops, "bf16" if bf16 else "f32")
 
 
 def within(a, b, rtol: float, atol: float) -> tuple[bool, float]:
@@ -2688,6 +2569,8 @@ def mlp_phase(dev, card: str) -> None:
                                                 zero1=True))):
         torch.cuda.reset_peak_memory_stats()
         r = ML.benchmark(n=MLP_N, batch=MLP_BATCH, cfg=c)
+        if name == "f32":
+            BENCH_ROWS["MLP f32 wire"] = ("mlp", r)
         # a trained model beats a uniform guess over the 10 classes
         if not (np.isfinite(r["loss"]) and r["loss"] < math.log(10)):
             fail(f"MLP benchmark {name}: loss {r['loss']}")
@@ -3121,11 +3004,12 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
     injected ckpt_write fault on its second checkpoint (the step before it
     is replayed) and a worker failure at iteration or chunk 2, and must end
     on the uninterrupted run's bits: KMeans graded config #1 int8 (K1) and
-    f32 use_pallas (K2), MF-SGD on K3 and LDA on K4; CCD++ within its
-    tolerance for another f32 sum order (rtol 1e-4: its float index_add_
-    is not bit-deterministic on the card, so two uninterrupted runs
-    differ too) and the MLP within rtol 1e-5; streaming KMeans int8 at 2.5e6 x 300 killed after two epochs
-    and resumed through the CLI's --resume.  Returns each kernel's launches
+    f32 use_pallas (K2), MF-SGD on K3, LDA on K4 and CCD++ (its sums add
+    in an order fixed at set_ratings, so a second uninterrupted run is
+    bit-equal too), and the MLP within rtol 1e-5 (its float index_add_ is
+    not bit-deterministic on the card); streaming KMeans int8 at
+    1e6 x 300 killed after two epochs and resumed through the CLI's
+    --resume.  Returns each kernel's launches
     on the recovered runs."""
     import numpy as np
     import torch
@@ -3256,10 +3140,10 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
           f"[{card}]")
     del lda, snap, clean
 
-    # CCD++ and the MLP: float index_add_ on the card is not bit-
-    # deterministic, so two uninterrupted runs already differ; the
-    # recovered run is held to the app's tolerance for another f32 sum
-    # order, beside the spread of two uninterrupted runs
+    # CCD++ adds its sums in a fixed order: two uninterrupted runs and the
+    # recovered one end on the same bits.  The MLP's float index_add_ on
+    # the card is not bit-deterministic: its recovered run is held to
+    # rtol 1e-5
     def rel(a, b, atol):
         # the least rtol at which allclose(a, b, rtol, atol) holds
         return max(float(((u - v).abs() - atol).clamp_min(0).div(
@@ -3284,9 +3168,10 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
           f"within rtol {err:.3e} (atol 1e-6) of the uninterrupted fit, two "
           f"uninterrupted fits within rtol {spread:.3e} of each other; "
           f"{saves} [{card}]")
-    if not (torch.allclose(c.W, runs[0][0], rtol=CCD_RTOL, atol=1e-6)
-            and torch.allclose(c.H, runs[0][1], rtol=CCD_RTOL, atol=1e-6)):
-        fail(f"CCD: the recovered factors are not within rtol {CCD_RTOL}")
+    if not all(torch.equal(a, b) for run in (runs[1], (c.W, c.H))
+               for a, b in zip(run, runs[0])):
+        fail("CCD: the recovered factors, or a second uninterrupted run's, "
+             "differ from the uninterrupted run's")
     del c, runs, W0, H0
     x, yy = ML.synthetic_mnist(n=MLP_N, seed=0)
     cfg = ML.MLPConfig(optimizer="momentum")
@@ -3912,6 +3797,278 @@ def elastic_phase(dev, card: str, tmp: str) -> dict:
     return launches
 
 
+def scheduler_check(dev, card: str, sched=None) -> dict:
+    """Phase 44, step 1: the schedulers' stream order on the card
+    (``sched``: a schedule module, this tree's by default).  A
+    DynamicScheduler, started first, is handed items that the caller's
+    stream writes after the start, and each result is read on the
+    caller's stream straight after ``wait_output`` hands it out, before
+    ``stop``; a StaticScheduler's results are read as ``schedule`` returns
+    them.  Both streams spin before they write, so a missing wait reads
+    stale memory.  Fails on a stale result of this tree's module; returns
+    the stale results of each scheduler (another tree's are counted, not
+    failed)."""
+    import torch
+
+    if sched is None:
+        from harp_tpu_torch import schedule as sched
+    own = sched.__name__ == "harp_tpu_torch.schedule"
+    n, spin = 1 << 25, 20_000_000  # 128 MiB of f32 an item; ~10 ms spins
+
+    def task(x):
+        torch.cuda._sleep(spin)  # the task's stream lags the caller's
+        return x * 2 + 1
+
+    def item(v):
+        x = torch.empty(n, device=dev)
+        torch.cuda._sleep(spin)  # the caller's stream lags the host
+        return x.fill_(float(v))
+
+    stale = {}
+    for cls in ("DynamicScheduler", "StaticScheduler"):
+        t0 = time.perf_counter()
+        bad = []
+        if cls == "DynamicScheduler":
+            s = sched.DynamicScheduler(task, n_threads=2, device=dev)
+            s.start()
+            for v in range(4):
+                s.submit(item(v))  # written after the start
+                idx, out = s.wait_output()
+                if not bool((out == 2 * v + 1).all()):  # before stop
+                    bad.append(v)
+            s.stop()
+        else:
+            outs = sched.StaticScheduler(task, n_threads=2, device=dev
+                                         ).schedule([item(v)
+                                                     for v in range(4)])
+            bad = [v for v, out in enumerate(outs)
+                   if not bool((out == 2 * v + 1).all())]
+        torch.cuda.synchronize()
+        if bad and own:
+            fail(f"{cls} on the card: the results of items {bad} were read "
+                 "before their writes ended")
+        stale[cls] = len(bad)
+        print(f"{cls} ({'this tree' if own else sched.__name__}) on the "
+              f"card: {4 - len(bad)} of 4 results of 128 MiB read whole "
+              f"straight after hand-out, {len(bad)} stale "
+              f"({time.perf_counter() - t0:.2f} s) [{card}]")
+    return stale
+
+
+def registry_check(dev, card: str, rows: dict) -> None:
+    """Phase 44, step 2: every kernel of ops/kernel_registry.py at its
+    registered shape, once on the card: its wrapper's LAUNCHES grows by the
+    registered count, its outputs (and the arguments it updates) agree with
+    its plain version within the kernel's class, and its stated shared
+    memory fits the card's opt-in limit (K1's and K2's is the card's own
+    plan's, K7's its plan on this card's limit).  The launch joins its
+    kernel's row of the kernels line as ``registry_launches``."""
+    import torch
+
+    from harp_tpu_torch.ops import kernel_registry as KR
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.ops import rf_kernel as K7
+
+    props = torch.cuda.get_device_properties(dev)
+    optin = props.shared_memory_per_block_optin
+    for name, build in KR.KERNELS.items():
+        info, work = KR.KERNEL_INFO[name], KR.KERNEL_WORK[name]
+        mod = KR.wrapper_module(name)
+        fn, args = build(dev)
+        before = mod.LAUNCHES[info["counter"]]
+        got = KR.run_on_copies(fn, args)
+        torch.cuda.synchronize()
+        grew = mod.LAUNCHES[info["counter"]] - before
+        if grew != info["launches"]:
+            fail(f"registry {name} ({info['kernel']}): LAUNCHES grew by "
+                 f"{grew}, registered {info['launches']}")
+        want = KR.run_on_copies(KR.plain_of(name, fn), args)
+        torch.cuda.synchronize()
+        ok, err = KR.agree(name, got, want)
+        if not ok:
+            fail(f"registry {name} ({info['kernel']}): max |kernel - plain| "
+                 f"{err} outside (rtol, atol) {info['tol']}")
+        smem = work["smem_bytes"]
+        if info["counter"] in ("kmeans_partials_int8", "kmeans_partials"):
+            n, d = args[0].shape
+            plan = KK.plan(info["counter"], dev, n, d, args[1].shape[0])
+            if plan.smem != smem:
+                fail(f"registry {name}: smem_bytes {smem}, the card's plan "
+                     f"{plan.smem}")
+        elif info["counter"] == "hist_bins":
+            bins, rc = args[0], args[1]
+            plan = K7.plan(rc.shape[0], bins.shape[0], bins.shape[1],
+                           fn.keywords["n_bins"], fn.keywords[
+                               "n_node_classes"], 1, optin,
+                           props.multi_processor_count)
+            if plan.smem != smem:
+                fail(f"registry {name}: smem_bytes {smem}, the plan on this "
+                     f"card {plan.smem}")
+        if smem > optin:
+            fail(f"registry {name}: smem_bytes {smem} above the card's "
+                 f"opt-in {optin}")
+        rows[info["counter"]]["registry_launches"] = grew
+        print(f"registry {name} ({info['kernel']}): {grew} launch, within "
+              f"{info['tol']} of the plain version (max err {err:.3e}); "
+              f"flops {work['flops']}, min HBM bytes {work['min_hbm_bytes']},"
+              f" smem {smem} of the card's {optin} [{card}]")
+
+
+def profile_fit(dev, card: str) -> None:
+    """Phase 44, step 3: the KMeans int8 fit at graded config #1 (1M x 300,
+    k = 100, 10 iterations; K1 once an iteration) under
+    utils.profiling.trace, its op_breakdown attributed to the mechanism
+    buckets: K1's seconds and launches, the top kernels, the terms and the
+    device's idle share; "not measured" when the trace holds fewer K1
+    records than its LAUNCHES counted (the profiler can drop records)."""
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.profile import attribution as A
+    from harp_tpu_torch.utils import profiling
+
+    gen = torch.Generator()
+    gen.manual_seed(44)
+    centers = torch.randn((K, D), generator=gen) * 8.0
+    pts = (centers[torch.randint(0, K, (N,), generator=gen)]
+           + torch.randn((N, D), generator=gen)).numpy()
+    KM.fit(pts[:4096], k=K, iters=1, quantize="int8")  # warm: plans, builds
+    torch.cuda.synchronize()
+    key = ("harp_tpu_torch.ops.kmeans_kernel", "kmeans_partials_int8")
+    with tempfile.TemporaryDirectory() as logdir:
+        before = KK.LAUNCHES["kmeans_partials_int8"]
+        with profiling.trace(logdir):
+            t0 = time.perf_counter()
+            _, inertia = KM.fit(pts, k=K, iters=ITERS, seed=0,
+                                quantize="int8")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = KK.LAUNCHES["kmeans_partials_int8"] - before
+        events = profiling.load_events(logdir)
+        breakdown = profiling.op_breakdown(logdir, top=10 ** 6,
+                                           per_device=True, device=dev)
+    if launched != ITERS or not np.isfinite(inertia):
+        fail(f"profiled fit: K1 launched {launched} times (expected "
+             f"{ITERS}), inertia {inertia}")
+    seen, short = A.kernel_records(events, {key: launched})
+    if short:
+        print(f"profiled KMeans int8 fit: {short[0]}; K1's share and the "
+              f"idle share not measured [{card}]")
+        return
+    attrib = A.attribute(breakdown, wall, 1)
+    busy = sum(s for _, _, s in breakdown)
+    k1 = sum(s for nm, _, s in breakdown if A.MAIN_SYMBOLS[key].search(nm))
+    top = sorted(breakdown, key=lambda r: -r[2])[:4]
+    print(f"profiled KMeans int8 fit (1M x 300, k={K}, {ITERS} iterations, "
+          f"host prep included): wall {wall:.4f} s, device busy {busy:.4f} "
+          f"s, idle share {1 - busy / wall:.3f}; K1 {k1 * 1e3:.4f} ms over "
+          f"{seen['kmeans_partials_int8']['traced']} of {launched} launches "
+          f"({k1 / wall:.4f} of the wall); bound {attrib['bound']}, terms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in attrib["terms"].items())
+          + "; top: " + "; ".join(f"{nm[:50]} {s * 1e3:.3f} ms"
+                                  for nm, _, s in top) + f" [{card}]")
+
+
+def roofline_check(card: str) -> None:
+    """Phase 44, step 4: the benchmark rows of phases 5, 8, 12 and 34 on
+    the card's roofline (utils/roofline.py, the peak of each row's route);
+    no share may read over 100 %."""
+    from harp_tpu_torch.utils import roofline
+
+    want = ("KMeans int8 (K1) k=100", "KMeans int8 (K1) k=1000",
+            "KMeans f32 use_pallas (K2) k=100",
+            "KMeans f32 use_pallas (K2) k=1000",
+            "KMeans f32 default (matmul) k=100", "MF-SGD pallas",
+            "LDA pallas", "MLP f32 wire")
+    missing = [w for w in want if w not in BENCH_ROWS]
+    if missing:
+        fail(f"roofline: no benchmark row for {missing}")
+    for label in want:
+        config, row = BENCH_ROWS[label]
+        ann = roofline.annotate(config, row)
+        if "pct_peak_flops" not in ann:
+            fail(f"roofline {label}: no work model for the row {row}")
+        if ann["pct_peak_flops"] > 100 or ann["pct_peak_bw"] > 100:
+            fail(f"roofline {label}: above a peak: {ann}")
+        print(f"roofline {label}: {ann['achieved_tflops']} TFLOP/s = "
+              f"{ann['pct_peak_flops']} % of {ann['roofline_peak']}, "
+              f"{ann['achieved_gbs']} GB/s = {ann['pct_peak_bw']} % of HBM, "
+              f"{ann['bound']}-bound [{card}]")
+
+
+def profile_cli_check(card: str) -> None:
+    """Phase 44, step 5: ``python -m harp_tpu_torch profile --all --json``
+    on the card: a row an app, each reconciled or naming the records the
+    profiler dropped as its only reason."""
+    cli = subprocess.run([sys.executable, "-m", "harp_tpu_torch", "profile",
+                          "--all", "--json"], cwd=REPO, capture_output=True,
+                         text=True, timeout=600)
+    rows = [json.loads(x) for x in cli.stdout.splitlines()
+            if x.startswith("{")]
+    if cli.returncode not in (0, 1) or len(rows) != 11:
+        fail(f"profile --all exited {cli.returncode} with {len(rows)} rows:"
+             f"\n{cli.stderr[-2000:]}")
+    for r in rows:
+        if r.get("backend") != "cuda":
+            fail(f"profile {r['app']}: not a cuda row: {r}")
+        dropped = all("dropped device records" in w for w in r["why"])
+        if not (r["reconciled"] or dropped):
+            fail(f"profile {r['app']}: not reconciled: {r['why']}")
+        kernels = ", ".join(f"{k} {v['traced']}/{v['launches']}"
+                            for k, v in r["kernels"].items())
+        print(f"profile {r['app']} ({r['program']}): wall {r['wall_s']} s "
+              f"for {r['reps']} reps, bound {r['bound']}, "
+              + ", ".join(f"{k} {v}" for k, v in r["terms"].items() if v)
+              + (f"; kernels traced/launched {kernels}" if kernels else "")
+              + ("" if r["reconciled"] else
+                 f"; not measured: {r['why'][0]}") + f" [{card}]")
+
+
+def checked_jit_check(dev, card: str) -> None:
+    """Phase 44, step 6: checked_jit on the card: a NaN output raises, a
+    clean call returns bit-equal to the bare call."""
+    import torch
+
+    from harp_tpu_torch.utils.check import CheckError, checked_jit
+
+    def bad(x):
+        return torch.log(x) / x
+
+    def clean(x):
+        return torch.softmax(x @ x.T, dim=1).sum(0)
+
+    try:
+        checked_jit(bad)(torch.tensor([-1.0, 2.0], device=dev))
+    except CheckError as e:
+        if "nan" not in str(e):
+            fail(f"checked_jit on the card: {e} does not name nan")
+    else:
+        fail("checked_jit on the card: log(-1)/-1 did not raise")
+    x = torch.randn((512, 256), device=dev)
+    if not torch.equal(checked_jit(clean)(x), clean(x)):
+        fail("checked_jit on the card: a clean call differs from the bare "
+             "call")
+    print(f"checked_jit on the card: log(-1)/-1 raises naming nan; a clean "
+          f"[512, 256] softmax-Gram call bit-equal to the bare call [{card}]")
+
+
+def measurement_phase(dev, card: str, rows: dict) -> None:
+    """Phase 44: the measurement layer on the card, steps 1-6 in order
+    (each function's docstring); ``rows`` are the kernels line's."""
+    for name, step in (("schedulers", lambda: scheduler_check(dev, card)),
+                       ("registry", lambda: registry_check(dev, card, rows)),
+                       ("profiled fit", lambda: profile_fit(dev, card)),
+                       ("roofline", lambda: roofline_check(card)),
+                       ("profile CLI", lambda: profile_cli_check(card)),
+                       ("checked_jit", lambda: checked_jit_check(dev, card))):
+        t0 = time.perf_counter()
+        step()
+        print(f"measurement {name}: {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -4062,6 +4219,7 @@ def main() -> int:
     for p, kw in paths.items():
         for k in ((K, 1000) if p in kernel_of else (K,)):
             out = KM.benchmark(n=N, d=D, k=k, iters=ITERS, **kw)
+            BENCH_ROWS[f"KMeans {p} k={k}"] = ("kmeans", out)
             if not np.isfinite(out["inertia"]):
                 fail(f"benchmark {p} k={k}: non-finite inertia")
             line = (f"benchmark {p} k={k}: {out['iters_per_sec']:.2f} "
@@ -4167,23 +4325,16 @@ def main() -> int:
     rows["kmeans_partials_int8"]["stream_recovery_launches"] = rec[
         "stream_kmeans_partials_int8"]
 
-    # -- 44. result ----------------------------------------------------------
-    src = {"kmeans_partials_int8": ("harp_tpu_torch/csrc/kmeans_partials_int8.cu",
-                                    "harp_tpu/ops/kmeans_kernel.py:249"),
-           "kmeans_partials": ("harp_tpu_torch/csrc/kmeans_partials.cu",
-                               "harp_tpu/ops/kmeans_kernel.py:110"),
-           "sgd_tile_update": ("harp_tpu_torch/csrc/mfsgd_tile_update.cu",
-                               "harp_tpu/ops/mfsgd_kernel.py:133"),
-           "cgs_entry_update": ("harp_tpu_torch/csrc/lda_cgs_entry.cu",
-                                "harp_tpu/ops/lda_kernel.py:190"),
-           "pegasos_grad": ("harp_tpu_torch/csrc/svm_pegasos_grad.cu",
-                            "harp_tpu/ops/svm_kernel.py:103"),
-           "smacof_bx": ("harp_tpu_torch/csrc/wdamds_smacof_bx.cu",
-                         "harp_tpu/ops/wdamds_kernel.py:114"),
-           "hist_bins": ("harp_tpu_torch/csrc/rf_hist_bins.cu",
-                         "harp_tpu/ops/rf_kernel.py:102"),
-           "flash_attention": ("harp_tpu_torch/csrc/flash_attention.cu",
-                               "harp_tpu/ops/flash_attention.py:100")}
+    # -- 44. the measurement layer -------------------------------------------
+    t0 = time.perf_counter()
+    measurement_phase(dev, card, rows)
+    print(f"phase measurement: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # -- 45. result ----------------------------------------------------------
+    from harp_tpu_torch.ops.kernel_registry import KERNEL_INFO
+
+    src = {i["counter"]: (i["source"], i["replaces"])
+           for i in sorted(KERNEL_INFO.values(), key=lambda i: i["kernel"])}
     kernels = [{"name": name, "route": "cuda", "source": src[name][0],
                 "replaces": src[name][1], "launches": launches[name],
                 "library_ms": None, **rows[name]} for name in src]

@@ -34,6 +34,8 @@
     python -m harp_tpu_torch report --telemetry run.jsonl [--metrics m.jsonl]
     python -m harp_tpu_torch timeline run.jsonl [--perfetto trace.json]
     python -m harp_tpu_torch health run.jsonl [--json]
+    python -m harp_tpu_torch profile --all --json
+    python -m harp_tpu_torch profile kmeans --device cpu
     python -m harp_tpu_torch --list
 """
 
@@ -80,6 +82,8 @@ APPS = {
                  "superstep timeline: validate/summarize an export"),
     "health": ("harp_tpu_torch.health.cli",
                "health sentinel, offline: summarize an export's findings"),
+    "profile": ("harp_tpu_torch.profile.cli",
+                "wall attribution: one driver run per app, op → bucket"),
 }
 
 

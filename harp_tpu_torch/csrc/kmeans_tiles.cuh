@@ -1332,7 +1332,8 @@ cudaError_t make_plan(int n, int d, int k, Plan* P) {
 // the process's life and passes to every launch of that shape, and as
 // out[0] fused, out[1] the main grid, out[2] k_pad, out[3] sb (the packed
 // centroid row stride in bytes), out[4] tile rows, out[5] centroid ranges,
-// out[6] point stripes.
+// out[6] point stripes, out[7] the main kernel's dynamic shared memory a
+// block in bytes.
 template <class Tr>
 int export_plan(int n, int d, int k, int* out, void** handle) {
   Plan* P = new Plan;
@@ -1341,9 +1342,10 @@ int export_plan(int n, int d, int k, int* out, void** handle) {
     delete P;
     return (int)err;
   }
-  const int fields[7] = {P->fused, P->grid,  P->k_pad,  P->sb,
-                         16 * P->mt, P->ranges, P->stripes};
-  for (int i = 0; i < 7; ++i) out[i] = fields[i];
+  const int fields[8] = {P->fused,   P->grid,   P->k_pad,
+                         P->sb,      16 * P->mt, P->ranges,
+                         P->stripes, (int)P->smem_main};
+  for (int i = 0; i < 8; ++i) out[i] = fields[i];
   *handle = P;
   return 0;
 }

@@ -10,12 +10,16 @@ ratings of its users; the item factors H are replicated.  A coordinate
 update is then exact: the W column from per-user sums over the local
 ratings (no communication), the H column from per-item partial (num, den)
 sums over the global item ids combined by one ``C.allreduce`` of two
-[n_items] vectors.  The per-user and per-item sums are ``index_add_``
-(the reference's ``segment_sum``), and the predictions are kept up to date
-across coordinate updates, so an epoch costs O(nnz · rank).  An epoch is a
-Python loop over ``rank × sweeps`` coordinates that never waits for the
-device; the reference runs it as one program, so ``compile_epochs`` has
-nothing to compile here and only validates.
+[n_items] vectors.  The per-user and per-item sums (the reference's
+``segment_sum``) are ``torch.segment_reduce`` over the ratings grouped by
+id, in an order fixed at ``set_ratings``: they add in the same order every
+run, so an epoch on the card gives the same bits every time (a float
+``index_add_`` there adds in whatever order its atomics land, and CCD++
+carries that spread on from epoch to epoch).  The predictions are kept up
+to date across coordinate updates, so an epoch costs O(nnz · rank).  An
+epoch is a Python loop over ``rank × sweeps`` coordinates that never waits
+for the device; the reference runs it as one program, so
+``compile_epochs`` has nothing to compile here and only validates.
 
 ``fit(epochs, ckpt_dir)`` checkpoints W and H through
 :func:`harp_tpu_torch.utils.fault.fit_epochs`; a checkpoint of another
@@ -42,17 +46,25 @@ class CCDConfig:
     sweeps: int = 1  # coordinate cycles per epoch
 
 
-def _segment_sum(values, ids, n):
-    return torch.zeros((n,), dtype=values.dtype,
-                       device=values.device).index_add_(0, ids, values)
+def _segments(ids: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The order that groups equal ``ids`` (stable) and the [n + 1] offsets
+    of each id's run in it."""
+    offsets = np.zeros(n + 1, np.int64)
+    offsets[1:] = np.bincount(ids, minlength=n).cumsum()
+    return np.argsort(ids, kind="stable"), offsets
 
 
-def _epoch(W, H, bu, bi, bv, bm, cfg: CCDConfig):
+def _segment_sum(values, order, offsets):
+    return torch.segment_reduce(values[order], "sum", offsets=offsets,
+                                unsafe=True)
+
+
+def _epoch(W, H, bu, bi, bv, bm, ou, offu, oi, offi, cfg: CCDConfig):
     """One epoch on this worker: W [u_bound, r] its users' rows (updated in
     place), H [n_items, r] replicated (in place); ``bu`` local user ids,
-    ``bi`` global item ids, ``bv`` ratings, ``bm`` the 0/1 mask.  Returns
-    (se, cnt), summed over the workers."""
-    u_size, n_items = W.shape[0], H.shape[0]
+    ``bi`` global item ids, ``bv`` ratings, ``bm`` the 0/1 mask; ``ou``/
+    ``offu`` and ``oi``/``offi`` group them by user and by item
+    (:func:`_segments`).  Returns (se, cnt), summed over the workers."""
     pred = (W[bu] * H[bi]).sum(-1)
     for f in list(range(cfg.rank)) * cfg.sweeps:
         wf = W[:, f][bu]
@@ -60,8 +72,8 @@ def _epoch(W, H, bu, bi, bv, bm, cfg: CCDConfig):
         rhat = bm * (bv - pred + wf * hf)
 
         # the W column: all of each user's ratings are local
-        num_u = _segment_sum(rhat * hf, bu, u_size)
-        den_u = _segment_sum(bm * hf * hf, bu, u_size)
+        num_u = _segment_sum(rhat * hf, ou, offu)
+        den_u = _segment_sum(bm * hf * hf, ou, offu)
         w_new_col = torch.where(den_u > 0, num_u / (cfg.reg + den_u), W[:, f])
         W[:, f] = w_new_col
         wf_new = w_new_col[bu]
@@ -69,8 +81,8 @@ def _epoch(W, H, bu, bi, bv, bm, cfg: CCDConfig):
 
         # the H column: per-item partials, one allreduce (exact)
         rhat = bm * (bv - pred + wf_new * hf)
-        num_i = _segment_sum(rhat * wf_new, bi, n_items)
-        den_i = _segment_sum(bm * wf_new * wf_new, bi, n_items)
+        num_i = _segment_sum(rhat * wf_new, oi, offi)
+        den_i = _segment_sum(bm * wf_new * wf_new, oi, offi)
         num_i, den_i = C.allreduce((num_i, den_i))
         h_new_col = torch.where(den_i > 0, num_i / (cfg.reg + den_i), H[:, f])
         H[:, f] = h_new_col
@@ -117,7 +129,10 @@ class CCD:
         self._blocks = None
 
     def set_ratings(self, users, items, vals):
-        """Partition by user range; items stay global (H is replicated)."""
+        """Partition by user range; items stay global (H is replicated).
+        Each worker's block is also grouped by user and by item, once, for
+        the epochs' sums (a padded slot is user 0 and item 0, with a 0
+        mask: it adds an exact 0)."""
         n = self.mesh.num_workers
         users = np.asarray(users)
         items = np.asarray(items)
@@ -140,8 +155,10 @@ class CCD:
             bi[w, :c] = si[sl]
             bv[w, :c] = sv[sl]
             bm[w, :c] = 1.0
-        self._blocks = tuple(self.mesh.shard_array(a.reshape(n * B), 0)
-                             for a in (bu, bi, bv, bm))
+        ou, offu = zip(*(_segments(b, self.u_bound) for b in bu))
+        oi, offi = zip(*(_segments(b, self.n_items) for b in bi))
+        self._blocks = tuple(self.mesh.shard_array(np.concatenate(a), 0)
+                             for a in (bu, bi, bv, bm, ou, offu, oi, offi))
 
     def _check(self, what: str) -> None:
         if self._blocks is None:

@@ -74,6 +74,7 @@ class Plan(NamedTuple):
     tile_rows: int  # points a main-kernel tile
     ranges: int     # centroid ranges of the range launch (two-pass only)
     stripes: int    # point stripes of the range launch (two-pass only)
+    smem: int = 0   # the main kernel's dynamic shared memory a block
     handle: int = 0  # the library's plan (kept for the process's life)
 
 
@@ -115,13 +116,13 @@ def plan(name: str, dev: torch.device, n: int, d: int, k: int,
     key = (name, index, n, d, k, pts_bf16)
     if key not in _PLANS:
         lib = _lib(name)
-        out, handle = (_I * 7)(), _P()
+        out, handle = (_I * 8)(), _P()
         with torch.cuda.device(dev):
             args = (n, d, k, int(pts_bf16)) if name == "kmeans_partials" \
                 else (n, d, k)
             build.check(getattr(lib, f"{name}_plan")(
                 *args, out, ctypes.byref(handle)), f"{name}_plan")
-        _PLANS[key] = Plan(bool(out[0]), *out[1:], handle.value)
+        _PLANS[key] = Plan(bool(out[0]), *out[1:], handle=handle.value)
     return _PLANS[key]
 
 

@@ -23,9 +23,9 @@ Two entry points:
 - :func:`maybe_emit`: called by the instrumented app CLIs at exit; with
   telemetry on the report lands on stderr and the JSON line on stdout.
 
-Not ported yet (ROADMAP.md, Queue 1, item 9): ``--trace-logdir``, the
-top-ops table from a device trace, which reads it through
-``utils/profiling.py``; the flag raises ``NotImplementedError``.
+``--trace-logdir DIR`` adds the top-ops table (``--top`` rows) of the
+newest ``utils.profiling.trace`` capture under ``DIR``: the device
+kernels' self time on a card, the host ops' on the CPU.
 """
 
 from __future__ import annotations
@@ -135,6 +135,7 @@ def skew_summary_from_rows(rows: list[dict]) -> dict:
 
 def build_row(comm: dict, spans: dict, span_records: list[dict] | None = None,
               metrics_rows: list[dict] | None = None,
+              top_ops: list | None = None,
               compile_info: dict | None = None,
               transfer_info: dict | None = None,
               skew_info: dict | None = None,
@@ -182,6 +183,8 @@ def build_row(comm: dict, spans: dict, span_records: list[dict] | None = None,
         row["metrics_rows"] = len(metrics_rows)
         if metrics_rows:
             row["metrics_last"] = metrics_rows[-1]
+    if top_ops:
+        row["top_ops"] = [{"op": n, "sec": round(s, 5)} for n, s in top_ops]
     return row
 
 
@@ -361,6 +364,10 @@ def render(row: dict, span_records: list[dict] | None = None) -> str:
         lines.append(f"metrics: {row['metrics_rows']} row(s)")
         if row.get("metrics_last"):
             lines.append(f"  last: {json.dumps(row['metrics_last'])}")
+    if row.get("top_ops"):
+        lines.append("top device ops (self time):")
+        for o in row["top_ops"]:
+            lines.append(f"  {o['op']:<40s} {o['sec']:.5f} s")
     return "\n".join(lines)
 
 
@@ -427,16 +434,13 @@ def main(argv=None) -> int:
     p.add_argument("--metrics", metavar="FILE",
                    help="MetricsLogger JSONL to merge")
     p.add_argument("--trace-logdir", metavar="DIR",
-                   help="a device trace's logdir for the top-ops table "
-                        "(not ported yet)")
+                   help="profiling.trace() logdir: adds the op_breakdown "
+                        "top-ops table")
+    p.add_argument("--top", type=int, default=10,
+                   help="rows of the top-ops table (default 10)")
     p.add_argument("--json-only", action="store_true",
                    help="print only the machine-readable line")
     args = p.parse_args(argv)
-    if args.trace_logdir:
-        raise NotImplementedError(
-            "report --trace-logdir reads a device trace through "
-            "utils/profiling.py, which is not ported yet (ROADMAP.md, "
-            "Queue 1, item 9)")
 
     span_rows: list[dict] = []
     comm_rows: list[dict] = []
@@ -465,13 +469,19 @@ def main(argv=None) -> int:
                 if line:
                     metrics_rows.append(json.loads(line))
 
+    top_ops = None
+    if args.trace_logdir:
+        from harp_tpu_torch.utils.profiling import op_breakdown
+
+        top_ops = op_breakdown(args.trace_logdir, top=args.top)
+
     from harp_tpu_torch import health as health_mod
     from harp_tpu_torch.utils import memrec
     from harp_tpu_torch.utils.reqtrace import summarize_rows as trace_summary
 
     row = build_row(comm_summary_from_rows(comm_rows),
                     span_summary_from_rows(span_rows),
-                    span_rows, metrics_rows,
+                    span_rows, metrics_rows, top_ops,
                     compile_info=compile_summary_from_rows(compile_rows),
                     transfer_info=transfer_summary_from_rows(transfer_rows),
                     skew_info=skew_summary_from_rows(skew_rows),

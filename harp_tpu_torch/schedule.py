@@ -16,10 +16,22 @@ Harp's API on threads (loaders release the GIL in numpy and native code).
 
 **Streams.**  A task runs on its scheduler's thread, whose current CUDA
 stream is that thread's default, never the caller's.  A scheduler given a
-``device`` runs each thread's tasks on a stream of its own that first
-waits for the caller's current stream, and makes the caller's stream wait
-for every task stream before :meth:`schedule` returns; without one the
-scheduler touches no stream at all.
+``device`` runs each thread's tasks on a stream of its own and orders every
+item both ways:
+
+- an event recorded on the caller's current stream when the item is
+  handed in (``submit``, or ``schedule`` for the static scheduler) is
+  waited on by the task's stream before the task runs it, and the item's
+  CUDA tensors are ``record_stream``-ed to the task's stream;
+- an event recorded on the task's stream after the task is waited on by
+  the caller's current stream before the result is handed out
+  (``wait_output``, ``schedule``), and the result's CUDA tensors are
+  ``record_stream``-ed to the caller's stream, so the caching allocator
+  never hands a block out while the other stream still uses it;
+- ``stop`` and the end of a static ``schedule`` also make the caller's
+  stream wait for every task stream (a task that failed may have written).
+
+Without a CUDA ``device`` the scheduler touches no stream at all.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ from typing import Any, Callable, Generic, Iterable, Sequence, TypeVar
 
 import torch
 
-from harp_tpu_torch.utils.telemetry import span
+from harp_tpu_torch.utils.telemetry import span, tree_leaves
 
 I = TypeVar("I")
 O = TypeVar("O")
@@ -61,37 +73,66 @@ def _n_threads(n: int | None) -> int:
     return n if n and n > 0 else (os.cpu_count() or 1)
 
 
+def _record_stream(tree: Any, stream) -> None:
+    """Mark every CUDA tensor of ``tree`` as used on ``stream``."""
+    for x in tree_leaves(tree):
+        if getattr(x, "is_cuda", False):
+            x.record_stream(stream)
+
+
 class _Streams:
-    """The task threads' CUDA streams (see the module docstring): nothing
-    at all without a CUDA ``device``."""
+    """The task threads' CUDA streams and the per-item order (see the
+    module docstring): nothing at all without a CUDA ``device``."""
 
     def __init__(self, device):
         dev = None if device is None else torch.device(device)
         self.device = dev if dev is not None and dev.type == "cuda" else None
-        self._caller = None
         self._used: list = []
         self._lock = threading.Lock()
 
-    def begin(self) -> None:
-        if self.device is not None:
-            self._caller = torch.cuda.current_stream(self.device)
-            self._used = []
+    def mark(self):
+        """An event recorded on the calling thread's current stream (None
+        without a device): a task's stream for a result, the caller's for
+        an item handed in."""
+        if self.device is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
 
     def context(self):
-        """Entered by a task thread around its tasks."""
+        """Entered by a task thread around its tasks: a stream of its own."""
         if self.device is None:
             return contextlib.nullcontext()
         s = torch.cuda.Stream(self.device)
-        s.wait_stream(self._caller)
         with self._lock:
             self._used.append(s)
         return torch.cuda.stream(s)
 
-    def end(self) -> None:
+    def take(self, ready, item) -> None:
+        """On a task thread, before its task runs ``item``: wait for the
+        caller's stream as of the item's hand-in (``ready``)."""
         if self.device is not None:
-            for s in self._used:
-                self._caller.wait_stream(s)
-            self._used = []
+            s = torch.cuda.current_stream(self.device)
+            s.wait_event(ready)
+            _record_stream(item, s)
+
+    def give(self, done, out) -> None:
+        """On the caller's thread, before ``out`` is handed out: wait for the
+        task's stream as of the task's end (``done``)."""
+        if self.device is not None and done is not None:
+            s = torch.cuda.current_stream(self.device)
+            s.wait_event(done)
+            _record_stream(out, s)
+
+    def end(self) -> None:
+        """The caller's stream waits for every task stream used so far."""
+        if self.device is not None:
+            caller = torch.cuda.current_stream(self.device)
+            with self._lock:
+                used, self._used = self._used, []
+            for s in used:
+                caller.wait_stream(s)
 
 
 class StaticScheduler(Generic[I, O]):
@@ -123,13 +164,17 @@ class StaticScheduler(Generic[I, O]):
     def _schedule(self, items: Sequence[I]) -> list[O]:
         n = len(self.tasks)
         results: list[Any] = [None] * len(items)
+        done: list[Any] = [None] * len(items)
         errors: list[BaseException] = []
+        ready = self._streams.mark()  # every item is handed in here
 
         def worker(t: int) -> None:
             try:
                 with self._streams.context():
                     for idx in range(t, len(items), n):
+                        self._streams.take(ready, items[idx])
                         results[idx] = self.tasks[t](items[idx])
+                        done[idx] = self._streams.mark()
             except BaseException as e:  # noqa: BLE001 - re-raised on main thread
                 errors.append(e)
 
@@ -137,7 +182,6 @@ class StaticScheduler(Generic[I, O]):
         threads = [threading.Thread(target=worker, args=(t,), daemon=True,
                                     name=f"harp-sched-static-{t}")
                    for t in range(min(n, len(items)))]
-        self._streams.begin()
         for th in threads:
             th.start()
         for th in threads:
@@ -145,6 +189,8 @@ class StaticScheduler(Generic[I, O]):
         self._streams.end()
         if errors:
             raise errors[0]
+        for out, ev in zip(results, done):
+            self._streams.give(ev, out)
         return results
 
 
@@ -184,13 +230,13 @@ class DynamicScheduler(Generic[I, O]):
                     got = self._in.get()
                     if got is _SENTINEL:
                         return
-                    idx, item = got
+                    idx, item, ready = got
                     try:
-                        self._out.put((idx, task(item), None))
+                        self._streams.take(ready, item)
+                        out = task(item)
+                        self._out.put((idx, out, None, self._streams.mark()))
                     except BaseException as e:  # noqa: BLE001 - surfaced in wait_output
-                        self._out.put((idx, None, e))
-
-        self._streams.begin()
+                        self._out.put((idx, None, e, None))
 
         self._threads = [threading.Thread(target=worker, args=(t,),
                                           daemon=True,
@@ -200,15 +246,16 @@ class DynamicScheduler(Generic[I, O]):
             th.start()
 
     def submit(self, item: I) -> None:
-        self._in.put((self._submitted, item))
+        self._in.put((self._submitted, item, self._streams.mark()))
         self._submitted += 1
 
     def wait_output(self) -> tuple[int, O]:
         """Block for one result — ``waitForOutput``; raises task exceptions."""
-        idx, out, err = self._out.get()
+        idx, out, err, done = self._out.get()
         self._drained += 1
         if err is not None:
             raise err
+        self._streams.give(done, out)
         return idx, out
 
     def stop(self) -> None:
@@ -249,12 +296,13 @@ class DynamicScheduler(Generic[I, O]):
             # drain the WHOLE batch even when a task failed — leaving results
             # queued would mis-slot them into the next schedule() call
             for _ in range(n):
-                idx, val, err = self._out.get()
+                idx, val, err, done = self._out.get()
                 self._drained += 1
                 if err is not None:
                     first_err = first_err or err
                     continue
                 assert base <= idx < base + n, (idx, base, n)
+                self._streams.give(done, val)
                 out[idx - base] = val
         finally:
             if not started:

@@ -303,13 +303,28 @@ def suggest_rebalance(phase: str) -> dict | None:
 
 def wasted_pct_of_peak(config: str, result: dict,
                        phase: str) -> float | None:
-    """Skew waste stated in percent of the device's peak: the reference
-    composes the phase's wasted fraction with its TPU roofline, and no TPU
-    rate carries over to the card."""
-    raise NotImplementedError(
-        "skew.wasted_pct_of_peak prices waste with the card's roofline "
-        "(utils/roofline.py), which is not ported yet (ROADMAP.md, Queue 1, "
-        "item 9)")
+    """Skew waste stated in percent of the card's peak (the roofline
+    composition).
+
+    ``roofline.annotate(config, result)`` gives the percent of the H100's
+    peak (:data:`roofline.H100_PEAKS`) that the measured rate achieves, on
+    the peak of the route the row ran; the phase's wasted fraction says
+    how much of that a balanced partition would reclaim.  None when
+    either half is unavailable (no work model, phase unknown, zero
+    work)."""
+    from harp_tpu_torch.utils import roofline
+
+    rec = ledger._phases.get(phase)
+    if rec is None:
+        return None
+    imb = SkewLedger._imbalance(rec)
+    if not imb.get("wasted_frac"):
+        return None
+    ann = roofline.annotate(config, result, roofline.H100_PEAKS)
+    pct = ann.get("pct_peak_flops")
+    if pct is None:
+        return None
+    return round(pct * imb["wasted_frac"], 3)
 
 
 def export_jsonl(fh) -> None:

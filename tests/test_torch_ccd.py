@@ -5,13 +5,14 @@ over by ``convert.ccd_state_from_numpy``); both packages partition the
 same ratings by user range — 130 users over four workers is ragged (33,
 33, 33, 31 rows, the last range padded) — and train three epochs.  W, H
 and the per-epoch RMSEs agree within rtol 1e-4 (atol 1e-6): the per-user
-and per-item sums add in another f32 order (``index_add_`` against
-``segment_sum``).
+and per-item sums add in another f32 order (``segment_reduce`` over the
+ratings grouped by id against ``segment_sum``).
 """
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from harp_tpu.models import ccd as JC
 from harp_tpu.parallel.mesh import WorkerMesh as JaxMesh
@@ -98,6 +99,22 @@ def test_four_worker_ledger_sheet(world):
         assert rec["payload_bytes"] == s["epochs"] * (
             s["rank"] * 2 * s["n_items"] * 4 + 8)
         assert not w["_jax_imported"]
+
+
+@pytest.mark.parametrize("n,size", [(1, 1), (40, 7), (5, 300)])
+def test_grouped_sums_are_the_per_id_sums(n, size):
+    """Every id gets its own sum, an id with no entry 0, whatever order the
+    ids come in."""
+    rng = np.random.default_rng(size)
+    ids = rng.integers(0, n, size)
+    vals = rng.normal(size=size).astype(np.float32)
+    order, offsets = CC._segments(ids, n)
+    assert np.array_equal(ids[order], np.sort(ids, kind="stable"))
+    got = CC._segment_sum(torch.from_numpy(vals), torch.from_numpy(order),
+                          torch.from_numpy(offsets))
+    np.testing.assert_allclose(got.numpy(),
+                               np.bincount(ids, vals, minlength=n),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_train_epochs_protocol_and_compile_epochs_trains_nothing():

@@ -1084,3 +1084,84 @@ def test_fit_streaming_runs_k1_once_a_chunk_and_matches_the_cpu(dev):
         cc, ic, _ = KS.fit_streaming(pts, quantize=q, device="cpu", **kw)
         np.testing.assert_allclose(cg, cc, rtol=1e-4, atol=1e-4)
         assert abs(ig - ic) <= 1e-4 * abs(ic)
+
+
+@pytest.mark.parametrize("cls", ["DynamicScheduler", "StaticScheduler"])
+def test_scheduler_orders_items_and_results_on_the_streams(dev, cls):
+    """An item written on the caller's stream after the scheduler started
+    is read whole by its task, and a task's large result is read whole on
+    the caller's stream straight after it is handed out (before stop):
+    each stream spins first, so a missing wait would read stale memory."""
+    from harp_tpu_torch import schedule as SCH
+
+    n = 1 << 25  # 128 MiB of f32
+
+    def task(x):
+        torch.cuda._sleep(20_000_000)  # the task stream lags the caller's
+        return x * 2 + 1
+
+    def item(v):
+        x = torch.empty(n, device=dev)
+        torch.cuda._sleep(20_000_000)  # the caller's stream lags the host
+        return x.fill_(float(v))
+
+    if cls == "StaticScheduler":
+        outs = SCH.StaticScheduler(task, n_threads=2, device=dev).schedule(
+            [item(v) for v in range(3)])
+        for v, out in enumerate(outs):
+            assert bool((out == 2 * v + 1).all()), v
+        return
+    s = SCH.DynamicScheduler(task, n_threads=2, device=dev)
+    s.start()
+    try:
+        for v in range(3):
+            s.submit(item(v))
+            idx, out = s.wait_output()
+            assert idx == v and bool((out == 2 * v + 1).all()), v
+    finally:
+        s.stop()
+
+
+def _registry_names():
+    from harp_tpu_torch.ops import kernel_registry as KR
+
+    return list(KR.KERNELS)
+
+
+@pytest.mark.parametrize("name", _registry_names())
+def test_registry_entry_launches_once_and_agrees_with_plain(dev, name):
+    """Each kernel of ops/kernel_registry.py at its registered shape: one
+    call grows its wrapper's LAUNCHES by the registered count, agrees with
+    its plain version within the kernel's class, and its stated shared
+    memory fits the card's opt-in limit."""
+    from harp_tpu_torch.ops import kernel_registry as KR
+
+    info = KR.KERNEL_INFO[name]
+    mod = KR.wrapper_module(name)
+    fn, args = KR.KERNELS[name](dev)
+    before = mod.LAUNCHES[info["counter"]]
+    got = KR.run_on_copies(fn, args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[info["counter"]] - before == info["launches"]
+    want = KR.run_on_copies(KR.plain_of(name, fn), args)
+    ok, err = KR.agree(name, got, want)
+    assert ok, err
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert KR.KERNEL_WORK[name]["smem_bytes"] <= optin
+
+
+def test_ccd_epochs_on_the_card_give_the_same_bits_every_run(dev):
+    """CCD++'s per-user and per-item sums add in an order fixed at
+    set_ratings, so two fits from the same factors agree bit for bit."""
+    from harp_tpu_torch.models import ccd as CD
+
+    m = CD.CCD(3000, 700, CD.CCDConfig(rank=8), device=dev, seed=0)
+    m.set_ratings(*MF.synthetic_ratings(3000, 700, 200_000, seed=0))
+    W0, H0 = m.W.clone(), m.H.clone()
+    runs = []
+    for _ in range(2):
+        m.W, m.H = W0.clone(), H0.clone()
+        m.fit(3)
+        runs.append((m.W.clone(), m.H.clone()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])

@@ -16,10 +16,8 @@ import torch
 
 from harp_tpu_torch import benchmark as BM
 from harp_tpu_torch import mapper as MP
-from harp_tpu_torch import report as RP
 from harp_tpu_torch.elastic import apps as EA
 from harp_tpu_torch.health import cli as HC
-from harp_tpu_torch.utils import skew as SK
 from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import ccd as CD
@@ -36,6 +34,8 @@ from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
 from harp_tpu_torch.parallel import mesh as M
 from harp_tpu_torch.parallel import pipeline as PP
+from harp_tpu_torch.profile import attribution as PA
+from harp_tpu_torch.profile import cli as PF
 from harp_tpu_torch.serve import bench as SB
 from harp_tpu_torch.serve import server as SR
 from harp_tpu_torch.utils import memrec as MR
@@ -127,7 +127,13 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.schedule", "harp_tpu_torch.mapper",
             "harp_tpu_torch.elastic", "harp_tpu_torch.elastic.ledger",
             "harp_tpu_torch.elastic.rebalance", "harp_tpu_torch.elastic.move",
-            "harp_tpu_torch.elastic.apps"} <= set(mods)
+            "harp_tpu_torch.elastic.apps", "harp_tpu_torch.utils.config",
+            "harp_tpu_torch.utils.check", "harp_tpu_torch.utils.roofline",
+            "harp_tpu_torch.ops.kernel_registry",
+            "harp_tpu_torch.utils.profiling",
+            "harp_tpu_torch.analysis.drivers", "harp_tpu_torch.profile",
+            "harp_tpu_torch.profile.attribution",
+            "harp_tpu_torch.profile.cli"} <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -186,7 +192,8 @@ STATS_APPS = {
                                    "pipeline_loss_and_grads",
                                    "mapper-CollectiveApp.run",
                                    "mfsgd_elastic_fit", "lda_elastic_fit",
-                                   "kmeans_stream_elastic_fit"])
+                                   "kmeans_stream_elastic_fit",
+                                   "profile-cli", "profile-capture"])
 def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -226,6 +233,10 @@ def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
                                n_docs=16, vocab_size=8)
         elif entry == "kmeans_stream_elastic_fit":
             EA.kmeans_stream_elastic_fit(pts, k=2)
+        elif entry == "profile-cli":
+            PF.main(["kmeans"])
+        elif entry == "profile-capture":
+            PA.capture("kmeans", reps=1)
         elif entry == "pipeline_forward":
             PP.pipeline_forward(lambda p, h: h, {}, np.zeros((1, 2, 4)))
         elif entry == "pipeline_loss_and_grads":
@@ -416,15 +427,10 @@ UNPORTED = [
      "carry_w"),
     ("memrec-vmem-gate", lambda: MR.require_vmem_fit("k", 1, budget=2),
      "`perfmodel/`"),
-    ("report-trace-logdir", lambda: RP.main(["--trace-logdir", "x"]),
-     "`utils/profiling.py`"),
     ("health-grade-model", lambda: HC.main(["--grade-model"]),
      "`perfmodel/`"),
     ("health-grade-bench", lambda: HC.main(["x.jsonl", "--grade-bench"]),
      "`perfmodel/`"),
-    ("skew-wasted-pct-of-peak",
-     lambda: SK.wasted_pct_of_peak("kmeans", {}, "p"),
-     "`utils/roofline.py`"),
 ]
 
 

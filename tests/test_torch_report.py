@@ -174,9 +174,79 @@ def test_the_cli_merges_a_metrics_file(tmp_path, capsys):
     assert row["metrics_rows"] == 2 and row["n_spans"] == 2
 
 
-def test_trace_logdir_waits_for_the_profiling_module(tmp_path):
-    with pytest.raises(NotImplementedError, match="utils/profiling.py"):
-        report.main(["--trace-logdir", str(tmp_path)])
+#: one capture's spans, (name, ts, dur) in µs on one device track, nested
+#: as a TPU module span nests its fusions: the self times are 12, 4, 16
+#: and 8 µs
+FORGED = [("jit_run", 0, 40), ("while.1", 4, 20), ("fusion.1", 5, 8),
+          ("fusion.1", 14, 8), ("fusion.2", 30, 8)]
+
+
+def _forge_reference(root):
+    """FORGED in the reference's layout: an XLA session's gzipped dump."""
+    import gzip
+
+    d = root / "plugins" / "profile" / "0001"
+    d.mkdir(parents=True)
+    events = [{"ph": "M", "name": "process_name", "pid": 7,
+               "args": {"name": "/device:TPU:0"}},
+              {"ph": "X", "pid": 1, "tid": 1, "name": "host_thing", "ts": 0,
+               "dur": 999}]
+    events += [{"ph": "X", "pid": 7, "tid": 1, "name": n, "ts": t, "dur": u}
+               for n, t, u in FORGED]
+    with gzip.open(d / "x.trace.json.gz", "wt") as f:
+        json.dump({"traceEvents": events}, f)
+
+
+def _forge_port(root):
+    """FORGED in the port's layout: a torch.profiler Chrome trace, the
+    spans as kernels of card 0 on one stream, a host op beside them."""
+    root.mkdir()
+    events = [{"ph": "X", "cat": "cpu_op", "pid": 1, "tid": 1,
+               "name": "host_thing", "ts": 0, "dur": 999}]
+    events += [{"ph": "X", "cat": "kernel", "pid": 0, "tid": 7, "name": n,
+                "ts": t, "dur": u, "args": {"device": 0, "stream": 7}}
+               for n, t, u in FORGED]
+    (root / "capture-00000000000000000001.pt.trace.json").write_text(
+        json.dumps({"traceEvents": events}))
+
+
+@pytest.mark.parametrize("top", [2, 10])
+def test_trace_logdir_adds_the_references_top_ops(tmp_path, capsys, top):
+    """The same export and the same capture, each in its package's trace
+    layout, give the reference's top_ops rows and table lines."""
+    export = tmp_path / "run.jsonl"
+    export.write_text("".join(json.dumps(r) + "\n" for r in SPANS))
+    _forge_reference(tmp_path / "ref")
+    _forge_port(tmp_path / "port")
+    outs = []
+    for main, d in ((JR.main, "ref"), (report.main, "port")):
+        assert main(["--telemetry", str(export), "--trace-logdir",
+                     str(tmp_path / d), "--top", str(top)]) == 0
+        text = capsys.readouterr().out
+        row = json.loads(text.strip().splitlines()[-1])
+        table = [ln for ln in text[text.index("top device ops"):]
+                 .splitlines()[1:] if ln.startswith("  ")]
+        outs.append((row["top_ops"], table))
+    assert outs[0] == outs[1]
+    assert [o["op"] for o in outs[1][0]] == ["fusion.1", "jit_run",
+                                             "fusion.2", "while.1"][:top]
+    assert outs[1][0][0]["sec"] == round(16e-6, 5)
+
+
+def test_trace_logdir_of_a_real_capture_lists_its_ops(tmp_path, capsys):
+    import torch
+
+    from harp_tpu_torch.utils import profiling
+
+    a = torch.ones((64, 64))
+    with profiling.trace(str(tmp_path / "tr")) as d:
+        for _ in range(3):
+            torch.mm(a, a)
+    assert report.main(["--trace-logdir", d, "--json-only"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "aten::mm" in [o["op"] for o in row["top_ops"]]
+    with pytest.raises(FileNotFoundError):
+        report.main(["--trace-logdir", str(tmp_path / "nope")])
 
 
 def test_maybe_emit_is_silent_while_off_and_exports_while_on(tmp_path,

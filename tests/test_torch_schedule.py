@@ -139,14 +139,172 @@ def test_a_scheduler_without_a_cuda_device_touches_no_stream():
     for dev in (None, "cpu", torch.device("cpu")):
         st = SCH._Streams(dev)
         assert st.device is None
-        st.begin()
+        ready = st.mark()
         with st.context():
-            pass
+            st.take(ready, torch.ones(2))
+        st.give(st.mark(), torch.ones(2))
         st.end()
+        assert ready is None
     out = SCH.StaticScheduler(lambda x: torch.ones(2) * x, n_threads=2,
                               device="cpu").schedule([1, 2])
     assert [o.tolist() for o in out] == [[1.0, 1.0], [2.0, 2.0]]
 
+
+
+class _StubCuda:
+    """Stand-ins for the stream and event calls that ``schedule._Streams``
+    makes, logging them in order: the caller's thread runs on stream
+    "caller", each task thread on its own "task-<n>"."""
+
+    def __init__(self):
+        self.log: list[tuple] = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.n_streams = self.n_events = 0
+        stub = self
+
+        class Stream:
+            def __init__(self, device=None):
+                with stub.lock:
+                    self.name = f"task-{stub.n_streams}"
+                    stub.n_streams += 1
+
+            def wait_event(self, ev):
+                stub.add("wait", self.name, ev.name)
+
+            def wait_stream(self, other):
+                stub.add("wait_stream", self.name, other.name)
+
+        class Event:
+            def __init__(self):
+                with stub.lock:
+                    self.name = f"ev{stub.n_events}"
+                    stub.n_events += 1
+
+            def record(self, stream):
+                stub.add("record", stream.name, self.name)
+
+        caller = Stream.__new__(Stream)
+        caller.name = "caller"
+        self.Stream, self.Event, self.caller = Stream, Event, caller
+
+    def add(self, *entry) -> None:
+        with self.lock:
+            self.log.append(entry)
+
+    def current_stream(self, device=None):
+        return getattr(self.local, "stream", self.caller)
+
+    def stream(self, s):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            self.local.stream = s
+            try:
+                yield
+            finally:
+                del self.local.stream
+        return ctx()
+
+
+class _Item:
+    """A stand-in CUDA tensor: logs ``record_stream``."""
+
+    is_cuda = True
+
+    def __init__(self, stub, name):
+        self.stub, self.name = stub, name
+
+    def record_stream(self, s):
+        self.stub.add("record_stream", self.name, s.name)
+
+
+@pytest.fixture
+def stub_cuda(monkeypatch):
+    stub = _StubCuda()
+    for name in ("Stream", "Event"):
+        monkeypatch.setattr(torch.cuda, name, getattr(stub, name))
+    monkeypatch.setattr(torch.cuda, "current_stream", stub.current_stream)
+    monkeypatch.setattr(torch.cuda, "stream", stub.stream)
+    return stub
+
+
+def _item_order(stub, item: str, out: str) -> list[tuple]:
+    """The log entries that order one item: its hand-in event, the task
+    stream's wait on it, the item's record_stream, the task's event, the
+    caller's wait on it and the result's record_stream."""
+    log = stub.log
+    task = next(e for e in log if e == ("task", item))
+    t = log.index(task)
+    rs_in = next(i for i, e in enumerate(log)
+                 if e[:2] == ("record_stream", item))
+    stream = log[rs_in][2]
+    wait_in = max(i for i, e in enumerate(log[:rs_in])
+                  if e[0] == "wait" and e[1] == stream)
+    ready = log[wait_in][2]
+    rec_in = next(i for i, e in enumerate(log)
+                  if e == ("record", "caller", ready))
+    done = next(i for i, e in enumerate(log)
+                if i > t and e[0] == "record" and e[1] == stream)
+    wait_out = next(i for i, e in enumerate(log)
+                    if e == ("wait", "caller", log[done][2]))
+    rs_out = next(i for i, e in enumerate(log)
+                  if e == ("record_stream", out, "caller"))
+    assert rec_in < wait_in < rs_in < t < done < wait_out < rs_out, log
+    return [log[i] for i in (rec_in, wait_in, rs_in, done, wait_out,
+                             rs_out)]
+
+
+def test_dynamic_scheduler_orders_each_item_on_both_streams(stub_cuda):
+    """Each submit records an event on the caller's stream that the task's
+    stream waits on before the task; each result's task event is waited
+    on by the caller's stream before wait_output or schedule hands it
+    out; the tensors that cross are record_stream-ed both ways."""
+    stub = stub_cuda
+
+    def task(item):
+        stub.add("task", item.name)
+        return _Item(stub, "out-" + item.name)
+
+    s = SCH.DynamicScheduler(task, n_threads=2, device="cuda")
+    s.start()
+    handed = []
+    for k in range(4):
+        s.submit(_Item(stub, f"a{k}"))
+        idx, out = s.wait_output()  # one item at a time: submit after start
+        stub.add("handed", out.name)
+        handed.append(out.name)
+    outs = s.schedule([_Item(stub, f"b{k}") for k in range(3)])
+    s.stop()
+    assert handed == [f"out-a{k}" for k in range(4)]
+    assert [o.name for o in outs] == [f"out-b{k}" for k in range(3)]
+    for k in range(4):
+        _item_order(stub, f"a{k}", f"out-a{k}")
+        rs_out = stub.log.index(("record_stream", f"out-a{k}", "caller"))
+        assert rs_out < stub.log.index(("handed", f"out-a{k}"))
+    ready = {_item_order(stub, f"a{k}", f"out-a{k}")[0][2]
+             for k in range(4)}
+    assert len(ready) == 4  # an event of its own for every submit
+    for k in range(3):
+        _item_order(stub, f"b{k}", f"out-b{k}")
+    waits = [e for e in stub.log if e[0] == "wait_stream"]
+    assert {e[2] for e in waits} == {"task-0", "task-1"}  # stop waits all
+
+
+def test_static_scheduler_orders_each_item_on_both_streams(stub_cuda):
+    stub = stub_cuda
+
+    def task(item):
+        stub.add("task", item.name)
+        return _Item(stub, "out-" + item.name)
+
+    outs = SCH.StaticScheduler(task, n_threads=3, device="cuda").schedule(
+        [_Item(stub, f"s{k}") for k in range(7)])
+    assert [o.name for o in outs] == [f"out-s{k}" for k in range(7)]
+    ready = {_item_order(stub, f"s{k}", f"out-s{k}")[0][2] for k in range(7)}
+    assert len(ready) == 1  # every item handed in at once
+    assert len([e for e in stub.log if e[0] == "wait_stream"]) == 3
 
 PLAN = {"moves": [{"id": "a", "from": 0, "to": 2, "work": 5.0},
                   {"id": "c", "from": 1, "to": 0, "work": 1.0}]}

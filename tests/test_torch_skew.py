@@ -158,9 +158,62 @@ def test_the_skew_trigger_fires_with_the_references_plan():
     assert health.WASTED_FRAC_TRIGGER == JH.WASTED_FRAC_TRIGGER
 
 
-def test_pricing_waste_against_a_roofline_waits_for_the_card_roofline():
-    with pytest.raises(NotImplementedError, match="utils/roofline.py"):
-        skew.wasted_pct_of_peak("kmeans", {}, "p")
+#: rows whose route holds them to the same peak key in both packages
+WASTE_ROWS = {
+    "kmeans_int8": {"n": 1_000_000, "d": 300, "k": 100, "quantize": "int8",
+                    "num_workers": 4, "iters_per_sec": 1140.88},
+    "kmeans_f32_pallas": {"n": 1_000_000, "d": 300, "k": 100,
+                          "use_pallas": True, "dtype": "float32",
+                          "iters_per_sec": 1014.97},
+    "kmeans_bf16": {"n": 1_000_000, "d": 300, "k": 100, "dtype": "bfloat16",
+                    "num_workers": 1, "iters_per_sec": 300.0},
+}
+
+
+@pytest.mark.parametrize("what", sorted(WASTE_ROWS))
+def test_waste_priced_against_the_same_peaks_is_the_references(
+        what, monkeypatch):
+    """Under the reference's peaks the waste is the reference's, scaled by
+    the route's work: K1 and K2 count their own operations (2ndk + nd),
+    the reference its one-hot sums matmul (4ndk); the bf16 matmul route
+    counts as the reference does and gives its value exactly."""
+    from harp_tpu.utils import roofline as JR
+    from harp_tpu_torch.utils import roofline
+
+    row = WASTE_ROWS[what]
+    ratio = (roofline.WORK_MODELS["kmeans"](row)["flops"]
+             / JR.WORK_MODELS["kmeans"](row)["flops"])
+    with telemetry.scope(True), JT.scope(True):
+        skew.record_execution("p", [10, 2, 2, 2], unit="u", wall_s=2.0)
+        JS.record_execution("p", [10, 2, 2, 2], unit="u", wall_s=2.0)
+        # on the card's own peaks: the route's percent of the H100 peak
+        # times the phase's wasted fraction (0.6)
+        pct = roofline.annotate("kmeans", row)["pct_peak_flops"]
+        assert skew.wasted_pct_of_peak("kmeans", row, "p") == round(
+            pct * 0.6, 3)
+        theirs = JS.wasted_pct_of_peak("kmeans", row, "p")
+        monkeypatch.setattr(roofline, "H100_PEAKS", dict(JR.V5E_PEAKS))
+        ours = skew.wasted_pct_of_peak("kmeans", row, "p")
+        assert ours > 0
+        if what == "kmeans_bf16":
+            assert ratio == 1.0 and ours == theirs
+        else:
+            assert ratio == pytest.approx(0.5 + 1 / 400)
+            assert ours == pytest.approx(theirs * ratio, abs=2e-3)
+
+
+def test_waste_of_an_lda_row_is_priced_on_the_f32_peak():
+    """The reference's LDA case at 1e9 tokens/s, K = 100: 1.4e12 flop/s is
+    2.0896 % of the H100's 67 TFLOP/s f32 peak (K4 runs on the CUDA
+    cores), 60 % of it lost to the barrier; an unknown phase or a config
+    without a work model gives None."""
+    with telemetry.scope(True):
+        skew.record_execution("p", [10, 2, 2, 2], unit="u", wall_s=2.0)
+        pct = skew.wasted_pct_of_peak(
+            "lda", {"n_topics": 100, "tokens_per_sec_per_chip": 1e9}, "p")
+        assert pct == pytest.approx(1.4e12 / 67e12 * 100 * 0.6, abs=1e-3)
+        assert skew.wasted_pct_of_peak("lda", {}, "nope") is None
+        assert skew.wasted_pct_of_peak("no_model", {}, "p") is None
 
 
 def test_export_rows_are_stamped(tmp_path):
