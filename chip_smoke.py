@@ -21,9 +21,9 @@ fatal when it fails (exit code != 0 and no result line):
    timed beside it at k=100 and k=1000 (k2_phase);
 4. models.kmeans.fit at 1M x 300 k=100, 10 iterations, for int8 (K1 runs
    once per iteration), f32 + use_pallas (K2 likewise) and the default f32
-   matmul path (neither kernel): launch counts, finite inertia no worse
-   than after one iteration, and agreement with the CPU run on a small
-   input;
+   matmul path (neither kernel): launch counts, finite inertia (no worse
+   after 10 iterations than after one on the first 100k points), and
+   agreement with the CPU run on a small input;
 5. models.kmeans.benchmark at 1M x 300 k=100 for the three paths and at
    k=1000 for int8 and f32 + use_pallas, torch.profiler over the int8
    benchmark's window (device busy and idle share, top kernels), and the
@@ -62,9 +62,10 @@ fatal when it fails (exit code != 0 and no result line):
    harp_tpu_torch lda --algo pallas);
 13. torch.profiler over one sample_epoch at that width: device busy and
    idle share, top kernels;
-14. one sample_epoch at the graded enwiki-1M size (1M docs, 100M tokens,
-   int16 Ndk) when phase 12's epoch is under 3 s: prep, epoch time, peak
-   device memory and the chain invariants;
+14. one sample_epoch at the graded enwiki-1M width (its 50k words and
+   1000 topics, a quarter of its 1M docs: 25M tokens, int16 Ndk) when
+   phase 12's epoch is under 3 s: prep, epoch time, peak device memory and
+   the chain invariants;
 15. K5 (pegasos_grad) against its plain version at 500,256 x 128 (500k
    rows + 256 support-vector rows), f32 and bf16 x: gs equal (0/1 weights,
    +-1 labels: small integers), gw within 1e-5 * sum_i sw_i |x_i| (f32
@@ -152,12 +153,13 @@ fatal when it fails (exit code != 0 and no result line):
 31. LDA push/pull (this slice's main path; no kernel): a small corpus on
    the card against the CPU, bit-equal under injected draws; benchmark(
    algo="pushpull") at the benchmark width (tokens/s, s/epoch, prep,
-   log-likelihood, dropped_tokens 0, peak memory); suggest_pull_cap and a
-   sweep at it (0 dropped, Nwk.sum(0) == Nk, sum Ndk == tokens); the split
-   of a chunk into pull, sample and push from CUDA events; torch.profiler
-   over a sweep of a tenth of the docs (device busy and idle share, top
-   kernels); and the CLI
-   (python -m harp_tpu_torch lda --algo pushpull) (lda_pushpull_phases);
+   log-likelihood, dropped_tokens 0, peak memory); then on a tenth of the
+   docs at the same width: suggest_pull_cap and a sweep at it (0 dropped,
+   Nwk.sum(0) == Nk, sum Ndk == tokens); the split of a chunk into pull,
+   sample and push from CUDA events; torch.profiler over a sweep (device
+   busy and idle share, top kernels); and the CLI
+   (python -m harp_tpu_torch lda --algo pushpull --docs 10000)
+   (lda_pushpull_phases);
 32. models.kmeans.fit at 1M x 300, k = 100, int8 with psum_schedule="hier"
    (K1 once an iteration), bit-equal to one_shot on one card
    (kmeans_hier_phase);
@@ -261,7 +263,16 @@ fatal when it fails (exit code != 0 and no result line):
    roofline, none over 100 %; python -m harp_tpu_torch profile --all
    --json, every row reconciled or naming its dropped records; and
    checked_jit on the card;
-45. one JSON line of the kernels, the card's name and power limit, and
+45. the cost model and the fit gates (costmodel_phase): the overhead
+   probe beside the committed CALIBRATED_OVERHEADS; the shared-memory gate
+   at K1's and K2's plans (registry shape and the north-star chunk shape);
+   a K3 config past the card's opt-in refused with MemoryError and no
+   launch; an HBM request past the free memory refused before any
+   allocation; perfmodel.presize for K1, K2, K3 and K7; plan_all on
+   single_card over the eleven drivers; predict --grade and the model gate
+   on the committed H100_EVIDENCE.jsonl; grade_bench_row over phases 5 and
+   8's KMeans int8 and MF-SGD rows;
+46. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -271,6 +282,8 @@ harp_tpu_torch/utils/roofline.py (the H100 SXM data sheet).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -300,6 +313,9 @@ ML_USERS, ML_ITEMS, ML_NNZ, ML_RANK, EPOCHS = 138_493, 26_744, 20_000_000, 64, 3
 # #3 scaled to one card) and the graded enwiki-1M doc count
 LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_TPD, LDA_EPOCHS = 100_000, 50_000, 1000, 100, 2
 ENWIKI_DOCS = 1_000_000
+# the int16-Ndk sweep of phase 14 runs a quarter of enwiki-1M's docs at its
+# vocabulary width (depth, not width: the 1M-doc prep alone took 36 s)
+ENWIKI_SWEEP_DOCS = ENWIKI_DOCS // 4
 # K4 against its plain version on the first entries of a rotation step that
 # span this many of its ~44,800 chunks (the plain whole step took 105-155 s)
 K4_PLAIN_CHUNKS = 4096
@@ -500,10 +516,13 @@ def k3_check(K3, W, H, ent, kw, what: str) -> float:
     return max(werr, herr)
 
 
-def k3_phase(dev, card: str) -> dict:
+def k3_phase(dev, card: str, model=None) -> dict:
     """Phase 6: K3 against its plain version for one rotation step at
     MovieLens-20M width, and on a deep chain and a wide step; returns K3's
-    row of the kernels line."""
+    row of the kernels line.  ``model``: a pallas ``MFSGD`` at that width
+    whose ``set_ratings`` already partitioned the ratings (phase 7's): its
+    first block row and schedule are the step, so the 20M ratings are
+    partitioned once; without it the phase partitions them itself."""
     import torch
 
     from harp_tpu_torch.models import mfsgd as MF
@@ -511,13 +530,23 @@ def k3_phase(dev, card: str) -> dict:
     from harp_tpu_torch.utils.timing import cuda_ms
 
     t0 = time.perf_counter()
-    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
     ut = it = 256
-    eu, ei, ev, ou, oi, _, _, ub, ibc = MF.partition_ratings_tiles(
-        u, i, v, ML_USERS, ML_ITEMS, 1, ut, it, 2048, n_slices=2)
-    sched = K3.LevelSchedule.build(eu[0], ei[0], ou[0], oi[0], ut, it, ub,
-                                   ibc, dev)
-    ent = [torch.from_numpy(a[0].copy()).to(dev) for a in (eu, ei, ev, ou, oi)]
+    if model is None:
+        u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
+        eu, ei, ev, ou, oi, _, _, ub, ibc = MF.partition_ratings_tiles(
+            u, i, v, ML_USERS, ML_ITEMS, 1, ut, it, 2048, n_slices=2)
+        del u, i, v
+        sched = K3.LevelSchedule.build(eu[0], ei[0], ou[0], oi[0], ut, it,
+                                       ub, ibc, dev)
+        ent = [torch.from_numpy(a[0].copy()).to(dev)
+               for a in (eu, ei, ev, ou, oi)]
+    else:
+        if MF.tiles(model.cfg) != (ut, it) or model.cfg.entry_cap != 2048:
+            fail("k3_phase: the shared model is not at 256 x 256 tiles")
+        ent = [a[0].contiguous() for a in model._blocks]
+        eu, ei = (a[None].cpu().numpy() for a in ent[:2])
+        sched, ub = model._schedules[0], model.u_bound
+        ibc = model.i_bound // MF.rotate_chunks_resolved(model.cfg)
     work = k3_work(eu[0], ei[0], ut, it)
     ne, c = eu.shape[1:]
     n_sched, path = sched.order.numel(), sched.n_levels
@@ -526,7 +555,7 @@ def k3_phase(dev, card: str) -> dict:
           f"ratings, {work['rows']} distinct tile rows over the entries, W "
           f"[{ub}, {ML_RANK}], H chunk [{ibc}, {ML_RANK}]; critical path "
           f"{path} entries, at most {sched.max_width} entries a level")
-    del u, i, v, eu, ei, ev, ou, oi
+    del eu, ei
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     scale = 1.0 / ML_RANK ** 0.5
@@ -749,10 +778,7 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
     from harp_tpu_torch.models import mfsgd as MF
     from harp_tpu_torch.ops import mfsgd_kernel as K3
 
-    # -- 6. K3 against its plain version ----------------------------------------
-    row = k3_phase(dev, card)
-
-    # -- 7. MF-SGD through the public entry -----------------------------------
+    # -- 7's model, whose partition phase 6 shares ----------------------------
     cfg = MF.MFSGDConfig(rank=ML_RANK, algo="pallas")
     model = MF.MFSGD(ML_USERS, ML_ITEMS, cfg, seed=0)
     u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
@@ -760,6 +786,13 @@ def mfsgd_phases(dev, card: str) -> tuple[dict, int]:
     model.set_ratings(u, i, v)
     prep = time.perf_counter() - t0
     del u, i, v
+
+    # -- 6. K3 against its plain version ----------------------------------------
+    row = k3_phase(dev, card, model)
+    print(f"cut: phase 6 took the step from phase 7's set_ratings ({prep:.1f}"
+          " s), not a partition of its own")
+
+    # -- 7. MF-SGD through the public entry -----------------------------------
     K3.reset_launches()  # the MF-SGD main path's run starts here
     t0 = time.perf_counter()
     first = model.train_epoch()
@@ -1112,9 +1145,10 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
               f"{out['sec_per_epoch']:.3f} s (>= 3 s)")
         return row, launches
     torch.cuda.reset_peak_memory_stats()
-    big = LD.LDA(ENWIKI_DOCS, LDA_VOCAB, LD.LDAConfig(
+    t_cut = time.perf_counter()
+    big = LD.LDA(ENWIKI_SWEEP_DOCS, LDA_VOCAB, LD.LDAConfig(
         n_topics=LDA_TOPICS, algo="pallas", ndk_dtype="int16"), seed=0)
-    corpus = LD.benchmark_corpus(ENWIKI_DOCS, LDA_VOCAB, LDA_TPD, 0)
+    corpus = LD.benchmark_corpus(ENWIKI_SWEEP_DOCS, LDA_VOCAB, LDA_TPD, 0)
     t0 = time.perf_counter()
     big.set_tokens(*corpus)
     prep = time.perf_counter() - t0
@@ -1123,8 +1157,8 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     big.sample_epoch()
     sweep = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    n_tok = ENWIKI_DOCS * LDA_TPD
-    # exact sums in row blocks: a whole-table int64 copy would be 8 GB
+    n_tok = ENWIKI_SWEEP_DOCS * LDA_TPD
+    # exact sums in row blocks: a whole-table int64 copy would be 2 GB
     ndk_sum = sum(int(b.sum(dtype=torch.int64))
                   for b in big.Ndk.split(1 << 16))
     nwk_sum = int(big.Nwk.sum(dtype=torch.float64))
@@ -1134,13 +1168,15 @@ def lda_phases(dev, card: str) -> tuple[dict, int]:
     if not ok:
         fail(f"LDA enwiki-1M: invariants broken (Ndk sum {ndk_sum}, Nwk sum "
              f"{nwk_sum}, tokens {n_tok})")
-    print(f"LDA enwiki-1M ({ENWIKI_DOCS} docs x {LDA_VOCAB} words, "
-          f"{LDA_TOPICS} topics, "
+    print(f"LDA enwiki-1M width ({ENWIKI_SWEEP_DOCS} of its "
+          f"{ENWIKI_DOCS} docs x {LDA_VOCAB} words, {LDA_TOPICS} topics, "
           f"{n_tok} tokens, int16 Ndk {tuple(big.Ndk.shape)}): prep "
           f"{prep:.1f} s, one sample_epoch {sweep:.3f} s "
           f"({n_tok / sweep:.6e} tokens/s), cc {big.cc}, peak device memory "
           f"{peak / 2 ** 30:.2f} GiB (set_tokens and the sweep), "
           f"invariants hold [{card}]")
+    print(f"cut: the enwiki sweep at {ENWIKI_SWEEP_DOCS} docs took "
+          f"{time.perf_counter() - t_cut:.1f} s")
     return row, launches
 
 
@@ -2360,42 +2396,44 @@ def lda_pushpull_phases(dev, card: str) -> None:
           f"{out['dropped_tokens']}, peak device memory "
           f"{peak / 2 ** 30:.2f} GiB [{card}]")
 
-    # -- suggest_pull_cap, invariants, the split of a chunk -------------------
-    model = LD.LDA(LDA_DOCS, LDA_VOCAB, LD.LDAConfig(n_topics=LDA_TOPICS,
-                                                     algo="pushpull"), seed=1)
-    model.set_tokens(*LD.benchmark_corpus(LDA_DOCS, LDA_VOCAB, LDA_TPD, 0))
-    t0 = time.perf_counter()
-    cap = model.suggest_pull_cap(apply=True)
-    t_cap = time.perf_counter() - t0
-    sweep = _pushpull_split(model, card)  # one sweep at the suggested cap
-    n_tok = LDA_DOCS * LDA_TPD
-    ndk_sum = int(model.Ndk.sum(dtype=torch.int64))
-    if not (model.last_dropped == 0
-            and torch.equal(model.Nwk.sum(0), model.Nk)
-            and ndk_sum == n_tok == model.n_tokens
-            and float(model.Nwk.min()) >= 0):
-        fail(f"LDA pushpull at suggest_pull_cap {cap}: dropped "
-             f"{model.last_dropped}, sum Ndk {ndk_sum}, tokens {n_tok}, or "
-             "Nwk.sum(0) != Nk")
-    print(f"LDA pushpull suggest_pull_cap: {cap} (of chunk 8192; {t_cap:.2f} "
-          f"s on the host), the split's sweep at it {sweep:.4f} s, 0 dropped; "
-          f"Nwk.sum(0) == Nk and sum Ndk == {n_tok} tokens [{card}]")
-    del model
-    # device busy and idle share of a sweep at the same chunk shape (a
-    # tenth of the docs: 123 chunks, ~26k kernels in the trace)
-    small = LD.LDA(LDA_DOCS // 10, LDA_VOCAB, LD.LDAConfig(
+    # -- suggest_pull_cap, invariants, the split of a chunk, the profile ----
+    # on a tenth of the docs at the same width and chunk shape (123
+    # chunks, ~26k kernels in the trace): the benchmark above is the
+    # full-size run
+    t_cut = time.perf_counter()
+    docs = LDA_DOCS // 10
+    small = LD.LDA(docs, LDA_VOCAB, LD.LDAConfig(
         n_topics=LDA_TOPICS, algo="pushpull"), seed=1)
-    small.set_tokens(*LD.benchmark_corpus(LDA_DOCS // 10, LDA_VOCAB, LDA_TPD,
-                                          0))
-    small.sample_epoch()
+    small.set_tokens(*LD.benchmark_corpus(docs, LDA_VOCAB, LDA_TPD, 0))
+    t0 = time.perf_counter()
+    cap = small.suggest_pull_cap(apply=True)
+    t_cap = time.perf_counter() - t0
+    sweep = _pushpull_split(small, card)  # one sweep at the suggested cap
+    n_tok = docs * LDA_TPD
+    ndk_sum = int(small.Ndk.sum(dtype=torch.int64))
+    if not (small.last_dropped == 0
+            and torch.equal(small.Nwk.sum(0), small.Nk)
+            and ndk_sum == n_tok == small.n_tokens
+            and float(small.Nwk.min()) >= 0):
+        fail(f"LDA pushpull at suggest_pull_cap {cap}: dropped "
+             f"{small.last_dropped}, sum Ndk {ndk_sum}, tokens {n_tok}, or "
+             "Nwk.sum(0) != Nk")
+    print(f"LDA pushpull on {docs} docs, suggest_pull_cap: {cap} (of chunk "
+          f"8192; {t_cap:.2f} s on the host), the split's sweep at it "
+          f"{sweep:.4f} s, 0 dropped; Nwk.sum(0) == Nk and sum Ndk == "
+          f"{n_tok} tokens [{card}]")
+    # device busy and idle share of a sweep at the suggested cap
     t0 = time.perf_counter()
     small.sample_epoch()
     bare = time.perf_counter() - t0
     profile_epoch(small, card, "LDA pushpull", "sample_epoch", bare)
     del small
-    crow = run_cli("lda", "--algo", "pushpull", "--epochs", "1")
+    crow = run_cli("lda", "--algo", "pushpull", "--epochs", "1", "--docs",
+                   str(docs))
     if crow["dropped_tokens"] != 0 or not np.isfinite(crow["log_likelihood"]):
         fail(f"LDA pushpull CLI row: {crow}")
+    print(f"cut: LDA pushpull's cap, split, profile and CLI on {docs} docs "
+          f"took {time.perf_counter() - t_cut:.1f} s")
 
 
 def kmeans_hier_phase(dev, card: str, gen) -> int:
@@ -4069,6 +4107,134 @@ def measurement_phase(dev, card: str, rows: dict) -> None:
               f"[{card}]")
 
 
+def costmodel_phase(dev, card: str) -> None:
+    """Phase 45: the cost model and the fit gates on the card (under 30 s;
+    any failure fails the run): the overhead probe beside the committed
+    ``CALIBRATED_OVERHEADS`` (drift printed, not fatal); the shared-memory
+    gate at K1's and K2's plans for their registry shape and the
+    north-star chunk shape; a K3 config past the card's opt-in refused
+    with MemoryError and no launch; an HBM request past the free memory
+    refused before any allocation; ``presize`` for K1, K2, K3 and K7 at
+    their graded shapes; ``plan_all`` on ``single_card`` over the eleven
+    drivers (every site keeps, prices 0 and holds the ledger's bytes);
+    ``predict --grade`` and the model gate on the committed evidence; and
+    ``grade_bench_row`` over this run's KMeans int8 and MF-SGD rows
+    (phases 5 and 8; a regression on a slow host is printed, not fatal)."""
+    import torch
+
+    from harp_tpu_torch.analysis.drivers import DRIVERS
+    from harp_tpu_torch.health import grade as HG
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.ops import mfsgd_kernel as K3
+    from harp_tpu_torch.perfmodel import cli as PCLI
+    from harp_tpu_torch.perfmodel import measure as MS
+    from harp_tpu_torch.perfmodel import model as PM
+    from harp_tpu_torch.plan import planner as PL
+    from harp_tpu_torch.plan.topology import single_card
+    from harp_tpu_torch.utils import flightrec, memrec
+
+    # -- the overheads, measured again ---------------------------------------
+    probe = MS.probe_overheads(dev)
+    print("overheads (this run, committed, drift): " + ", ".join(
+        f"{k} {probe[k]:.6g}, {v:.6g}, x{probe[k] / v:.2f}"
+        for k, v in flightrec.CALIBRATED_OVERHEADS.items()) + f" [{card}]")
+
+    # -- the shared-memory gate at K1's and K2's plans -----------------------
+    optin = torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin
+    for name, kernel in (("kmeans_partials_int8", "kmeans.partials_int8"),
+                         ("kmeans_partials", "kmeans.partials")):
+        for n, d, k in ((128, 256, 8), (STREAM_CHUNK, STREAM_D, STREAM_K)):
+            p = KK.plan(name, dev, n, d, k)   # the plan runs both gates
+            memrec.require_smem_fit(kernel, p.smem, device=dev)
+            kind = "fused" if p.fused else "two-pass"
+            print(f"smem gate {kernel} at ({n}, {d}, {k}): {p.smem} of "
+                  f"{optin} B a block, fits ({kind}, tile {p.tile_rows})")
+
+    # -- a K3 config past the opt-in: refused, nothing launched -------------
+    tile = 512 * K3.CLUSTER
+    u, i, v = MF.synthetic_ratings(200, 120, 5000, seed=0)
+    eu, ei, ev, ou, oi, _, _, ub, ib = MF.partition_ratings_tiles(
+        u, i, v, 200, 120, 1, tile, tile, 16, n_slices=1)
+    ent = [torch.from_numpy(a[0].copy()).to(dev) for a in (eu, ei, ev, ou, oi)]
+    W = torch.zeros((ub, 64), device=dev)
+    H = torch.zeros((ib, 64), device=dev)
+    before = K3.LAUNCHES["sgd_tile_update"]
+    try:
+        K3.sgd_tile_update(W, H, *ent, lr=0.1, reg=0.0, u_tile=tile,
+                           i_tile=tile)
+        fail(f"K3 at {tile} x {tile} tiles was not refused")
+    except MemoryError as e:
+        if K3.LAUNCHES["sgd_tile_update"] != before:
+            fail("K3's refused config launched")
+        print(f"K3 refused before dispatch, 0 launches: {e}")
+
+    # -- an HBM request past the free memory: refused, nothing allocated ----
+    free = memrec.hbm_free(dev)
+    alloc = torch.cuda.memory_allocated(dev)
+    try:
+        memrec.require_hbm_fit("probe", free + 1, device=dev)
+        fail("an HBM request past the free memory was not refused")
+    except MemoryError as e:
+        if torch.cuda.memory_allocated(dev) != alloc:
+            fail("the refused HBM request allocated")
+        print(f"HBM gate refused {free + 1} B against {free} B free: {e}")
+
+    # -- presize at the graded shapes ----------------------------------------
+    for kernel, shape in (("kmeans.partials_int8", {"n": N, "d": D, "k": K}),
+                          ("kmeans.partials", {"n": N, "d": D, "k": K}),
+                          ("mfsgd.sgd_tile_update", {"rank": ML_RANK}),
+                          ("rf.hist_bins", {})):
+        got = PM.presize(kernel, **shape)
+        if got.get("tile") is None and got.get("plan") is None:
+            fail(f"presize {kernel}: nothing fits: {got}")
+        if "smem_bytes" in got and got["smem_bytes"] > optin:
+            fail(f"presize {kernel}: {got['smem_bytes']} B past the opt-in")
+        print(f"presize {kernel}: {got}")
+
+    # -- plan_all on single_card over the eleven drivers --------------------
+    t0 = time.perf_counter()
+    for name in sorted(DRIVERS):
+        sheet = PL.ledger_sheet(name, dev)
+        plan = PL.plan_sheet(name, sheet, single_card())
+        want = [e["payload_bytes"] for e in sheet["collectives"]]
+        if not ([s.sheet_bytes for s in plan.sites] == want
+                and all(s.schedule == "keep" and s.cost_s == 0.0
+                        for s in plan.sites)):
+            fail(f"plan {name}: {plan.row()} against the ledger's {want}")
+    print(f"plan: {len(DRIVERS)} drivers on single_card, every site keeps at "
+          f"0 s and holds the ledger's bytes ({time.perf_counter() - t0:.1f}"
+          f" s) [{card}]")
+
+    # -- the self-grade and the model gate on the committed evidence ---------
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = PCLI.main(["--grade", "--repo", REPO])
+    if code != 0:
+        fail(f"predict --grade failed on the committed evidence: "
+             f"{err.getvalue()}")
+    print(f"predict --grade: {err.getvalue().strip()}")
+    ok, finding = HG.model_gate(REPO)
+    if not ok:
+        fail(f"the model gate: {finding}")
+    print(f"model gate: {finding['verdict']}")
+
+    # -- this run's full-width rows, graded ----------------------------------
+    for label, cfg in (("KMeans int8 (K1) k=100", "kmeans_int8"),
+                       ("MF-SGD pallas", "mfsgd_pallas")):
+        row = {"config": cfg, "backend": "cuda", **BENCH_ROWS[label][1]}
+        f = HG.grade_bench_row(row, REPO)
+        if f is None:
+            fail(f"grade_bench_row {cfg}: nothing to grade against")
+        print(f"grade_bench_row {cfg}: verdict {f['verdict']}, measured "
+              f"{f['measured']} vs incumbent {f.get('incumbent')} (ratio "
+              f"{f.get('ratio_vs_incumbent')}), model x{f.get('model_factor')}"
+              f" [{card}]")
+        if f["verdict"] == "model_invalidated":
+            fail(f"grade_bench_row {cfg}: the model is invalidated: {f}")
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -4168,9 +4334,22 @@ def main() -> int:
              "f32 use_pallas (K2)": {"use_pallas": True},
              "f32 default (matmul)": {}}
     # k-means++ seeding puts one centroid in (nearly) every blob, so the
-    # three paths settle in the same Lloyd basin and their inertias compare
-    one_iter = {p: KM.fit(pts_h, k=K, iters=1, seed=0, init="kmeans++",
-                          **kw)[1] for p, kw in paths.items()}
+    # three paths settle in the same Lloyd basin and their inertias
+    # compare.  Lloyd's inertia does not rise from any start: each path's
+    # fit after ITERS iterations against after one, on the first tenth of
+    # the points from random rows (the k-means++ seeding was most of a
+    # one-iteration fit: three full-size ones took 27 s)
+    t_cut = time.perf_counter()
+    tenth = pts_h[:N // 10]
+    for p, kw in paths.items():
+        one = KM.fit(tenth, k=K, iters=1, seed=0, **kw)[1]
+        more = KM.fit(tenth, k=K, iters=ITERS, seed=0, **kw)[1]
+        if not (np.isfinite(more) and more <= one * (1 + 1e-6)):
+            fail(f"fit {p}: inertia {more} after {ITERS} iterations on "
+                 f"{N // 10} points is worse than after one ({one})")
+    print(f"cut: fit after {ITERS} iterations no worse than after one, all "
+          f"three paths on {N // 10} points: {time.perf_counter() - t_cut:.1f}"
+          " s")
     KK.reset_launches()  # the main path's run starts here
     fits = {}
     for p, kw in paths.items():
@@ -4187,13 +4366,10 @@ def main() -> int:
         if not (np.isfinite(inertia) and np.isfinite(c).all()
                 and c.shape == (K, D)):
             fail(f"fit {p}: non-finite or misshapen result")
-        if inertia > one_iter[p] * (1 + 1e-6):
-            fail(f"fit {p}: inertia {inertia} worse than after one "
-                 f"iteration ({one_iter[p]})")
         fits[p] = (c, inertia)
-        print(f"fit {p}: {ITERS} iterations, inertia {inertia:.6e} (after "
-              f"one: {one_iter[p]:.6e}), launches {delta}, wall "
-              f"{wall:.3f} s incl. host data prep [{card}]")
+        print(f"fit {p}: {ITERS} iterations, inertia {inertia:.6e}, "
+              f"launches {delta}, wall {wall:.3f} s incl. host data prep "
+              f"[{card}]")
     launches = dict(KK.LAUNCHES)  # the main path's run ends here
     # bf16 scoring (K2) moves only near-ties; int8 points add quantization
     # noise of about scale^2/12 per coordinate (~1% of the inertia here)
@@ -4330,7 +4506,12 @@ def main() -> int:
     measurement_phase(dev, card, rows)
     print(f"phase measurement: {time.perf_counter() - t0:.1f} s [{card}]")
 
-    # -- 45. result ----------------------------------------------------------
+    # -- 45. the cost model and the fit gates -------------------------------
+    t0 = time.perf_counter()
+    costmodel_phase(dev, card)
+    print(f"phase cost model: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # -- 46. result ----------------------------------------------------------
     from harp_tpu_torch.ops.kernel_registry import KERNEL_INFO
 
     src = {i["counter"]: (i["source"], i["replaces"])

@@ -36,6 +36,9 @@
     python -m harp_tpu_torch health run.jsonl [--json]
     python -m harp_tpu_torch profile --all --json
     python -m harp_tpu_torch profile kmeans --device cpu
+    python -m harp_tpu_torch plan --device cpu [--topology h100_4x8] [--json]
+    python -m harp_tpu_torch predict [--json | --top 5 | --grade]
+    python -m harp_tpu_torch health --grade-model [--repo DIR]
     python -m harp_tpu_torch --list
 """
 
@@ -84,6 +87,10 @@ APPS = {
                "health sentinel, offline: summarize an export's findings"),
     "profile": ("harp_tpu_torch.profile.cli",
                 "wall attribution: one driver run per app, op → bucket"),
+    "plan": ("harp_tpu_torch.plan.cli",
+             "collective planner over the drivers' CommLedger sheets"),
+    "predict": ("harp_tpu_torch.perfmodel.cli",
+                "offline cost model on the H100, graded against its rows"),
 }
 
 

@@ -1,8 +1,7 @@
 """Health sentinel: the port of ``harp_tpu.health`` (see
 :mod:`harp_tpu_torch.health.sentinel`; the ``health`` CLI is
-:mod:`harp_tpu_torch.health.cli`).  The evidence grader
-(``health/grade.py``) rides ``perfmodel/`` and is not ported yet
-(ROADMAP.md, Queue 1, item 9)."""
+:mod:`harp_tpu_torch.health.cli`; the evidence grader is
+:mod:`harp_tpu_torch.health.grade`)."""
 
 from harp_tpu_torch.health.sentinel import (  # noqa: F401
     DETECTORS, SEVERITIES, VERDICTS, FAST_BURN_MIN, PAGE_BURN,

@@ -1,30 +1,41 @@
 """``python -m harp_tpu_torch health``: the sentinel's offline half — the
 port of ``harp_tpu.health.cli``.
 
-``health run.jsonl [--json]`` reads a JSONL file (a telemetry export or
-a run's output), summarizes its ``kind:"health"`` rows and prints them.
-Exit 0 healthy, 1 actionable findings (severity warn/page, or a
-regressed/model_invalidated verdict), 2 unreadable input.
+Two modes, both on the CPU (a health check touches no card):
 
-Not ported yet (ROADMAP.md, Queue 1, item 9): grading the file's bench
-rows against committed evidence (``--grade-bench``) and the model gate
-(``--grade-model``) both need the evidence grader, ``health/grade.py``,
-which rides ``perfmodel/``; each raises ``NotImplementedError``.  Until
-then the summary mode does not grade (``--no-grade-bench``, kept for the
-reference's command lines, is the default).
+- ``health run.jsonl [--json]``: read a JSONL file (a telemetry export, a
+  run's output, or the collector's evidence), summarize its
+  ``kind:"health"`` rows, and GRADE the file's freshest bench row per
+  config and its freshest ``kind:"profile"`` row per app against the
+  committed ``H100_EVIDENCE.jsonl`` and the cost model
+  (:mod:`harp_tpu_torch.health.grade`; ``--no-grade-bench`` skips,
+  ``--grade-bench`` is the default said out loud).  Exit 0 healthy, 1
+  actionable findings (severity warn/page, or a regressed /
+  model_invalidated verdict), 2 unreadable input.
+- ``health --grade-model``: the model gate
+  (:func:`harp_tpu_torch.health.grade.model_gate`): ONE
+  provenance-stamped ``kind:"health"`` row.  Exit 0 confirmed, 1
+  model_invalidated.
+
+``--repo`` names the root whose ``H100_EVIDENCE.jsonl`` is read (the
+current directory by default).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from harp_tpu_torch.health import sentinel
 
-_GRADE_NOT_PORTED = (
-    "health {what} needs the evidence grader (health/grade.py), which rides "
-    "perfmodel/ and is not ported yet (ROADMAP.md, Queue 1, item 9)")
+
+def _stamped(row: dict) -> dict:
+    from harp_tpu_torch.utils.metrics import provenance
+
+    prov = provenance("cpu")
+    return {**row, **{k: prov[k] for k in ("backend", "date", "commit")}}
 
 
 def _render(rows: list[dict], summary: dict) -> str:
@@ -60,7 +71,22 @@ def _render(rows: list[dict], summary: dict) -> str:
                         f"{r.get('hbm_bytes')} B, headroom "
                         f"{r.get('headroom_frac')}")
         elif det == "evidence_regression":
-            bits.append(f"verdict {r.get('verdict')}")
+            bits.append(f"verdict {r.get('verdict')}"
+                        + (f" (measured {r.get('measured')} vs "
+                           f"incumbent {r.get('incumbent')})"
+                           if r.get("incumbent") is not None else "")
+                        + (f" [model factor {r.get('model_factor')}x]"
+                           if r.get("model_factor") is not None else ""))
+        elif det == "profile_drift":
+            who = r.get("app") or who
+            bits.append(
+                ("bound FLIPPED "
+                 f"{r.get('committed_bound')} -> {r.get('bound')}; "
+                 if r.get("bound_flipped") else
+                 f"bound {r.get('bound')} unchanged; ")
+                + f"worst bucket {r.get('worst_bucket')} moved "
+                  f"{r.get('share_delta')} of the wall vs committed "
+                  "attribution")
         lines.append(f"  [{sev:<4s}] {det:<20s} {who}: "
                      + "; ".join(bits))
     if not rows:
@@ -71,29 +97,44 @@ def _render(rows: list[dict], summary: dict) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m harp_tpu_torch health",
-        description="health sentinel, offline: summarize the kind:'health' "
-                    "rows of a telemetry export")
+        description="health sentinel, offline: summarize kind:'health' "
+                    "rows, grade fresh bench and profile rows against the "
+                    "committed card evidence and the cost model, and run "
+                    "the model gate")
     p.add_argument("jsonl", nargs="?", default=None,
-                   help="JSONL to check (a telemetry export or a run's "
-                        "output)")
+                   help="JSONL to check (a telemetry export, a run's "
+                        "output or the collector's evidence)")
     p.add_argument("--json", action="store_true",
                    help="print one machine-readable summary line")
     p.add_argument("--grade-model", action="store_true",
-                   help="the perfmodel self-grade gate (not ported yet)")
+                   help="run the cost model's self-grade gate and print "
+                        "one kind:'health' row (exit 1 on "
+                        "model_invalidated)")
     p.add_argument("--grade-bench", action="store_true",
-                   help="grade the file's bench rows against committed "
-                        "evidence (not ported yet)")
+                   help="grade the file's bench and profile rows (the "
+                        "default)")
     p.add_argument("--no-grade-bench", action="store_true",
-                   help="only summarize health rows (the default)")
+                   help="only summarize health rows")
+    p.add_argument("--repo", default=None,
+                   help="repo root whose H100_EVIDENCE.jsonl is read "
+                        "(default: the current directory)")
     args = p.parse_args(argv)
+    repo = args.repo or os.getcwd()
+
     if args.grade_model:
-        raise NotImplementedError(_GRADE_NOT_PORTED.format(
-            what="--grade-model"))
-    if args.grade_bench and not args.no_grade_bench:
-        raise NotImplementedError(_GRADE_NOT_PORTED.format(
-            what="--grade-bench"))
+        from harp_tpu_torch.health import grade as HG
+
+        ok, row = HG.model_gate(repo)
+        print(json.dumps(_stamped(row)), flush=True)
+        if not ok:
+            print("health: the cost model is INVALIDATED by the committed "
+                  "evidence (python -m harp_tpu_torch predict --grade for "
+                  "the term breakdowns)", file=sys.stderr)
+            return 1
+        return 0
+
     if not args.jsonl:
-        p.error("need a JSONL file")
+        p.error("need a JSONL file (or --grade-model)")
     try:
         with open(args.jsonl) as fh:
             lines = fh.read().splitlines()
@@ -101,7 +142,9 @@ def main(argv=None) -> int:
         print(f"health: cannot read {args.jsonl}: {e}", file=sys.stderr)
         return 2
 
-    rows: list[dict] = []
+    health_rows: list[dict] = []
+    latest_bench: dict[str, dict] = {}
+    latest_profile: dict[str, dict] = {}
     for line in lines:
         line = line.strip()
         if not line:
@@ -110,10 +153,33 @@ def main(argv=None) -> int:
             row = json.loads(line)
         except ValueError:
             continue  # a malformed line is not a finding; read the rest
-        if isinstance(row, dict) and row.get("kind") == "health":
-            rows.append(row)
+        if not isinstance(row, dict):
+            continue
+        if row.get("kind") == "health":
+            health_rows.append(row)
+        elif row.get("kind") == "profile" and row.get("app"):
+            latest_profile[row["app"]] = row  # the last row per app wins
+        elif row.get("kind") is None and "config" in row:
+            latest_bench[row["config"]] = row  # the last row per config
+
+    graded: list[dict] = []
+    if (latest_bench or latest_profile) and not args.no_grade_bench:
+        from harp_tpu_torch.health import grade as HG
+
+        for cfg in sorted(latest_bench):
+            f = HG.grade_bench_row(latest_bench[cfg], repo)
+            if f is not None:
+                graded.append(f)
+        committed = HG.committed_profiles(repo) if latest_profile else {}
+        for app in sorted(latest_profile):
+            f = HG.grade_profile_row(latest_profile[app], repo,
+                                     committed=committed)
+            if f is not None:
+                graded.append(f)
+
+    rows = health_rows + graded
     summary = sentinel.summarize_rows(rows)
-    summary["graded_configs"] = 0
+    summary["graded_configs"] = len(graded)
     if args.json:
         from harp_tpu_torch.utils.metrics import benchmark_json
 

@@ -32,6 +32,7 @@ budget, tile divides n) have no counterpart.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -58,6 +59,9 @@ _SIGNATURES = {
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
 _PLANS: dict[tuple, "Plan"] = {}
+#: library name -> the kernel's registry name (the fit gates' rows)
+_REGISTRY_NAMES = {"kmeans_partials_int8": "kmeans.partials_int8",
+                   "kmeans_partials": "kmeans.partials"}
 
 
 class Plan(NamedTuple):
@@ -108,10 +112,26 @@ def _lib(name: str) -> ctypes.CDLL:
     return _BOUND[name]
 
 
+def launch_bytes(p: Plan, n: int, d: int, k: int, f32_sums: bool) -> int:
+    """Device bytes one launch allocates: its :func:`workspace` and its
+    outputs (the [k, d] sums, int32 for K1 or f32 for K2, and the counts)."""
+    ws = sum(math.prod(shape) * dt.itemsize
+             for shape, dt in workspace(p, n, d, k, f32_sums).values())
+    return ws + 4 * (k * d + k)
+
+
 def plan(name: str, dev: torch.device, n: int, d: int, k: int,
          pts_bf16: bool = False) -> Plan:
     """The card's launch plan for kernel ``name`` at (n, d, k), made by the
-    library once per shape and card; its launches reuse it."""
+    library once per shape and card; its launches reuse it.
+
+    Before the plan is kept, the fit gates hold it to the card: the main
+    kernel's shared memory a block to the card's opt-in
+    (``memrec.require_smem_fit``) and a launch's buffers to the free
+    device memory, read once here (``memrec.require_hbm_fit``).  A refused
+    shape raises ``MemoryError`` and launches nothing."""
+    from harp_tpu_torch.utils import memrec
+
     index = torch.cuda.current_device() if dev.index is None else dev.index
     key = (name, index, n, d, k, pts_bf16)
     if key not in _PLANS:
@@ -122,7 +142,12 @@ def plan(name: str, dev: torch.device, n: int, d: int, k: int,
                 else (n, d, k)
             build.check(getattr(lib, f"{name}_plan")(
                 *args, out, ctypes.byref(handle)), f"{name}_plan")
-        _PLANS[key] = Plan(bool(out[0]), *out[1:], handle=handle.value)
+        p = Plan(bool(out[0]), *out[1:], handle=handle.value)
+        kernel = _REGISTRY_NAMES[name]
+        memrec.require_smem_fit(kernel, p.smem, device=index)
+        memrec.require_hbm_fit(kernel, launch_bytes(
+            p, n, d, k, name == "kmeans_partials"), device=index)
+        _PLANS[key] = p
     return _PLANS[key]
 
 

@@ -69,6 +69,8 @@ _BOUND: list[ctypes.CDLL] = []
 _SMEM: dict[int, tuple[int, int]] = {}
 #: per (card index, cluster, shared bytes, bf16): clusters the card holds
 _PLANS: dict[tuple, int] = {}
+#: launch shapes that passed the fit gates (:func:`_gate`)
+_FITS: set[tuple] = set()
 
 
 def reset_launches() -> None:
@@ -116,6 +118,22 @@ def _clusters(lib: ctypes.CDLL, dev: torch.device, cluster: int, smem: int,
                                f"shared memory each")
         _PLANS[key] = n.value
     return _PLANS[key]
+
+
+def _gate(dev: torch.device, smem: int, limit: int, nbytes: int) -> None:
+    """The fit gates of one launch shape, held once a shape (the free
+    device memory is read then): a block's shared memory (with the static
+    part) against the card's limit, and the launch's buffers against the
+    free device memory.  A refused shape raises ``MemoryError`` before
+    anything is allocated or launched."""
+    from harp_tpu_torch.utils import memrec
+
+    key = (_index(dev), smem, limit, nbytes)
+    if key not in _FITS:
+        memrec.require_smem_fit("mfsgd.sgd_tile_update", smem, budget=limit)
+        memrec.require_hbm_fit("mfsgd.sgd_tile_update", nbytes,
+                               device=key[0])
+        _FITS.add(key)
 
 
 # ---- the schedule (host) ------------------------------------------------------
@@ -313,23 +331,6 @@ def block_bytes(u_tile: int, i_tile: int, rank: int, C: int,
     return rows * rank * 4 + (u_rows * 4 + 36 * C if C else 0)
 
 
-def check_accumulator_fits(u_tile: int, i_tile: int, rank: int,
-                           limit: int, static_bytes: int = 0,
-                           cluster: int = 1, slots: int = 0) -> None:
-    """Refuse tiles whose f32 rows (the W tile's and the H tile's, split
-    by row over a cluster of ``cluster`` blocks), with the entries of
-    ``slots`` slots and the kernel's
-    ``static_bytes``, exceed ``limit`` bytes a block (232,448 on an H100):
-    never clip silently."""
-    need = block_bytes(u_tile, i_tile, rank, slots, cluster) + static_bytes
-    if need > limit:
-        raise ValueError(
-            f"mfsgd K3: accumulators for u_tile={u_tile}, i_tile={i_tile}, "
-            f"rank={rank} need {need} bytes of shared memory a block over "
-            f"a cluster of {cluster} (with {static_bytes} static), above "
-            f"this card's {limit} a block; use smaller tiles")
-
-
 def sgd_tile_update(W, H, eu, ei, ev, ou, oi, *, lr, reg, u_tile, i_tile,
                     compute_dtype=torch.bfloat16,
                     schedule: LevelSchedule | None = None):
@@ -377,16 +378,17 @@ def sgd_tile_update(W, H, eu, ei, ev, ou, oi, *, lr, reg, u_tile, i_tile,
     lib = _lib()
     limit, static = _smem(lib, dev)
     cl = CLUSTER
-    check_accumulator_fits(u_tile, i_tile, R, limit, static, cluster=cl,
-                           slots=C)
     smem = block_bytes(u_tile, i_tile, R, C, cl)
+    # W', H', the work counter and the per-block se and cnt
+    _gate(dev, smem + static, limit,
+          4 * (W.numel() + H.numel()) + 4 * (1 + n) + 8 * n * cl)
+    bf16 = int(compute_dtype == torch.bfloat16)
+    clusters = min(_clusters(lib, dev, cl, smem, bf16), n) if n else 0
     with torch.cuda.device(dev):
         W2, H2 = W.clone(), H.clone()
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         if n == 0:
             return W2, H2, zero, zero.clone()
-        bf16 = int(compute_dtype == torch.bfloat16)
-        clusters = min(_clusters(lib, dev, cl, smem, bf16), n)
         work = torch.zeros((1 + n,), dtype=torch.int32, device=dev)
         se = torch.empty((n * cl,), dtype=torch.float32, device=dev)
         cnt = torch.empty_like(se)

@@ -188,9 +188,22 @@ def _plan(lib: ctypes.CDLL, T: int, n: int, f: int, B: int, R: int,
           itemsize: int, index: int) -> Plan | None:
     """:func:`plan` for one level's shape on this card, made once (a fit's
     levels repeat in every later fit)."""
+    from harp_tpu_torch.utils import memrec
+
     key = (T, n, f, B, R, itemsize, index)
     if key not in _PLANS:
-        _PLANS[key] = plan(T, n, f, B, R, itemsize, *_card(lib, index))
+        optin, sms = _card(lib, index)
+        p = plan(T, n, f, B, R, itemsize, optin, sms)
+        # the fit gates: the plan's block (or, when none fits, the least
+        # block a plan could take: one feature, one tree, one sub-tile a
+        # slot) against the opt-in, and the [T, R, f·B] int32 histogram
+        # against the free device memory, read once a shape
+        memrec.require_smem_fit(
+            "rf.hist_bins", p.smem if p is not None
+            else smem_bytes(1, 1, 1, 1, R, B, itemsize), budget=optin)
+        memrec.require_hbm_fit("rf.hist_bins", 4 * T * R * f * B,
+                               device=index)
+        _PLANS[key] = p
     return _PLANS[key]
 
 
@@ -233,12 +246,9 @@ def hist_bins(bins, rowcode, weights, n_node_classes: int, n_bins: int):
         raise ValueError(f"hist_bins runs on cuda or cpu, not {dev}")
     lib = _lib()
     with torch.cuda.device(dev):
+        # raises MemoryError when one feature's histogram does not fit
         p = _plan(lib, T, n, f, B, R, bins.element_size(),
                   torch.cuda.current_device())
-        if p is None:
-            raise ValueError(
-                f"hist_bins: one feature's histogram ({R} row codes x {B} "
-                f"bins of int32) does not fit in a block's shared memory")
         return launch(lib, p, bins, rowcode, weights, R, B)
 
 

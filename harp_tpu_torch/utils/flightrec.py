@@ -510,6 +510,39 @@ class SteadyState:
 
 
 # ---------------------------------------------------------------------------
+# Calibrated overheads (the cost model's readout)
+# ---------------------------------------------------------------------------
+
+#: Fixed costs of the execution plane on the card, which the cost model
+#: (:mod:`harp_tpu_torch.perfmodel`) charges as its ``overhead`` term, so
+#: that the flight recorder and the model agree about what a dispatch
+#: costs.  Each value is the median of the probe that
+#: ``python -m harp_tpu_torch.perfmodel.measure --overheads`` runs, from
+#: the ``kind: "overhead"`` row of ``H100_EVIDENCE.jsonl`` (NVIDIA H100
+#: 80GB HBM3, 700.00 W, 2026-10-18):
+#:
+#: - ``dispatch_s``: one small op's launch from the host, back to back
+#:   with no synchronize (what a wrapper call or a torch op costs the host);
+#: - ``readback_s``: a scalar ``.item()`` after a synchronize;
+#: - ``compile_s``: one CUDA-graph capture of a ten-op step (the serve
+#:   plane's cost of a rung; a kernel build is cached on disk, and its
+#:   cached load is below this);
+#: - ``h2d_gbs``: a 256 MiB copy from pinned host memory, bytes a second.
+CALIBRATED_OVERHEADS = {
+    "dispatch_s": 9.863209e-06,
+    "readback_s": 1.3859e-05,
+    "compile_s": 4.508155e-03,
+    "h2d_gbs": 50.466870826e9,
+}
+
+
+def calibrated_overheads() -> dict:
+    """A copy of :data:`CALIBRATED_OVERHEADS` (a copy, so a consumer that
+    changes its dict recalibrates no one else)."""
+    return dict(CALIBRATED_OVERHEADS)
+
+
+# ---------------------------------------------------------------------------
 # Export
 # ---------------------------------------------------------------------------
 

@@ -32,9 +32,12 @@ Supersteps: ``steptrace.superstep`` opens a window per span
 (:meth:`MemLedger.begin_window`) and threads the window's peak onto the
 timeline as a ``memory`` mark (:func:`note_superstep`).
 
-Not ported yet (ROADMAP.md, Queue 1, item 9): the VMEM gate
-(:func:`require_vmem_fit`, a Pallas budget, and ``perfmodel.presize``'s
-band).
+Fit gates: the reference's VMEM gate becomes two gates at the card's
+limits, :func:`require_smem_fit` (a block's opt-in shared memory) and
+:func:`require_hbm_fit` (the free device memory).  Each refuses a config
+with ``MemoryError`` before it launches, whatever the telemetry state,
+and records the reference's ``vmem_check`` row (with ``space``) when
+telemetry is on.  K1's and K2's plans, K3's and K7's call them.
 
 CLI: ``python -m harp_tpu_torch memory run.jsonl [--json]``: exit 0
 clean, 1 irreconciled, 2 unreadable.
@@ -227,6 +230,20 @@ class MemLedger:
         self._execs[name] = row
         self._rows.append(row)
 
+    def vmem_check(self, kernel: str, predicted: int, budget: int,
+                   fits: bool, space: str) -> None:
+        """One fit gate's evidence row: the reference's ``vmem_check``
+        row, and the memory it was held to (``space``: "smem" or "hbm")."""
+        self.vmem_checks += 1
+        if not fits:
+            self.vmem_refusals += 1
+        self._rows.append({
+            "kind": "memory", "ev": "vmem_check", "kernel": kernel,
+            "space": space, "seq": self._next_seq(),
+            "predicted_bytes": int(predicted), "budget_bytes": int(budget),
+            "fits": bool(fits), "refused": not fits,
+        })
+
     # -- superstep window ---------------------------------------------
     def begin_window(self) -> None:
         self._win_peak = self.live_bytes
@@ -351,14 +368,72 @@ def note_superstep(tracer) -> None:
                 live_hbm_bytes=ledger.live_bytes)
 
 
-def require_vmem_fit(kernel: str, predicted_bytes: int, *,
-                     budget: int) -> None:
-    """The reference's Pallas VMEM gate, with ``perfmodel.presize``'s
-    band: not ported yet."""
-    raise NotImplementedError(
-        "memrec.require_vmem_fit is a Pallas VMEM gate that rides "
-        "perfmodel.presize, which is not ported yet (ROADMAP.md, Queue 1, "
-        "item 9)")
+def _require_fit(kernel: str, predicted_bytes: int, budget: int,
+                 space: str, what: str) -> None:
+    fits = int(predicted_bytes) <= int(budget)
+    if telemetry.enabled():
+        ledger.vmem_check(kernel, predicted_bytes, budget, fits, space)
+    if not fits:
+        raise MemoryError(
+            f"memrec: {kernel} needs {int(predicted_bytes)} B "
+            f"({predicted_bytes / (1 << 20):.2f} MiB) of {what}, above the "
+            f"{int(budget)} B ({int(budget) / (1 << 20):.2f} MiB) it may "
+            "have — refused before dispatch")
+
+
+def smem_optin(device=None) -> int:
+    """A block's opt-in shared memory on ``device``'s card
+    (``shared_memory_per_block_optin``), or the H100's
+    (``kernel_registry.H100_SMEM_OPTIN``) when no device is given."""
+    if device is None:
+        from harp_tpu_torch.ops.kernel_registry import H100_SMEM_OPTIN
+
+        return H100_SMEM_OPTIN
+    import torch
+
+    return int(torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin)
+
+
+def hbm_free(device=None) -> int:
+    """The device memory a launch may still take: the card's free bytes
+    (``torch.cuda.mem_get_info``) on a CUDA device, else the ledger's
+    capacity (``hbm_bytes``)."""
+    import torch
+
+    if device is not None and torch.device(device).type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return int(ledger.hbm_bytes)
+
+
+def require_smem_fit(kernel: str, predicted_bytes: int, *,
+                     budget: int | None = None, device=None) -> None:
+    """Refuse a kernel config whose block needs more shared memory than
+    the card gives one, BEFORE it launches.
+
+    ``budget`` defaults to ``device``'s opt-in shared memory a block
+    (:func:`smem_optin`; the H100's when no device is given).  Raises
+    ``MemoryError`` whatever the telemetry state (a safety gate, not a
+    collector); records a ``vmem_check`` row (``space: "smem"``) when
+    telemetry is on."""
+    if budget is None:
+        budget = smem_optin(device)
+    _require_fit(kernel, predicted_bytes, budget, "smem",
+                 "shared memory a block")
+
+
+def require_hbm_fit(kernel: str, predicted_bytes: int, *,
+                    budget: int | None = None, device=None) -> None:
+    """Refuse a kernel config whose buffers need more device memory than
+    is free, BEFORE any of them is allocated.
+
+    ``budget`` defaults to :func:`hbm_free` (the card's free bytes on a
+    CUDA device, the ledger's ``hbm_bytes`` on the CPU).  Raises
+    ``MemoryError`` whatever the telemetry state; records a
+    ``vmem_check`` row (``space: "hbm"``) when telemetry is on."""
+    if budget is None:
+        budget = hbm_free(device)
+    _require_fit(kernel, predicted_bytes, budget, "hbm", "device memory")
 
 
 def set_hbm_capacity(nbytes: int) -> None:

@@ -69,8 +69,30 @@ def _commit() -> str | None:
         return None
 
 
+_POWER_LIMIT: list = []
+
+
+def power_limit_w() -> float | None:
+    """The card's power limit in watts, as ``nvidia-smi --query-gpu=
+    power.limit`` reads it (asked once a process), or None when
+    ``nvidia-smi`` is missing or fails: a finished measurement is never
+    lost for want of it."""
+    if not _POWER_LIMIT:
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=power.limit",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=30)
+            _POWER_LIMIT.append(float(out.stdout.strip().splitlines()[0])
+                                if out.returncode == 0 else None)
+        except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+            _POWER_LIMIT.append(None)
+    return _POWER_LIMIT[0]
+
+
 def provenance(device: "torch.device | str") -> dict:
-    """date / backend / device / torch / commit stamp for ``device``."""
+    """date / backend / device / torch / commit stamp for ``device``; on
+    the card also its name and power limit (``power_limit_w``)."""
     dev = torch.device(device)
     stamp = {"date": datetime.date.today().isoformat(),
              "backend": dev.type,
@@ -80,6 +102,7 @@ def provenance(device: "torch.device | str") -> dict:
              "commit": _commit()}
     if dev.type == "cuda":
         stamp["device_name"] = torch.cuda.get_device_name(dev)
+        stamp["power_limit_w"] = power_limit_w()
         stamp["cuda"] = torch.version.cuda
     return stamp
 

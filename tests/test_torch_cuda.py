@@ -288,7 +288,7 @@ def test_k3_refuses_accumulators_beyond_shared_memory(dev):
     shared memory."""
     tile = 512 * K3.CLUSTER
     W, H, ent = _k3_entries(tile, 16, 64, dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(MemoryError, match="shared memory"):
         K3.sgd_tile_update(W, H, *ent, lr=0.1, reg=0.0, u_tile=tile,
                            i_tile=tile)
 
@@ -861,7 +861,7 @@ def test_k7_takes_R_up_to_its_shared_memory_limit(dev):
             lo = mid
     _k7_check(*_k7_inputs(2, 5000, 3, 32, lo, torch.uint8, dev), lo, 32)
     bins, rc, w = _k7_inputs(2, 100, 3, 32, 2, torch.uint8, dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(MemoryError, match="shared memory"):
         K7.hist_bins(bins, rc, w, 2 * hi, 32)
 
 
@@ -909,7 +909,7 @@ def test_k7_plans_of_two_shapes_do_not_cap_each_other(dev):
 def test_k7_refuses_a_histogram_past_shared_memory(dev):
     bins = torch.zeros((100, 2), dtype=torch.uint8, device=dev)
     rc = torch.zeros((1, 100), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(MemoryError, match="shared memory"):
         K7.hist_bins(bins, rc, rc, 2 ** 16, 32)
 
 
@@ -1165,3 +1165,42 @@ def test_ccd_epochs_on_the_card_give_the_same_bits_every_run(dev):
         runs.append((m.W.clone(), m.H.clone()))
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_k3_config_past_shared_memory_is_refused_before_launch(dev):
+    """The fit gate refuses a K3 config whose block passes the card's
+    opt-in shared memory with MemoryError, before anything is allocated
+    or launched: LAUNCHES stays put, and the gate's row says smem."""
+    from harp_tpu_torch.utils import memrec, telemetry
+
+    tile = 512 * K3.CLUSTER
+    W, H, ent = _k3_entries(tile, 16, 64, dev)
+    before = K3.LAUNCHES["sgd_tile_update"]
+    with telemetry.scope(True):
+        with pytest.raises(MemoryError, match="refused before dispatch"):
+            K3.sgd_tile_update(W, H, *ent, lr=0.1, reg=0.0, u_tile=tile,
+                               i_tile=tile)
+        rows = [r for r in memrec.ledger._rows if r["ev"] == "vmem_check"]
+    assert K3.LAUNCHES["sgd_tile_update"] == before
+    assert rows[-1]["space"] == "smem" and rows[-1]["refused"]
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert rows[-1]["budget_bytes"] <= optin
+
+
+@pytest.mark.parametrize("kernel", ["kmeans.partials_int8", "kmeans.partials"])
+def test_k12_presize_agrees_with_the_plan(dev, kernel):
+    """presize asks the library's plan for K1/K2 (their tiles are chosen
+    in C++): its tile, fused flag and shared memory are the plan's, and
+    the plan fits the card's opt-in."""
+    from harp_tpu_torch.perfmodel import model as PM
+
+    name = ("kmeans_partials_int8" if kernel.endswith("int8")
+            else "kmeans_partials")
+    for n, d, k in ((1_000_000, 300, 100), (262_144, 300, 1000)):
+        got = PM.presize(kernel, n=n, d=d, k=k)
+        p = KK.plan(name, dev, n, d, k)
+        assert (got["tile"], got["fused"], got["smem_bytes"]) == (
+            p.tile_rows, p.fused, p.smem)
+        optin = torch.cuda.get_device_properties(
+            dev).shared_memory_per_block_optin
+        assert 0 < p.smem <= optin

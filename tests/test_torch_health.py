@@ -8,8 +8,12 @@
 - The skew trigger and its handshake on the same records: the
   reference's finding and the row the elastic loop takes.
 - The ``health`` CLI's summary of an export (exit 0 healthy, 1
-  actionable, 2 unreadable) is the reference's; grading bench rows and
-  the model gate wait for ROADMAP.md Queue 1 item 9.
+  actionable, 2 unreadable) is the reference's.  Its grading: fresh bench
+  and profile rows against the committed ``H100_EVIDENCE.jsonl``
+  (``confirmed`` exits 0; ``regressed`` and ``model_invalidated`` exit 1;
+  ``--no-grade-bench`` skips), the model gate (``--grade-model``: 0 on the
+  committed evidence, 1 where ``--repo`` holds none the model agrees
+  with).
 """
 
 import io
@@ -206,8 +210,80 @@ def test_the_health_cli_refuses_an_unreadable_file(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--grade-model"],
                                   ["x.jsonl", "--grade-bench"]])
-def test_the_health_cli_grading_waits_for_item_9(argv):
+def test_the_health_cli_grading_waits_for_item_9(argv, capsys):
+    """Item 9's grading landed: the model gate confirms the committed
+    evidence (exit 0), and a missing file to grade is unreadable (2)."""
     from harp_tpu_torch.health import cli as PCLI
 
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        PCLI.main(argv)
+    code = PCLI.main(argv + ["--repo", str(REPO)])
+    out = capsys.readouterr().out
+    if argv == ["--grade-model"]:
+        row = json.loads(out)
+        assert code == 0 and row["verdict"] == "confirmed"
+        assert row["detector"] == "evidence_regression"
+    else:
+        assert code == 2
+
+
+REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
+
+
+def _card_rows(config):
+    rows = [json.loads(ln) for ln in (REPO / "H100_EVIDENCE.jsonl")
+            .read_text().splitlines() if ln.strip()]
+    return [r for r in rows if r.get("kind") is None
+            and r.get("config") == config]
+
+
+@pytest.mark.parametrize("scale,code,verdict", [
+    (1.0, 0, "confirmed"), (0.5, 1, "regressed"), (1.5, 0, "improved"),
+    (1e-4, 1, "model_invalidated")])
+def test_the_health_cli_grades_fresh_bench_rows(tmp_path, capsys, scale,
+                                                code, verdict):
+    from harp_tpu_torch.health import cli as PCLI
+
+    PH.reset()  # a fresh monitor, as a fresh CLI process has
+    row = dict(_card_rows("kmeans_int8")[-1])
+    row["iters_per_sec"] *= scale
+    path = tmp_path / "fresh.jsonl"
+    _write(path, [row, {"kind": "span", "span": "x", "dur": 1.0}])
+    assert PCLI.main([str(path), "--json", "--repo", str(REPO)]) == code
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["graded_configs"] == 1
+    assert PCLI.main([str(path), "--repo", str(REPO)]) == code
+    assert f"verdict {verdict}" in capsys.readouterr().out
+    assert PCLI.main([str(path), "--no-grade-bench", "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["graded_configs"] == 0
+
+
+def test_the_health_cli_grades_a_drifted_profile(tmp_path, capsys):
+    from harp_tpu_torch.health import cli as PCLI
+
+    PH.reset()
+    rows = [json.loads(ln) for ln in (REPO / "H100_EVIDENCE.jsonl")
+            .read_text().splitlines() if ln.strip()]
+    (base,) = [r for r in rows if r.get("kind") == "profile"
+               and r.get("app") == "kmeans"][-1:]
+    fresh = dict(base, reconciled=True,
+                 terms={k: (base["wall_s"] if k == "wire_s" else 0.0)
+                        for k in base["terms"]})
+    path = tmp_path / "fresh.jsonl"
+    _write(path, [fresh])
+    assert PCLI.main([str(path), "--repo", str(REPO)]) == 1
+    assert "profile_drift" in capsys.readouterr().out
+
+
+def test_the_model_gate_reads_the_repo_it_is_given(tmp_path, capsys):
+    from harp_tpu_torch.health import cli as PCLI
+
+    PH.reset()
+    assert PCLI.main(["--grade-model", "--repo", str(tmp_path)]) == 1
+    row = json.loads(capsys.readouterr().out)
+    assert row["verdict"] == "model_invalidated" and row["failures"] == 1
+    rows = _card_rows("kmeans")
+    _write(tmp_path / "H100_EVIDENCE.jsonl",
+           [dict(rows[-1], iters_per_sec=rows[-1]["iters_per_sec"] * 1e4)])
+    assert PCLI.main(["--grade-model", "--repo", str(tmp_path)]) == 1
+    assert "magnitude" in json.loads(capsys.readouterr().out)["detail"][0]
+    _write(tmp_path / "H100_EVIDENCE.jsonl", rows[-1:])
+    assert PCLI.main(["--grade-model", "--repo", str(tmp_path)]) == 0

@@ -6,8 +6,13 @@
 - The watermark re-derives exactly from the exported events (the
   reference's ``summarize_rows`` replay), also for a real serving run and
   a checkpoint restore; a tampered export does not reconcile.
-- The ``memory`` CLI's exit codes; pressure lands on the health monitor;
-  the VMEM gate waits for ROADMAP.md Queue 1 item 9.
+- The ``memory`` CLI's exit codes; pressure lands on the health monitor.
+- The fit gates (``require_smem_fit``, ``require_hbm_fit``) against the
+  reference's VMEM gate on the same (bytes, budget) pairs: the same
+  refusal (``MemoryError``, whatever the telemetry state, its message
+  ending "refused before dispatch"), the same ``vmem_check`` rows and
+  counters plus the memory they held (``space``), and the replay's
+  reconciliation; the budgets default to the card's limits.
 """
 
 import io
@@ -148,6 +153,64 @@ def test_the_ledger_is_empty_while_off():
     assert PM.live_summary() is None
 
 
+#: (predicted bytes, budget) pairs through both gates
+GATE_CASES = [(1, 2), (2, 2), (3, 2), (232_448, 232_448),
+              (232_449, 232_448), (10 << 20, 16 << 20), (17 << 20, 16 << 20)]
+
+
 def test_the_vmem_gate_waits_for_item_9():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        PM.require_vmem_fit("k", 1, budget=2)
+    """Item 9 landed: the reference's VMEM gate is two gates at the card's
+    limits.  Each refuses as the reference's does, off and on."""
+    for gate in (PM.require_smem_fit, PM.require_hbm_fit):
+        with PT.scope(False):
+            with pytest.raises(MemoryError, match="refused before dispatch"):
+                gate("k", 3, budget=2)
+            gate("k", 2, budget=2)
+    assert not hasattr(PM, "require_vmem_fit")
+
+
+@pytest.mark.parametrize("gate,space", [("require_smem_fit", "smem"),
+                                        ("require_hbm_fit", "hbm")])
+def test_fit_gates_match_the_reference_gate(gate, space):
+    rows = {}
+    for name, tel, mem, fn in (
+            ("port", PT, PM, getattr(PM, gate)),
+            ("ref", JT, JM, JM.require_vmem_fit)):
+        with tel.scope(True):
+            refused = []
+            for pred, budget in GATE_CASES:
+                try:
+                    fn("kernel.x", pred, budget=budget)
+                    refused.append(False)
+                except MemoryError as e:
+                    refused.append(True)
+                    assert str(pred) in str(e) and "refused before " \
+                        "dispatch" in str(e)
+            snap = mem.live_summary()
+            rows[name] = (refused, _rows(mem), snap["vmem_checks"],
+                          snap["vmem_refusals"])
+    port, ref = rows["port"], rows["ref"]
+    assert port[0] == ref[0] == [p > b for p, b in GATE_CASES]
+    assert port[2:] == ref[2:] == (len(GATE_CASES), sum(ref[0]))
+    checks = [r for r in port[1] if r["ev"] == "vmem_check"]
+    assert all(r.pop("space") == space for r in checks)
+    assert checks == [r for r in ref[1] if r["ev"] == "vmem_check"]
+    assert PM.summarize_rows(port[1])["vmem_refusals"] == sum(ref[0])
+
+
+def test_fit_gate_budgets_default_to_the_card_s_limits():
+    from harp_tpu_torch.ops.kernel_registry import H100_SMEM_OPTIN
+
+    assert PM.smem_optin() == H100_SMEM_OPTIN == 232_448
+    PM.require_smem_fit("k", H100_SMEM_OPTIN)
+    with pytest.raises(MemoryError, match="shared memory"):
+        PM.require_smem_fit("k", H100_SMEM_OPTIN + 1)
+    with PT.scope(True):
+        PM.set_hbm_capacity(CAPACITY)
+        assert PM.hbm_free("cpu") == PM.hbm_free() == CAPACITY
+        PM.require_hbm_fit("k", CAPACITY, device="cpu")
+        with pytest.raises(MemoryError, match="device memory"):
+            PM.require_hbm_fit("k", CAPACITY + 1, device="cpu")
+        (a, b) = [r for r in _rows(PM) if r["ev"] == "vmem_check"]
+        assert (a["budget_bytes"], a["fits"], b["refused"]) == (
+            CAPACITY, True, True)

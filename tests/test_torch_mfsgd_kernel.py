@@ -137,13 +137,23 @@ def test_level_schedule_refuses_unaligned_tile_offsets():
 
 
 def test_accumulators_that_do_not_fit_are_refused():
-    K.check_accumulator_fits(256, 256, 64, 232448)  # 128 KB: fits
-    with pytest.raises(ValueError, match="232448"):
-        K.check_accumulator_fits(512, 512, 64, 232448)
+    """K3's launch gate holds a block's rows (block_bytes) and the
+    kernel's static shared memory to the card's limit through
+    memrec.require_smem_fit, as the wrapper's ``_gate`` does."""
+    from harp_tpu_torch.utils import memrec as MR
+
+    rows = K.block_bytes(256, 256, 64, 0, 1)
+    assert rows == 131072
+    MR.require_smem_fit("mfsgd.sgd_tile_update", rows, budget=232448)
+    with pytest.raises(MemoryError, match="232448"):
+        MR.require_smem_fit("mfsgd.sgd_tile_update",
+                            K.block_bytes(512, 512, 64, 0, 1), budget=232448)
     # the kernel's static shared memory counts too
-    K.check_accumulator_fits(256, 256, 64, 131072 + 128, static_bytes=128)
-    with pytest.raises(ValueError, match="128 static"):
-        K.check_accumulator_fits(256, 256, 64, 131072 + 100, static_bytes=128)
+    MR.require_smem_fit("mfsgd.sgd_tile_update", rows + 128,
+                        budget=131072 + 128)
+    with pytest.raises(MemoryError, match="131200 B"):
+        MR.require_smem_fit("mfsgd.sgd_tile_update", rows + 128,
+                            budget=131072 + 100)
 
 
 def test_wrapper_checks_its_inputs():

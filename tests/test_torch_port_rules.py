@@ -17,7 +17,6 @@ import torch
 from harp_tpu_torch import benchmark as BM
 from harp_tpu_torch import mapper as MP
 from harp_tpu_torch.elastic import apps as EA
-from harp_tpu_torch.health import cli as HC
 from harp_tpu_torch.examples import longctx_layer as LC
 from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import ccd as CD
@@ -34,11 +33,14 @@ from harp_tpu_torch.native import datasource as DS
 from harp_tpu_torch.ops import build
 from harp_tpu_torch.parallel import mesh as M
 from harp_tpu_torch.parallel import pipeline as PP
+from harp_tpu_torch.perfmodel import cli as PRC
+from harp_tpu_torch.perfmodel import measure as MS
+from harp_tpu_torch.plan import cli as PC
+from harp_tpu_torch.plan import planner as PL
 from harp_tpu_torch.profile import attribution as PA
 from harp_tpu_torch.profile import cli as PF
 from harp_tpu_torch.serve import bench as SB
 from harp_tpu_torch.serve import server as SR
-from harp_tpu_torch.utils import memrec as MR
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "harp_tpu_torch").rglob("*.py")) + [
@@ -133,7 +135,14 @@ def test_importing_the_whole_port_loads_no_jax():
             "harp_tpu_torch.utils.profiling",
             "harp_tpu_torch.analysis.drivers", "harp_tpu_torch.profile",
             "harp_tpu_torch.profile.attribution",
-            "harp_tpu_torch.profile.cli"} <= set(mods)
+            "harp_tpu_torch.profile.cli", "harp_tpu_torch.perfmodel",
+            "harp_tpu_torch.perfmodel.model",
+            "harp_tpu_torch.perfmodel.grade",
+            "harp_tpu_torch.perfmodel.cli",
+            "harp_tpu_torch.perfmodel.measure", "harp_tpu_torch.plan",
+            "harp_tpu_torch.plan.topology", "harp_tpu_torch.plan.planner",
+            "harp_tpu_torch.plan.cli", "harp_tpu_torch.health.grade"} \
+        <= set(mods)
     assert not build.BUILD_LOG  # importing built nothing
 
 
@@ -193,7 +202,9 @@ STATS_APPS = {
                                    "mapper-CollectiveApp.run",
                                    "mfsgd_elastic_fit", "lda_elastic_fit",
                                    "kmeans_stream_elastic_fit",
-                                   "profile-cli", "profile-capture"])
+                                   "profile-cli", "profile-capture",
+                                   "plan-cli", "plan-ledger_sheet",
+                                   "plan-program", "measure-cli"])
 def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
     _no_card()
     pts = np.zeros((16, 4), np.float32)
@@ -233,6 +244,14 @@ def test_entry_points_without_a_device_raise_without_cuda(entry, tmp_path):
                                n_docs=16, vocab_size=8)
         elif entry == "kmeans_stream_elastic_fit":
             EA.kmeans_stream_elastic_fit(pts, k=2)
+        elif entry == "plan-cli":
+            PC.main(["kmeans.fit"])
+        elif entry == "plan-ledger_sheet":
+            PL.ledger_sheet("kmeans.fit")
+        elif entry == "plan-program":
+            PL.plan_program("kmeans.fit")
+        elif entry == "measure-cli":
+            MS.main(["--overheads", "--out", str(tmp_path / "ev.jsonl")])
         elif entry == "profile-cli":
             PF.main(["kmeans"])
         elif entry == "profile-capture":
@@ -425,12 +444,6 @@ UNPORTED = [
         pack_cache="x", device="cpu"), "pack_cache"),
     ("mfsgd-carry_w", lambda: MF.MFSGDConfig(algo="dense", carry_w=True),
      "carry_w"),
-    ("memrec-vmem-gate", lambda: MR.require_vmem_fit("k", 1, budget=2),
-     "`perfmodel/`"),
-    ("health-grade-model", lambda: HC.main(["--grade-model"]),
-     "`perfmodel/`"),
-    ("health-grade-bench", lambda: HC.main(["x.jsonl", "--grade-bench"]),
-     "`perfmodel/`"),
 ]
 
 
@@ -444,3 +457,40 @@ def test_not_ported_messages_name_their_roadmap_item(what, call, phrase):
     named = {int(n) for n in re.findall(r"item (\d)", str(err.value))}
     assert named, str(err.value)
     assert any(phrase in items[n] for n in named), (named, phrase)
+
+
+def test_predict_makes_no_tensor_on_any_device(capsys):
+    """``predict`` prices offline: in every mode it makes no tensor, on
+    the card or the CPU (a torch-function mode sees every factory call and
+    op), and it needs no card."""
+    from torch.overrides import TorchFunctionMode
+
+    made = []
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor):
+                made.append(getattr(func, "__name__", str(func)))
+            return out
+
+    with Watch():
+        for argv in ([], ["--json"], ["--top", "3"], ["--grade"],
+                     ["--topology", "h100_4x8", "--json"]):
+            PRC.main(argv + ["--repo", str(REPO)])
+    capsys.readouterr()
+    assert made == []
+
+
+#: names of the reference's TPU evidence and rates, which no port module
+#: and not chip_smoke.py may name
+TPU_EVIDENCE_NAMES = ("V5E", "BENCH_local", "BENCH_r0", "SWEEP_pallas",
+                      "FLIP_DECISIONS", "PROFILE_attrib")
+
+
+@pytest.mark.parametrize("path", PORT_FILES[:-2],
+                         ids=[str(p.relative_to(REPO))
+                              for p in PORT_FILES[:-2]])
+def test_no_port_file_names_tpu_evidence(path):
+    text = path.read_text()
+    assert not [n for n in TPU_EVIDENCE_NAMES if n in text], path

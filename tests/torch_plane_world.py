@@ -513,3 +513,33 @@ def run_mapper_cases(rank: int, world: int, root: str,
     out["run_app"] = run_app(SumApp, "again", mesh=WorkerMesh("cpu"),
                              input_paths=paths, loader=loader)
     return out
+
+
+# ---- the planner (plan/) -----------------------------------------------------
+
+def run_plan_cases(rank: int, world: int) -> dict:
+    """Every registered driver program once on this world's CPU workers:
+    its ledger sheet (``plan.ledger_sheet``), the raw CommLedger summary
+    of the same run, and its plans on ``single_card`` and ``sim_ring_8``
+    (the 8-worker ring's prices; the sheet is this world's)."""
+    import torch
+
+    from harp_tpu_torch.analysis.drivers import DRIVERS
+    from harp_tpu_torch.plan import planner, topology
+    from harp_tpu_torch.utils import telemetry
+
+    out: dict = {"sheets": {}, "ledgers": {}, "plans": {}}
+    for name in sorted(DRIVERS):
+        fn, args = DRIVERS[name](torch.device("cpu"))
+        with telemetry.scope(True):
+            with telemetry.ledger.run(name):
+                fn(*args)
+            summary = telemetry.ledger.summary()
+        out["ledgers"][name] = {
+            tag: [dict(r) for r in t["verbs"]] for tag, t in summary.items()}
+        sheet = planner.ledger_sheet(name, "cpu")
+        out["sheets"][name] = sheet
+        out["plans"][name] = {
+            t: planner.plan_sheet(name, sheet, topology.by_name(t)).row()
+            for t in ("single_card", "sim_ring_8", "h100_4x8")}
+    return out
