@@ -203,7 +203,7 @@ fatal when it fails (exit code != 0 and no result line):
    ckpt_every 2, int8 on K1 and f32 use_pallas on K2 (launch counts show
    the replay); MF-SGD on K3, LDA on K4 and CCD++, 4 epochs (a second
    uninterrupted CCD++ run bit-equal too), and the MLP's fit_ckpt
-   (rtol 1e-5); streaming int8 at 1e6 x 300, k = 1000,
+   (rtol 1e-5); streaming int8 at 500k x 300, k = 1000, three epochs,
    killed after two epochs and resumed by the CLI's --resume; the seconds
    and bytes a checkpoint costs; a lone ckpt_write fault leaves its tmp.*
    and no damage (durable_phase);
@@ -272,7 +272,16 @@ fatal when it fails (exit code != 0 and no result line):
    single_card over the eleven drivers; predict --grade and the model gate
    on the committed H100_EVIDENCE.jsonl; grade_bench_row over phases 5 and
    8's KMeans int8 and MF-SGD rows;
-46. one JSON line of the kernels, the card's name and power limit, and
+46. the lint layers and the thread guard (analysis_phase): python -m
+   harp_tpu_torch lint --json in a subprocess, clean (every driver and
+   protocol under the wire audit on the card, K1's and K2's shared memory
+   held to the card's plans); the thirteen lint drivers on the card
+   against the CPU (ring attention's local block on the card); the
+   KMeans engine over TCP with threadguard armed (checks, no violation);
+   the int8 fit on K1 armed and disarmed, bit-equal with the same
+   counts; a launch on a forbidden thread name refused; and the registry's
+   smem_bytes against the shared memory K1, K2, K3 and K7 take at launch;
+47. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -368,11 +377,13 @@ SVMS_N, SVMS_D, SVMS_DENSITY, SVMS_SMALL, SVMS_ACC_FLOOR = (
 # durable runs: KMeans graded config #1 checkpointed every 2 iterations;
 # MF-SGD and CCD++ at MovieLens-20M width with 2M ratings, LDA at the
 # benchmark's vocabulary and topics with 20k docs; streaming int8 at
-# 1e6 x 300, k = 1000, four chunks an epoch (an epoch of real int8 data
-# costs ~1 s a chunk of host quantization: 1e7 rows took 39 s an epoch,
-# 2.5e6 rows 9.6 s, which the script's time limit could not keep)
+# 5e5 x 300, k = 1000, two chunks an epoch, three epochs (an epoch of real
+# int8 data costs ~1 s a chunk of host quantization: 1e7 rows took 39 s
+# an epoch, 2.5e6 rows 9.6 s, which the script's time limit could not
+# keep)
 DUR_EVERY, DUR_ML_NNZ, DUR_LDA_DOCS, DUR_EPOCHS = 2, 2_000_000, 20_000, 4
-DUR_STREAM_N, DUR_STREAM_EPOCHS = 1_000_000, 4
+# cut from 1,000,000 rows over 4 epochs to make room for phase 46
+DUR_STREAM_N, DUR_STREAM_EPOCHS = 500_000, 3
 # the serving plane at full width (phase 40): each engine's synthetic state
 # shape, or (MF-SGD) phase 39's checkpoint; the bench's default ladder
 SERVE_SHAPES = {"kmeans": {"k": 1000, "d": 300},
@@ -2108,7 +2119,8 @@ def stream_benchmark_phase(dev, card: str) -> int:
                              dev)
     cfg = KS.StreamConfig(k=STREAM_K, quantize="int8")
     col = torch.full((STREAM_D,), 5.0 / 127.0, device=dev)
-    c0 = torch.randn((STREAM_K, STREAM_D), device=dev)
+    c0 = torch.randn((STREAM_K, STREAM_D), device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
 
     def epoch():
         device_sync(KS._synthetic_run(c0, 1, gen, 128, cfg, col)[1])
@@ -3046,7 +3058,7 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
     in an order fixed at set_ratings, so a second uninterrupted run is
     bit-equal too), and the MLP within rtol 1e-5 (its float index_add_ is
     not bit-deterministic on the card); streaming KMeans int8 at
-    1e6 x 300 killed after two epochs and resumed through the CLI's
+    500k x 300 killed after two epochs and resumed through the CLI's
     --resume.  Returns each kernel's launches
     on the recovered runs."""
     import numpy as np
@@ -3232,7 +3244,7 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
     # streaming KMeans int8 from a .npy, killed after two epochs and resumed
     # through the CLI
     path = os.path.join(tmp, "stream.npy")
-    t0 = time.perf_counter()
+    t_cut = t0 = time.perf_counter()
     arr = np.lib.format.open_memmap(path, mode="w+", dtype=np.float16,
                                     shape=(DUR_STREAM_N, STREAM_D))
     gen = torch.Generator(device=dev)
@@ -3286,6 +3298,9 @@ def durable_phase(dev, card: str, tmp: str) -> dict:
           f"({n_clean} K1 launches); killed after 2 epochs "
           f"({killed} K1 launches), resumed by the CLI's --resume: "
           f"centroids and inertia bit-equal; {ts.line()} [{card}]")
+    print(f"cut: durable streaming at {DUR_STREAM_N} x {STREAM_D} over "
+          f"{DUR_STREAM_EPOCHS} epochs (from 1000000 rows over 4) took "
+          f"{time.perf_counter() - t_cut:.1f} s")
     del pts
     os.unlink(path)
     return launches
@@ -4084,7 +4099,8 @@ def checked_jit_check(dev, card: str) -> None:
             fail(f"checked_jit on the card: {e} does not name nan")
     else:
         fail("checked_jit on the card: log(-1)/-1 did not raise")
-    x = torch.randn((512, 256), device=dev)
+    x = torch.randn((512, 256), device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
     if not torch.equal(checked_jit(clean)(x), clean(x)):
         fail("checked_jit on the card: a clean call differs from the bare "
              "call")
@@ -4233,6 +4249,236 @@ def costmodel_phase(dev, card: str) -> None:
               f" [{card}]")
         if f["verdict"] == "model_invalidated":
             fail(f"grade_bench_row {cfg}: the model is invalidated: {f}")
+
+
+#: phase 46's tolerances of each new lint driver, card against CPU:
+#: name -> (rtol, atol); None is bit-equal
+ANALYSIS_TOL = {"ring_attention": (1e-4, 1e-5),
+                "rotate.pipeline_chunked": (1e-6, 1e-6),
+                "ingest.accum_chunk": (1e-5, 1e-4),
+                "ingest.finish_epoch": (1e-6, 1e-6),
+                "kmeans.fit_hier": (1e-4, 1e-4),
+                # the int8 wire: one quantum (|max|/127 of a N(0, 1)
+                # block) covers a rounding that falls the other way
+                "collective.reshard": None,
+                "collective.reshard_wire": (0.0, 0.04),
+                "elastic.regather": None, "serve.mfsgd_topk": (1e-5, 1e-6),
+                "serve.lda_infer": (1e-4, 1e-6),
+                "serve.mlp_logits": (1e-5, 1e-5),
+                "serve.rf_vote": None, "serve.svm_scores": (1e-5, 1e-5)}
+#: phase 46's int8 KMeans fit, armed and disarmed
+GUARD_N, GUARD_D, GUARD_K, GUARD_ITERS = 200_000, 64, 64, 3
+
+
+def _arrays(out) -> list:
+    """A driver's output as a flat list of numpy arrays."""
+    import numpy as np
+
+    if isinstance(out, (tuple, list)):
+        return [a for x in out for a in _arrays(x)]
+    return [np.asarray(out.cpu() if hasattr(out, "cpu") else out)]
+
+
+def _launch_smem(dev) -> dict:
+    """The dynamic shared memory K1, K2, K3 and K7 take at their registered
+    shapes, as the wrappers hand it to the launch: K1's and K2's plans
+    (the handle every launch takes), and the ``smem`` argument of K3's
+    and K7's library calls, caught from one registry launch each."""
+    from harp_tpu_torch.ops import kernel_registry as KR
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.ops import mfsgd_kernel as K3
+    from harp_tpu_torch.ops import rf_kernel as K7
+
+    out = {name: KK.plan(lib, dev, KR._KM_N, KR._KM_D, KR._KM_K).smem
+           for name, lib in (("kmeans.partials", "kmeans_partials"),
+                             ("kmeans.partials_int8",
+                              "kmeans_partials_int8"))}
+    for name, mod, sym in (("mfsgd.sgd_tile_update", K3, "sgd_tile_update"),
+                           ("rf.hist_bins", K7, "rf_hist_bins")):
+        lib = mod._lib()
+        orig = getattr(lib, sym)
+        seen = []
+
+        def caught(*args, __orig=orig, __seen=seen):
+            __seen.append(args[21])     # both take smem at argument 21
+            return __orig(*args)
+
+        setattr(lib, sym, caught)
+        try:
+            fn, args = KR.KERNELS[name](dev)
+            fn(*args)
+        finally:
+            setattr(lib, sym, orig)
+        if len(seen) != 1:
+            fail(f"analysis: {name} made {len(seen)} launches, expected 1")
+        out[name] = int(seen[0])
+    return out
+
+
+def analysis_phase(dev, card: str) -> None:
+    """Phase 46: the lint layers and the thread guard on the card (under
+    20 s; any failure fails the run): ``python -m harp_tpu_torch lint
+    --json`` in a subprocess, clean (its wire layer runs every driver and
+    protocol on the card, its kernels layer holds K1's and K2's
+    declarations to the card's plans); each of the thirteen lint drivers
+    once on the card against the CPU (ANALYSIS_TOL); the KMeans engine
+    served over the real TCP transport with the guard armed (checks above
+    0, no violation); the int8 KMeans fit on K1 armed and disarmed,
+    bit-equal with the same launches, dispatches and readbacks; a tracked
+    CUDA launch from a thread named like a forbidden pattern refused with
+    ThreadOwnershipError; and the registry's smem_bytes held to the shared
+    memory K1, K2, K3 and K7 take at launch (HL205)."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from harp_tpu_torch.analysis import kernel_audit
+    from harp_tpu_torch.analysis.drivers import DRIVERS
+    from harp_tpu_torch.models import kmeans as KM
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.serve.engines import KMeansAssign
+    from harp_tpu_torch.serve.server import Server
+    from harp_tpu_torch.serve.transport import TCPFrontEnd
+    from harp_tpu_torch.utils import flightrec, telemetry, threadguard
+
+    t0 = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "harp_tpu_torch", "lint", "--json"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # the thirteen drivers of this layer, card against CPU
+        worst = {}
+        for name, tol in ANALYSIS_TOL.items():
+            fn, args = DRIVERS[name](dev)
+            got = _arrays(fn(*args))
+            fn, args = DRIVERS[name]("cpu")
+            want = _arrays(fn(*args))
+            if len(got) != len(want):
+                fail(f"analysis driver {name}: {len(got)} outputs on the "
+                     f"card, {len(want)} on the CPU")
+            for g, w in zip(got, want):
+                same = (np.array_equal(g, w) if tol is None else
+                        np.allclose(g, w, rtol=tol[0], atol=tol[1]))
+                if not same:
+                    fail(f"analysis driver {name}: the card and the CPU "
+                         f"disagree beyond {tol}")
+            worst[name] = max(float(np.abs(g.astype(np.float64) - w).max())
+                              if g.size else 0.0 for g, w in zip(got, want))
+        print(f"analysis drivers: {len(worst)} on the card against the CPU, "
+              f"each within its tolerance (ring_attention's local block on "
+              f"the card: max |diff| {worst['ring_attention']:.3e}) [{card}]")
+
+        # the KMeans engine over the real TCP transport, the guard armed
+        rng = np.random.default_rng(46)
+        state = KMeansAssign.synthetic_state(rng, k=16, d=32)
+        srv = Server("kmeans", state=state, ladder=(1, 8))
+        srv.startup()
+        with threadguard.armed() as g:
+            fe = TCPFrontEnd(srv, port=0).start_in_thread()
+            try:
+                with socket.create_connection(("127.0.0.1", fe.port),
+                                              timeout=60) as sock:
+                    f = sock.makefile("rw")
+                    xs = [rng.normal(size=(1 + i % 5, 32)).astype(
+                        np.float32) for i in range(16)]
+                    for i, x in enumerate(xs):
+                        f.write(json.dumps({"id": i, "x": x.tolist()})
+                                + "\n")
+                    f.flush()
+                    got = sorted((json.loads(f.readline()) for _ in xs),
+                                 key=lambda r: r["id"])
+            finally:
+                fe.shutdown()
+                fe.join(60)
+        cent = state["centroids"]
+        for r, x in zip(got, xs):
+            want = np.argmin(((x[:, None] - cent[None]) ** 2).sum(-1), 1)
+            if r.get("result") != want.tolist():
+                fail(f"analysis: TCP request {r.get('id')} answered "
+                     f"{r.get('result')}, expected {want.tolist()}")
+        if not (g.checks > 0 and g.violations == []):
+            fail(f"analysis: the armed guard ran {g.checks} checks with "
+                 f"violations {g.violations}")
+        print(f"analysis: 16 requests over TCP with the thread guard "
+              f"armed: answers right, {g.checks} ownership checks, 0 "
+              f"violations [{card}]")
+
+        # the int8 fit on K1, armed and disarmed
+        pts = np.random.default_rng(7).normal(
+            size=(GUARD_N, GUARD_D)).astype(np.float32)
+        runs = []
+        for armed in (False, True):
+            KK.reset_launches()
+            with telemetry.scope(True), (threadguard.armed() if armed
+                                         else contextlib.nullcontext()):
+                c, inertia = KM.fit(pts, k=GUARD_K, iters=GUARD_ITERS,
+                                    seed=0, quantize="int8")
+                tr = flightrec.transfers.summary()
+            runs.append((c, inertia, dict(KK.LAUNCHES), tr["dispatches"],
+                         tr["readbacks"]))
+        (c0, i0, l0, d0, r0), (c1, i1, l1, d1, r1) = runs
+        if not (np.array_equal(c0, c1) and i0 == i1
+                and (l0, d0, r0) == (l1, d1, r1)
+                and l1["kmeans_partials_int8"] == GUARD_ITERS):
+            fail(f"analysis: the int8 fit armed differs from disarmed "
+                 f"(launches {l0} / {l1}, dispatches {d0} / {d1}, "
+                 f"readbacks {r0} / {r1})")
+        print(f"analysis: int8 KMeans fit at {GUARD_N} x {GUARD_D}, k="
+              f"{GUARD_K}, {GUARD_ITERS} iterations, armed and disarmed: "
+              f"centroids and inertia bit-equal, K1 launches "
+              f"{l1['kmeans_partials_int8']}, dispatches {d1}, readbacks "
+              f"{r1} both ways [{card}]")
+
+        # a tracked CUDA launch from a thread named like a forbidden pattern
+        probe = flightrec.track(lambda x: x * 2, "analysis.probe")
+        x = torch.ones(4, device=dev)
+        box = []
+
+        def launch():
+            try:
+                box.append(probe(x))
+            except threadguard.ThreadOwnershipError as e:
+                box.append(e)
+
+        with threadguard.armed():
+            t = threading.Thread(target=launch, name="harp-watchdog",
+                                 daemon=True)
+            t.start()
+            t.join(30)
+        if not (box and isinstance(box[0], threadguard.ThreadOwnershipError)):
+            fail(f"analysis: a launch on harp-watchdog was not refused: "
+                 f"{box}")
+        print("analysis: a tracked CUDA launch on a thread named "
+              "harp-watchdog raised ThreadOwnershipError")
+
+        # HL205 at launch: the registry's smem_bytes against K1, K2, K3, K7
+        smem = _launch_smem(dev)
+        vs = kernel_audit.check_smem_declarations(smem)
+        if vs:
+            fail("analysis: " + "; ".join(v.format() for v in vs))
+        print(f"analysis: registry smem_bytes within the band of the shared "
+              f"memory taken at launch: {smem} [{card}]")
+
+        out, err = lint.communicate(timeout=600)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.communicate()
+    if lint.returncode:
+        fail(f"lint exited {lint.returncode}:\n{out[-2000:]}\n"
+             f"{err[-2000:]}")
+    row = json.loads(out.strip().splitlines()[-1])
+    if not (row.get("clean") and row.get("backend") == "cuda"
+            and row["stale_allowlist"] == 0
+            and set(row["byte_sheets"]) == set(DRIVERS)
+            and not row.get("kernels_unchecked")):
+        fail(f"lint row is not a clean card run: {json.dumps(row)[:2000]}")
+    print(f"analysis: lint --json clean on the card: {row['files_scanned']} "
+          f"files, {len(row['rules'])} rules, {row['allowlisted']} "
+          f"allowlisted, byte sheets of {len(row['byte_sheets'])} drivers, "
+          f"{time.perf_counter() - t0:.1f} s for the phase [{card}]")
 
 
 def profile_epoch(model, card: str, app: str = "MFSGD",
@@ -4511,7 +4757,12 @@ def main() -> int:
     costmodel_phase(dev, card)
     print(f"phase cost model: {time.perf_counter() - t0:.1f} s [{card}]")
 
-    # -- 46. result ----------------------------------------------------------
+    # -- 46. the lint layers and the thread guard ----------------------------
+    t0 = time.perf_counter()
+    analysis_phase(dev, card)
+    print(f"phase analysis: {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # -- 47. result ----------------------------------------------------------
     from harp_tpu_torch.ops.kernel_registry import KERNEL_INFO
 
     src = {i["counter"]: (i["source"], i["replaces"])

@@ -39,6 +39,7 @@
     python -m harp_tpu_torch plan --device cpu [--topology h100_4x8] [--json]
     python -m harp_tpu_torch predict [--json | --top 5 | --grade]
     python -m harp_tpu_torch health --grade-model [--repo DIR]
+    python -m harp_tpu_torch lint --device cpu [--json] [--layer ast]
     python -m harp_tpu_torch --list
 """
 
@@ -91,6 +92,8 @@ APPS = {
              "collective planner over the drivers' CommLedger sheets"),
     "predict": ("harp_tpu_torch.perfmodel.cli",
                 "offline cost model on the H100, graded against its rows"),
+    "lint": ("harp_tpu_torch.analysis.cli",
+             "harplint: AST lints, thread graph, kernels, wire audit"),
 }
 
 

@@ -12,7 +12,8 @@ launches made:
   launches), each followed by a readback, and 200 PyTorch elementwise
   kernels;
 - ``lda``: one ``LDA.sample_epoch`` at the LDA benchmark width (100k docs
-  x 50k words, 1000 topics: two K4 launches of ~180 ms);
+  x 50k words, 1000 topics: two K4 launches; ``PERF.md`` §6 has their
+  time on the card);
 - ``mds``: one ``wdamds.mds`` at n = 4096 (30 K6 launches).
 
 ``--pad S`` sleeps S seconds inside each window after the work.  Host
@@ -52,8 +53,9 @@ def _mix(dev):
     plan = K4.EntryPlan.build(cd, cw, od, ow, R, R, Ndk.shape[0],
                               Nwk.shape[0], 128)
     n = 4096
-    delta = torch.rand((n, n), device=dev)
-    X = torch.rand((n, 3), device=dev)
+    g = torch.Generator(dev).manual_seed(0)
+    delta = torch.rand((n, n), device=dev, generator=g)
+    X = torch.rand((n, 3), device=dev, generator=g)
     mask = torch.ones(n, device=dev)
     x = torch.zeros(1 << 20, device=dev)
 

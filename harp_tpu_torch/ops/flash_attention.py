@@ -69,6 +69,20 @@ def _lib() -> ctypes.CDLL:
     return _BOUND["lib"]
 
 
+#: keys a simt block stages a tile (csrc/flash_attention.cu's kBK)
+SIMT_BK = 64
+
+
+def simt_smem_bytes(d: int, rq: int = 8, dc: int = 2) -> int:
+    """The dynamic shared memory of one block of the simt arm at head dim
+    ``d``, as the launch asks it (``simt_smem_bytes<RQ, DC>(d)`` in the
+    source): q and k rows at ``d + 4`` floats, v rows at ``64·DC + 4`` and
+    the [16·RQ, kBK + 16] probabilities, f32."""
+    ld, ldv = d + 4, 64 * dc + 4
+    return 4 * ((16 * rq + SIMT_BK) * ld + SIMT_BK * ldv
+                + 16 * rq * (SIMT_BK + 16))
+
+
 def kernel_path(dtype, d: int) -> str:
     """The path K8 takes on the card for this dtype and head dim:
     ``"wgmma"`` or ``"simt"``, from the library's own dispatch (so it

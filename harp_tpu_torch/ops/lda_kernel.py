@@ -294,6 +294,12 @@ class EntryPlan:
 
 # ---- step level -------------------------------------------------------------
 
+def block_smem(n_topics: int) -> int:
+    """The dynamic shared memory of one K4 block, as ``cgs_step``'s launch
+    asks it: the -log(u) row of the block's slot, one float a topic."""
+    return 4 * int(n_topics)
+
+
 def cgs_step_plain(Ndk, Nwk, nk, z, cd, cw, od, ow, *, alpha, beta, vbeta,
                    d_tile, w_tile, cc, exact_gathers=True, u=None,
                    seeds=None):

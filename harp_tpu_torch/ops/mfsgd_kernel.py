@@ -345,8 +345,8 @@ def sgd_tile_update(W, H, eu, ei, ev, ou, oi, *, lr, reg, u_tile, i_tile,
     ``W'`` and ``H'`` are new tensors, as the reference's and the plain
     version's are: callers keep their inputs (the rotation pipeline's
     chunks, factors injected through ``convert``).  The copy moves
-    2 × 4 B × (u_bound + i_rows) × R, 78 MB at ML-20M, about 0.05 ms of
-    HBM time against a step of milliseconds."""
+    2 × 4 B × (u_bound + i_rows) × R, 78 MB at ML-20M: a bound of about
+    0.05 ms at the H100's HBM rate against a step of milliseconds."""
     NE, C = eu.shape
     R = W.shape[1]
     dev = W.device

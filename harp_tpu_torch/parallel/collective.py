@@ -710,7 +710,7 @@ def reshard(tree: Any, src_spec, dst_spec, *, wire: str = "exact",
             x = torch.empty(shape, dtype=x.dtype, device="meta")
         moving.append(x)
     if moving:
-        record_comm("reshard", tuple(moving), wire_dtype=wd)
+        record_comm("reshard", tuple(moving), wire_dtype=wd, hops=n_chunks)
     amaxes = None
     if wire == "int8":
         amaxes = _shared_amaxes([x for x, p in zip(leaves, plans)

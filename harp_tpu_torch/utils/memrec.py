@@ -51,6 +51,11 @@ import sys
 
 from harp_tpu_torch.utils import telemetry
 
+# a kernel-registry smem_bytes declaration must lie within this band of
+# the wrapper's own plan at the registered shape (declared in [plan, plan
+# × BAND]): the HL205 lint rule (analysis/kernel_audit.py)
+PRESIZE_BAND = 1.25
+
 # Buffer lifecycle vocabulary.
 BUFFER_EVENTS = ("staged", "restored", "output", "freed", "donated")
 # Row sub-kinds under kind:"memory".

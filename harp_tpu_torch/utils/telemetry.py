@@ -4,7 +4,10 @@ that KMeans and MF-SGD need.
 **CommLedger**: every verb in :mod:`harp_tpu_torch.parallel.collective`
 calls :func:`record_comm`, which adds the call's per-worker payload bytes
 (from shape and dtype only) to the ledger under the innermost active
-:meth:`CommLedger.run` tag.  PyTorch runs eagerly, so a verb records once
+:meth:`CommLedger.run` tag, by verb and by call site: :func:`site_key` of
+the nearest frame that :func:`is_ledger_user_frame` accepts, the key the
+wire audit (:mod:`harp_tpu_torch.analysis.commgraph`) derives for each
+``torch.distributed`` call it sees.  PyTorch runs eagerly, so a verb records once
 per *call*, at run time; there is no trace-time sheet to multiply.
 ``run(tag, steps)`` counts ``steps`` executions of the tagged block (the
 Lloyd iterations of one ``fit``), so ``bytes_per_execution`` is the
@@ -32,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import time
 from typing import Any
 
@@ -41,6 +45,7 @@ _ENABLED = os.environ.get("HARP_TELEMETRY", "0").lower() not in (
     "", "0", "off", "false")
 
 _UNTAGGED = "(untagged)"
+_HERE = os.path.abspath(__file__)
 
 
 def enabled() -> bool:
@@ -57,6 +62,15 @@ def enable(on: bool = True) -> None:
 def out_path() -> str | None:
     """Export destination for instrumented CLIs (``HARP_TELEMETRY_OUT``)."""
     return os.environ.get("HARP_TELEMETRY_OUT") or None
+
+
+def budget(**kw):
+    """``with telemetry.budget(compiles=1, readbacks=1): ...``: the flight
+    recorder's budget guard (:func:`harp_tpu_torch.utils.flightrec.budget`
+    has the counters and the raise and warn actions)."""
+    from harp_tpu_torch.utils import flightrec
+
+    return flightrec.budget(**kw)
 
 
 @contextlib.contextmanager
@@ -111,23 +125,59 @@ def _tree_bytes(tree: Any, wire_dtype: "torch.dtype | None" = None
     return total, len(leaves)
 
 
+def is_ledger_user_frame(filename: str) -> bool:
+    """Is an absolute source filename a *user* frame for a collective's
+    call site?  The ledger's :func:`record_comm` and the wire audit both
+    key a call by the nearest such frame, so they must agree on it.
+    Excluded: this module, the collective verb layer, the torch package
+    and contextlib's glue."""
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
+    return (filename != _HERE
+            and not filename.endswith(os.path.join("parallel",
+                                                   "collective.py"))
+            and not filename.startswith(torch_dir + os.sep)
+            and "contextlib" not in os.path.basename(filename))
+
+
+def site_key(filename: str, lineno: int) -> str:
+    """The ledger's call-site key: ``basename.py:lineno``."""
+    return f"{os.path.basename(filename)}:{lineno}"
+
+
+def call_site(frame=None) -> str:
+    """:func:`site_key` of the nearest user frame at or above ``frame``
+    (the caller's when None), or ``"?:0"``."""
+    f = sys._getframe(1) if frame is None else frame
+    while f is not None:
+        fn = os.path.abspath(f.f_code.co_filename)
+        if is_ledger_user_frame(fn):
+            return site_key(fn, f.f_lineno)
+        f = f.f_back
+    return "?:0"
+
+
 class CommLedger:
-    """Per-tag, per-verb collective byte accounting (module docstring)."""
+    """Per-tag, per-verb and per-site collective byte accounting (module
+    docstring)."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
-        # tag -> {"executions": int, "verbs": {(verb, combiner): record}}
+        # tag -> {"executions": int,
+        #         "verbs": {(verb, combiner, wire): record},
+        #         "sites": {(site, verb, combiner, wire): record}}
         self._tags: dict[str, dict] = {}
         self._tag_stack: list[str] = []
 
     def _tag(self, name: str) -> dict:
-        return self._tags.setdefault(name, {"executions": 0, "verbs": {}})
+        return self._tags.setdefault(name, {"executions": 0, "verbs": {},
+                                            "sites": {}})
 
     def record(self, verb: str, tree: Any, *,
                combiner: str | None = None,
-               wire_dtype: "torch.dtype | None" = None) -> None:
+               wire_dtype: "torch.dtype | None" = None,
+               hops: int = 1) -> None:
         if not _ENABLED:
             return
         payload, n_leaves = _tree_bytes(tree, wire_dtype)
@@ -139,6 +189,13 @@ class CommLedger:
             "payload_bytes": 0, "calls": 0, "leaves": n_leaves})
         rec["payload_bytes"] += payload
         rec["calls"] += 1
+        site = call_site(sys._getframe(1))
+        srec = t["sites"].setdefault((site, verb, combiner, wire, hops), {
+            "site": site, "verb": verb, "combiner": combiner,
+            "wire_dtype": wire, "payload_bytes": 0, "calls": 0,
+            "hops": hops})
+        srec["payload_bytes"] += payload
+        srec["calls"] += 1
 
     @contextlib.contextmanager
     def run(self, tag: str, *, steps: int = 1):
@@ -183,7 +240,8 @@ class CommLedger:
             out[name] = {"executions": t["executions"],
                          "bytes_per_execution": self.bytes_per_execution(name),
                          "total_bytes": self.volume(name),
-                         "verbs": [dict(r) for r in verbs]}
+                         "verbs": [dict(r) for r in verbs],
+                         "sites": [dict(r) for r in t["sites"].values()]}
         return out
 
 
@@ -244,11 +302,17 @@ def span(name: str, **attrs: Any):
 
 
 def record_comm(verb: str, tree: Any, *, combiner: str | None = None,
-                wire_dtype: "torch.dtype | None" = None) -> None:
-    """The one hook the collective verbs call, once per call."""
+                wire_dtype: "torch.dtype | None" = None,
+                hops: int = 1) -> None:
+    """The one hook the collective verbs call, once per call.  ``hops``:
+    how many times the recorded payload crosses the wire in the call (a
+    chunked ring move records one chunk and makes ``n_chunks`` hops); the
+    site records keep it, so the wire audit can hold the call's bytes to
+    payload × hops."""
     if not _ENABLED:
         return
-    ledger.record(verb, tree, combiner=combiner, wire_dtype=wire_dtype)
+    ledger.record(verb, tree, combiner=combiner, wire_dtype=wire_dtype,
+                  hops=hops)
     from harp_tpu_torch.utils import steptrace
 
     if steptrace.tracer._run is not None:
