@@ -194,9 +194,10 @@ fatal when it fails (exit code != 0 and no result line):
    (iters/s, weighted stress), unit weights against the unweighted stress
    (rtol 1e-3), the card against the CPU at n = 256 (wmds_phase);
 38. SVM's sparse path on a seeded 500k x 128 libsvm file at 10 % density:
-   the native parser against the Python one (equal arrays), fit_sparse and
-   the --libsvm CLI on the card (samples/s, train_acc), the card against
-   the CPU on 2,000 rows (rtol 1e-3) (svm_sparse_phase);
+   the native parser against the Python one on the file's first 50,000
+   rows (equal arrays), fit_sparse and the --libsvm CLI on the card
+   (samples/s, train_acc), the card against the CPU on 2,000 rows (rtol
+   1e-3) (svm_sparse_phase);
 39. durable runs on the kernels, each recovered run bit-equal to an
    uninterrupted one after an injected ckpt_write fault (one step
    replayed) and a worker failure: KMeans 1M x 300, k = 100, 10 iterations,
@@ -238,9 +239,10 @@ fatal when it fails (exit code != 0 and no result line):
    execution row whose per-worker points sum to n and, through the
    report CLI, a report row; the report, timeline and health CLIs exit 0
    on it, and the serve CLI's burst bench with HARP_TELEMETRY=1 ends in
-   its run report (telemetry_phase);
+   its run report (the four subprocesses run together)
+   (telemetry_phase);
 43. elastic training on one card: MF-SGD at graded config #2's width
-   (138,493 x 26,744, 20M ratings, rank 64, bf16, K3) for 3 epochs and
+   (138,493 x 26,744, 2M ratings, rank 64, bf16, K3) for 3 epochs and
    LDA at graded config #3's width (100k docs x 50k words x 1000 topics,
    K4) for 2 sweeps, each through elastic_fit: the home layout bit-equal
    to the plain loop from the same initial state, and a transient
@@ -281,7 +283,20 @@ fatal when it fails (exit code != 0 and no result line):
    the int8 fit on K1 armed and disarmed, bit-equal with the same
    counts; a launch on a forbidden thread name refused; and the registry's
    smem_bytes against the shared memory K1, K2, K3 and K7 take at launch;
-47. one JSON line of the kernels, the card's name and power limit, and
+47. the reference's surface (surface_phase): the public API's import
+   line; models.lda.benchmark(algo="pallas", pack_cache=DIR) at graded
+   config #3 (K4) cold, then warm: the same log-likelihood bit for bit,
+   K4 launched 2 x (1 + LDA_EPOCHS) each time, one .npz and no tmp file
+   in DIR, both prep_sec; MF-SGD algo="dense" at graded config #2's
+   widths on 2M ratings with carry_w on and off, one epoch each, W, H and
+   RMSE bit-equal; and the four apps through their main on the card:
+   kmeans_app at d = 300, k = 100 on a quarter of graded config #1's
+   points (its centroids within rtol 1e-4 / atol 1e-6 of a CPU run of the
+   app at APP_KM_CHECK_N points), mfsgd_app and pipeline_moe_app at
+   their defaults (one stage, one expert), streaming_kmeans_app at the
+   north star's d = 300 on the app's 20,000 rows with k = 8 (APP_STREAM_K
+   says why not 1000);
+48. one JSON line of the kernels, the card's name and power limit, and
    the result line {"ok": true, "device": {...}}.
 
 Times are CUDA-event times on this card (its power limit is printed beside
@@ -408,6 +423,23 @@ SERVE_CHECK_BURSTS = ((1, 5, 64, 300, 512, 148), (40, 24), (1,))
 SERVE_CHECK_BURSTS_LDA = ((1, 5, 58), (64,), (8,), (1,))
 # the pipeline at S = 1 (phase 41)
 PIPE_M, PIPE_MB, PIPE_W = 8, 256, 512
+# phase 38's Python libsvm parse runs on the file's first rows (the whole
+# 500k-row parse took 7.0 s)
+SVMS_PARSE_N = 50_000
+# phase 47: kmeans_app on a quarter of graded config #1's points, and its
+# card-against-CPU check at 2048 points: the CPU scan of the app's run
+# (f64 distances along its f32 path) puts every point's two nearest
+# centroids at least 1.5e-3 apart there (50 ulps of the ~300 distances),
+# 6.8e-5 at 8192 points, inside the two devices' summation-order
+# difference, where a flipped assignment moves a centroid by 1/its count;
+# streaming_kmeans_app at the north star's d on its default 20,000 rows
+# and k = 8: its points are k blobs at offsets 6 j, so at k = 1000 the sum
+# of |x|^2 reaches ~2e14 and the f32 inertia (that sum plus the best
+# scores) cancels to nothing: the reference's app fails its own 1e-3
+# check there on the CPU, as the port's does (at d = 300 the CPU runs
+# read 1.2e-5 at k = 8, 4.0e-5 at 16, 4.9e-4 at 32)
+APP_KM_N, APP_KM_CHECK_N = 262_144, 2048
+APP_STREAM_N, APP_STREAM_K = 20_000, 8
 
 
 #: the benchmark rows phase 44 annotates with the card's roofline:
@@ -2967,27 +2999,36 @@ def svm_sparse_phase(dev, card: str, tmp: str) -> None:
                 + 0.1 * rng.normal(size=SVMS_N).astype(np.float32))
     y[y == 0] = 1.0
     path = os.path.join(tmp, "svm.libsvm")
+    head = os.path.join(tmp, "svm_head.libsvm")
     t0 = time.perf_counter()
     write_libsvm(path, x, y)
     t1 = time.perf_counter()
     native = DS.load_libsvm(path)
     t2 = time.perf_counter()
+    t_cut = time.perf_counter()
+    write_libsvm(head, x[:SVMS_PARSE_N], y[:SVMS_PARSE_N])
     load_native = DS.load_native
     DS.load_native = lambda: None
     try:
-        python = DS.load_libsvm(path)
+        python = DS.load_libsvm(head)
     finally:
         DS.load_native = load_native
+    native_head = DS.load_libsvm(head)
     t3 = time.perf_counter()
-    if not all(np.array_equal(a, b) for a, b in zip(native[:4], python[:4])
-               ) or native[4] != python[4]:
+    if not all(np.array_equal(a, b) for a, b in zip(native_head[:4],
+                                                    python[:4])
+               ) or native_head[4] != python[4]:
         fail("libsvm: the native parser and the Python parse disagree")
+    print(f"cut: the Python libsvm parse on the first {SVMS_PARSE_N} rows "
+          f"(from {SVMS_N}; its file written and parsed both ways) took "
+          f"{t3 - t_cut:.1f} s")
+    os.unlink(head)
     labels, indptr, indices, values, nf = native
     ids, vals, mask = DS.csr_to_ell(indptr, indices, values)
     print(f"libsvm {SVMS_N} x {SVMS_D} at {SVMS_DENSITY:.0%}: "
           f"{len(values)} nonzeros, ELL width {ids.shape[1]}; written in "
-          f"{t1 - t0:.1f} s, native parse {t2 - t1:.3f} s, Python parse "
-          f"{t3 - t2:.3f} s, equal arrays")
+          f"{t1 - t0:.1f} s, native parse {t2 - t1:.3f} s; on its first "
+          f"{SVMS_PARSE_N} rows native and Python parses equal")
     yl = np.where(labels == 1.0, 1.0, -1.0).astype(np.float32)
     SV.SVM().fit_sparse(ids[:4096], vals[:4096], mask[:4096], yl[:4096], nf)
     torch.cuda.synchronize()
@@ -3634,34 +3675,49 @@ def telemetry_phase(dev, card: str, tmp: str) -> int:
           f"{on[3]} both, {on[2]} both; export {len(rows['steptrace'])} "
           f"steptrace / {len(rows['skew'])} skew / {len(rows['span'])} span "
           f"rows; superstep {st.get('step_p50_ms')} ms [{card}]")
-    for app, args in (("report", ("--telemetry", path, "--json-only")),
-                      ("timeline", (path, "--perfetto",
-                                    os.path.join(tmp, "perfetto.json"))),
-                      ("health", (path,))):
-        cli = subprocess.run(
-            [sys.executable, "-m", "harp_tpu_torch", app, *args], cwd=REPO,
-            capture_output=True, text=True, timeout=300)
-        if cli.returncode:
-            fail(f"{app} CLI exited {cli.returncode} on the export:\n"
-                 f"{cli.stdout[-1000:]}{cli.stderr[-1000:]}")
+    # the three CLIs on the export and the serve bench run together
+    t_cut = time.perf_counter()
+    procs = {app: subprocess.Popen(
+        [sys.executable, "-m", "harp_tpu_torch", app, *args], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "HARP_TELEMETRY": "1"} if app == "serve"
+        else None)
+        for app, args in (("report", ("--telemetry", path, "--json-only")),
+                          ("timeline", (path, "--perfetto",
+                                        os.path.join(tmp, "perfetto.json"))),
+                          ("health", (path,)),
+                          ("serve", ("kmeans", "--bench")))}
+    outs = {}
+    try:
+        for app, proc in procs.items():
+            outs[app] = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"cut: the report, timeline and health CLIs and the serve bench "
+          f"ran together: {time.perf_counter() - t_cut:.1f} s")
+    for app in ("report", "timeline", "health"):
+        stdout, stderr = outs[app]
+        if procs[app].returncode:
+            fail(f"{app} CLI exited {procs[app].returncode} on the export:"
+                 f"\n{stdout[-1000:]}{stderr[-1000:]}")
         if app == "report":
-            row = json.loads(cli.stdout.strip().splitlines()[-1])
+            row = json.loads(stdout.strip().splitlines()[-1])
             if row.get("skew", {}).get("kmeans.fit", {}).get("total") != N \
                     or row.get("transfer", {}).get("dispatches") != 1:
                 fail(f"report row lacks the fit's skew or transfers: {row}")
         print(f"{app} CLI on the export: exit 0 "
-              f"({cli.stdout.strip().splitlines()[0][:100]}...)")
-    cli = subprocess.run(
-        [sys.executable, "-m", "harp_tpu_torch", "serve", "kmeans",
-         "--bench"], cwd=REPO, capture_output=True, text=True, timeout=600,
-        env={**os.environ, "HARP_TELEMETRY": "1"})
-    lines = cli.stdout.strip().splitlines()
-    if cli.returncode or not lines:
+              f"({stdout.strip().splitlines()[0][:100]}...)")
+    stdout, stderr = outs["serve"]
+    lines = stdout.strip().splitlines()
+    if procs["serve"].returncode or not lines:
         fail(f"serve --bench with HARP_TELEMETRY=1 exited "
-             f"{cli.returncode}:\n{cli.stderr[-2000:]}")
+             f"{procs['serve'].returncode}:\n{stderr[-2000:]}")
     row = json.loads(lines[-1])
     if row.get("config") != "serve_kmeans_telemetry" \
-            or row.get("backend") != "cuda" or "run report" not in cli.stderr:
+            or row.get("backend") != "cuda" or "run report" not in stderr:
         fail(f"serve --bench with HARP_TELEMETRY=1 printed no run report: "
              f"{lines[-1][:300]}")
     print(f"serve kmeans --bench with HARP_TELEMETRY=1: its run report on "
@@ -3702,9 +3758,10 @@ def elastic_phase(dev, card: str, tmp: str) -> dict:
             fail(f"elastic {name}: the dispatch fault did not fire")
         return telemetry.load_rows(path)["elastic"]
 
-    # MF-SGD on K3 at graded config #2's width
-    t0 = time.perf_counter()
-    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, ML_NNZ, seed=0)
+    # MF-SGD on K3 at graded config #2's width, on DUR_ML_NNZ ratings (cut
+    # from its 20M: their host prep was most of the phase)
+    t_cut = t0 = time.perf_counter()
+    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, DUR_ML_NNZ, seed=0)
     ad = EA.MFSGDElastic(ML_USERS, ML_ITEMS,
                          MF.MFSGDConfig(rank=ML_RANK, algo="pallas"),
                          seed=0, users=u, items=i, vals=v)
@@ -3747,7 +3804,7 @@ def elastic_phase(dev, card: str, tmp: str) -> dict:
     if [r["event"] for r in el_rows] != ["resume"] \
             or el_rows[0]["from_step"] != 0:
         fail(f"elastic MF-SGD: the export's elastic rows are {el_rows}")
-    print(f"elastic MF-SGD (K3) at {ML_USERS} x {ML_ITEMS}, {ML_NNZ} "
+    print(f"elastic MF-SGD (K3) at {ML_USERS} x {ML_ITEMS}, {DUR_ML_NNZ} "
           f"ratings, rank {ML_RANK}, bf16, {EPOCHS} epochs: home layout "
           f"bit-equal to the plain fit, a dispatch fault at epoch 1 resumed "
           f"from step 0 bit-equal (resume row exported); K3 launches "
@@ -3767,6 +3824,8 @@ def elastic_phase(dev, card: str, tmp: str) -> dict:
         loud = str(e)
     print(f"elastic MF-SGD: a worker loss on one worker fails loudly "
           f"({loud})")
+    print(f"cut: elastic MF-SGD on {DUR_ML_NNZ} ratings (from {ML_NNZ}) "
+          f"took {time.perf_counter() - t_cut:.1f} s")
     del ad, W0, H0, W_p, H_p, st, st2, u, i, v
 
     # LDA on K4 at graded config #3's width
@@ -4481,6 +4540,129 @@ def analysis_phase(dev, card: str) -> None:
           f"{time.perf_counter() - t0:.1f} s for the phase [{card}]")
 
 
+def surface_phase(dev, card: str, tmp: str) -> int:
+    """Phase 47: the reference's surface on the card (module docstring):
+    the public API, LDA's pack cache at graded config #3, MF-SGD's carry_w
+    at graded config #2's widths and the four runnable apps.  Returns K4's
+    launches on each pack-cache run."""
+    import numpy as np
+    import torch
+
+    # the public API's import line, the first line of a Harp-style app
+    from harp_tpu_torch import CollectiveApp, Combiner, run_app  # noqa: F401
+    from harp_tpu_torch import StaticScheduler, Table, WorkerMesh  # noqa: F401
+    from harp_tpu_torch.examples import (kmeans_app, mfsgd_app,
+                                         pipeline_moe_app,
+                                         streaming_kmeans_app)
+    from harp_tpu_torch.models import lda as LD
+    from harp_tpu_torch.models import mfsgd as MF
+    from harp_tpu_torch.ops import lda_kernel as K4
+
+    # LDA benchmark(pack_cache=...) at graded config #3, cold then warm
+    packs = os.path.join(tmp, "lda_packs")
+    runs = {}
+    for run in ("cold", "warm"):
+        K4.reset_launches()  # this run's main path starts here
+        t0 = time.perf_counter()
+        out = LD.benchmark(n_docs=LDA_DOCS, vocab_size=LDA_VOCAB,
+                           n_topics=LDA_TOPICS, tokens_per_doc=LDA_TPD,
+                           epochs=LDA_EPOCHS, algo="pallas",
+                           pack_cache=packs)
+        runs[run] = (out, K4.LAUNCHES["cgs_entry_update"],
+                     time.perf_counter() - t0)
+    (cold, n_cold, w_cold), (warm, n_warm, w_warm) = runs["cold"], \
+        runs["warm"]
+    want = 2 * (1 + LDA_EPOCHS)
+    if cold["log_likelihood"] != warm["log_likelihood"]:
+        fail(f"pack_cache: the warm run's log-likelihood "
+             f"{warm['log_likelihood']!r} differs from the cold run's "
+             f"{cold['log_likelihood']!r}")
+    if (n_cold, n_warm) != (want, want):
+        fail(f"pack_cache: K4 launches {n_cold} cold, {n_warm} warm; "
+             f"expected {want} each")
+    files = sorted(os.listdir(packs))
+    if len(files) != 1 or not files[0].endswith(".npz") \
+            or ".tmp" in files[0]:
+        fail(f"pack_cache: the cache holds {files}, not one .npz")
+    size = os.path.getsize(os.path.join(packs, files[0]))
+    print(f"pack_cache LDA (K4) at {LDA_DOCS} docs x {LDA_VOCAB} words, "
+          f"{LDA_TOPICS} topics, {cold['n_tokens']} tokens: cold prep_sec "
+          f"{cold['prep_sec']:.3f} (pack and write {size} bytes), warm "
+          f"prep_sec {warm['prep_sec']:.3f} (load); log-likelihood "
+          f"{cold['log_likelihood']!r} both; K4 launches {n_cold} / "
+          f"{n_warm}; {cold['tokens_per_sec_per_chip']:.6e} / "
+          f"{warm['tokens_per_sec_per_chip']:.6e} tokens/s; wall "
+          f"{w_cold:.1f} / {w_warm:.1f} s [{card}]")
+    shutil.rmtree(packs, ignore_errors=True)
+
+    # MF-SGD algo="dense" (K3's plain version) with carry_w on and off
+    t_cut = time.perf_counter()
+    u, i, v = MF.synthetic_ratings(ML_USERS, ML_ITEMS, DUR_ML_NNZ, seed=0)
+    res = {}
+    for carry in (False, True):
+        m = MF.MFSGD(ML_USERS, ML_ITEMS,
+                     MF.MFSGDConfig(rank=ML_RANK, algo="dense",
+                                    carry_w=carry), seed=0)
+        m.set_ratings(u, i, v)
+        t0 = time.perf_counter()
+        rmse = m.train_epoch()
+        res[carry] = (m.W.cpu(), m.H.cpu(), rmse, time.perf_counter() - t0)
+        del m
+    if not (torch.equal(res[True][0], res[False][0])
+            and torch.equal(res[True][1], res[False][1])
+            and res[True][2] == res[False][2] and np.isfinite(res[True][2])):
+        fail("carry_w: the dense epoch with carry_w differs from the one "
+             "without")
+    print(f"MF-SGD dense at {ML_USERS} x {ML_ITEMS}, {DUR_ML_NNZ} ratings, "
+          f"rank {ML_RANK}, bf16: carry_w on and off bit-equal after one "
+          f"epoch (W, H, RMSE {res[True][2]!r}); epoch {res[False][3]:.2f} "
+          f"/ {res[True][3]:.2f} s [{card}]")
+    print(f"cut: MF-SGD carry_w on {DUR_ML_NNZ} of graded config #2's "
+          f"{ML_NNZ} ratings, one epoch each: "
+          f"{time.perf_counter() - t_cut:.1f} s")
+    del res, u, i, v
+
+    # the four apps through their main, on the card
+    t_cut = time.perf_counter()
+    km = kmeans_app.main(["--n", str(APP_KM_N), "--d", str(D), "--k",
+                          str(K), "--iters", str(ITERS)])
+    if not np.isfinite(km["centroid_norm"]):
+        fail(f"kmeans_app: {km}")
+    ck = [kmeans_app.run(APP_KM_CHECK_N, D, K, ITERS, mesh=WorkerMesh(d))
+          for d in (dev, "cpu")]
+    if not np.allclose(ck[0], ck[1], rtol=1e-4, atol=1e-6):
+        fail(f"kmeans_app: the card and the CPU disagree at "
+             f"{APP_KM_CHECK_N} points (max |diff| "
+             f"{np.abs(ck[0] - ck[1]).max()})")
+    print(f"kmeans_app at {APP_KM_N} x {D}, k={K}, {ITERS} iterations: "
+          f"centroid_norm {km['centroid_norm']!r}; card == CPU at "
+          f"{APP_KM_CHECK_N} points (rtol 1e-4 / atol 1e-6, max |diff| "
+          f"{np.abs(ck[0] - ck[1]).max():.3e}) [{card}]")
+    print(f"cut: kmeans_app on {APP_KM_N} of graded config #1's {N} points "
+          f"took {time.perf_counter() - t_cut:.1f} s")
+    mf = mfsgd_app.main([])
+    if not (mf["workers"] == 1 and mf["rmse_final"] < mf["rmse_first"]):
+        fail(f"mfsgd_app: {mf}")
+    pm = pipeline_moe_app.main([])
+    if not (pm["workers"] == 1 and pm["loss_final"] < pm["loss_first"]
+            and pm["dropped"] == 0):
+        fail(f"pipeline_moe_app: {pm}")
+    print(f"mfsgd_app and pipeline_moe_app at their defaults on the card: "
+          f"{mf}, {pm} [{card}]")
+    t_cut = time.perf_counter()
+    st = streaming_kmeans_app.main(["--n", str(APP_STREAM_N), "--d",
+                                    str(STREAM_D), "--k", str(APP_STREAM_K)])
+    if not (st["rel_diff"] < 1e-3 and np.isfinite(st["inertia_streamed"])):
+        fail(f"streaming_kmeans_app: {st}")
+    print(f"cut: streaming_kmeans_app at the north star's d = {STREAM_D}, "
+          f"k = {APP_STREAM_K} (not its {STREAM_K}: the app's blobs) on "
+          f"{APP_STREAM_N} of its {STREAM_N} rows took "
+          f"{time.perf_counter() - t_cut:.1f} s (streamed and resident "
+          f"inertia {st['inertia_streamed']!r} / "
+          f"{st['inertia_resident']!r}) [{card}]")
+    return n_cold
+
+
 def profile_epoch(model, card: str, app: str = "MFSGD",
                   what: str = "train_epoch", bare: float | None = None,
                   count: tuple[dict, str, str] | None = None) -> None:
@@ -4762,7 +4944,17 @@ def main() -> int:
     analysis_phase(dev, card)
     print(f"phase analysis: {time.perf_counter() - t0:.1f} s [{card}]")
 
-    # -- 47. result ----------------------------------------------------------
+    # -- 47. the reference's surface ----------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        rows["cgs_entry_update"]["surface_launches"] = surface_phase(
+            dev, card, tmp)
+        print(f"phase surface: {time.perf_counter() - t0:.1f} s [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 48. result ----------------------------------------------------------
     from harp_tpu_torch.ops.kernel_registry import KERNEL_INFO
 
     src = {i["counter"]: (i["source"], i["replaces"])

@@ -25,8 +25,8 @@ the reference's frozen vocabularies (:data:`DETECTORS`,
   a recovery below the threshold re-arms it.
 
 A new finding is a ``health`` mark on an open superstep timeline
-(``steptrace``).  Not ported yet: the evidence grader (``health/grade.py``)
-rides ``perfmodel`` (ROADMAP.md, Queue 1, item 9).
+(``steptrace``).  The evidence grader is :mod:`harp_tpu_torch.health.grade`,
+over ``perfmodel``.
 
 Every observe entry returns before it touches state while telemetry is
 off, and none touches a tensor.

@@ -62,13 +62,20 @@ dispatch (``lda.epoch`` on the flight recorder) ending in one readback,
 which carries the per-worker token counts to the skew ledger; with
 telemetry on, loading a corpus records the partition's per-worker tokens.
 
-Not ported yet (ROADMAP.md, Queue 1, item 4): ``benchmark(pack_cache=...)``;
-it raises ``NotImplementedError``.
+``benchmark(pack_cache=DIR)`` keeps the host pack of its corpus as a
+``.npz`` under ``DIR``, keyed and laid out as the reference's
+(:func:`_pack_cache_path`, :func:`_save_pack`), so a pack either package
+wrote serves the other; a hit installs it and skips :meth:`LDA.
+pack_tokens`.  On several workers every one builds or loads the same
+global pack and only rank 0 writes it, atomically.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
+import re
 import time
 from typing import Callable
 
@@ -87,13 +94,15 @@ from harp_tpu_torch.parallel.rotate import (ROTATE_WIRES, resident_chunk_index,
                                            rotate_pipeline)
 from harp_tpu_torch.utils import flightrec, skew, telemetry
 
-_ITEM = "not ported yet (ROADMAP.md, Queue 1, item {})"
-
 #: algos that consume the dense (d_tile × w_tile) entry layout
 _TILED_ALGOS = ("dense", "pallas")
 
 #: pallas prep: entry width is padded to a multiple of this
 _PALLAS_C = 256
+
+#: the pack cache's format version, the reference's: a pack file of
+#: another version has another key, so it is never installed
+_PACK_VERSION = 1
 
 
 @dataclasses.dataclass
@@ -838,6 +847,70 @@ def _make_cfg(n_topics, algo="dense", chunk=None, d_tile=None, w_tile=None,
     }))
 
 
+def _load_pack(path: str) -> dict:
+    """A cached :meth:`LDA.pack_tokens` npz back into a pack dict (numpy,
+    each array with the dtype it was written with)."""
+    with np.load(path) as z:
+        nt = len([k for k in z.files if k.startswith("tok")])
+        return {"tokens": tuple(z[f"tok{i}"] for i in range(nt)),
+                "z_grid": z["z_grid"], "Ndk": z["Ndk"],
+                "Nwk": z["Nwk"], "Nk": z["Nk"],
+                "n_tokens": int(z["n_tokens"])}
+
+
+def _save_pack(path: str, pack: dict) -> None:
+    """Write a pack dict as the reference's npz: to a per-process
+    ``<path>.<pid>.tmp`` first, then an atomic rename, so a reader finds
+    no file or a whole one.  Tmp siblings of writers that are gone (the
+    reference's constant-name ones always, the pid-named ones whose
+    process no longer exists) are removed first."""
+    for stale in (path + ".tmp", path + ".tmp.npz"):
+        try:
+            os.unlink(stale)
+        except OSError:
+            pass
+    for stale in glob.glob(glob.escape(path) + ".*.tmp*"):
+        m = re.search(r"\.(\d+)\.tmp", stale)
+        try:
+            if m and int(m.group(1)) != os.getpid():
+                os.kill(int(m.group(1)), 0)  # raises if the writer is gone
+        except ProcessLookupError:
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+        except OSError:
+            pass  # cannot signal it: taken as live, left alone
+    tmp_path = f"{path}.{os.getpid()}.tmp"
+    np.savez(tmp_path, z_grid=pack["z_grid"], Ndk=pack["Ndk"],
+             Nwk=pack["Nwk"], Nk=pack["Nk"], n_tokens=pack["n_tokens"],
+             **{f"tok{i}": a for i, a in enumerate(pack["tokens"])})
+    # np.savez appends .npz to a name without it
+    os.replace(tmp_path if os.path.exists(tmp_path) else tmp_path + ".npz",
+               path)
+
+
+def _pack_cache_path(pack_cache, cfg: LDAConfig, num_workers, n_docs,
+                     vocab_size, n_topics, tokens_per_doc, seed) -> str:
+    """The cache file of a :func:`benchmark` corpus pack, the reference's
+    key: a hash of ``repr`` of the layout's knobs only (the exact algo,
+    the tiles, the entry cap, the chunk, ``ndk_dtype``; the rotation
+    chunk count when it is not 2), the corpus arguments, the worker count
+    and :data:`_PACK_VERSION`.  The sampler, the generator and the carry
+    knob do not enter it.  Creates ``pack_cache``."""
+    import hashlib
+
+    layout = (cfg.algo, cfg.algo == "pallas", cfg.d_tile, cfg.w_tile,
+              cfg.entry_cap, cfg.chunk, cfg.ndk_dtype)
+    if rotate_chunks_resolved(cfg) != 2:
+        layout += (rotate_chunks_resolved(cfg),)
+    sig = repr((_PACK_VERSION, n_docs, vocab_size, n_topics,
+                tokens_per_doc, seed, num_workers, layout))
+    key = hashlib.sha1(sig.encode()).hexdigest()[:16]
+    os.makedirs(pack_cache, exist_ok=True)
+    return os.path.join(pack_cache, f"lda_pack_{key}.npz")
+
+
 def benchmark(n_docs=100_000, vocab_size=50_000, n_topics=1000,
               tokens_per_doc=100, epochs=2, mesh=None, chunk=None, seed=0,
               algo="dense", d_tile=None, w_tile=None, entry_cap=None,
@@ -849,10 +922,11 @@ def benchmark(n_docs=100_000, vocab_size=50_000, n_topics=1000,
     config #3).  Host prep (corpus, pack, device tables) is ``prep_sec``;
     one untimed sweep runs first; the timed window is
     ``sample_epochs(epochs)``, ending in its readback.  pushpull adds
-    ``dropped_tokens``, the timed sweeps' ``last_dropped``."""
-    if pack_cache is not None:
-        raise NotImplementedError("benchmark(pack_cache=...) is not ported "
-                                  "yet (ROADMAP.md, Queue 1, item 4)")
+    ``dropped_tokens``, the timed sweeps' ``last_dropped``.
+
+    ``pack_cache``: a directory of cached packs (module docstring).  A hit
+    loads the pack and skips :meth:`LDA.pack_tokens`, so ``prep_sec``
+    times the load; a miss packs, and rank 0 writes the file."""
     mesh = resolve_mesh(mesh, device)
     cfg = _make_cfg(n_topics, algo, chunk, d_tile, w_tile, entry_cap,
                     pull_cap, ndk_dtype, dedup_pulls, sampler, rng_impl,
@@ -862,7 +936,16 @@ def benchmark(n_docs=100_000, vocab_size=50_000, n_topics=1000,
     n_tok = n_docs * tokens_per_doc
     d_ids, w_ids = benchmark_corpus(n_docs, vocab_size, tokens_per_doc, seed)
     t0 = time.perf_counter()
-    model.set_tokens(d_ids, w_ids)
+    pack_path = (None if pack_cache is None else _pack_cache_path(
+        pack_cache, cfg, mesh.num_workers, n_docs, vocab_size, n_topics,
+        tokens_per_doc, seed))
+    if pack_path is not None and os.path.exists(pack_path):
+        model._install_pack(_load_pack(pack_path))
+    else:
+        pack = model.pack_tokens(d_ids, w_ids)
+        model._install_pack(pack)
+        if pack_path is not None and mesh.rank == 0:
+            _save_pack(pack_path, pack)
     prep = time.perf_counter() - t0
     model.sample_epoch()
     t0 = time.perf_counter()

@@ -37,8 +37,14 @@ is one dispatch (``mfsgd.epochs``) and one readback for all its epochs.
 With telemetry on, ``set_ratings`` records the partition's per-worker
 ratings.
 
-Not ported yet (ROADMAP.md, Queue 1, item 4): ``carry_w`` (a lever of the
-reference's XLA path); it raises ``NotImplementedError``.
+``carry_w`` (dense only, validated as in the reference): the reference
+carries a W tile across its run of entries instead of slicing and
+updating it per entry, a device of its slice-and-update-slice XLA path.
+Here K3's plain version updates W and H in place through views of the tile
+rows (:func:`harp_tpu_torch.ops.mfsgd_kernel.entries_update_plain`), so
+carry and non-carry run the same code and give the same chain, as the
+reference pins for its own two paths; the port's LDA ``carry_db`` is the
+same.
 """
 
 from __future__ import annotations
@@ -56,8 +62,6 @@ from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
 from harp_tpu_torch.parallel.rotate import (ROTATE_WIRES, resident_chunk_index,
                                            rotate_pipeline)
 from harp_tpu_torch.utils import flightrec, skew, telemetry
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item {})"
 
 
 @dataclasses.dataclass
@@ -77,7 +81,8 @@ class MFSGDConfig:
     compute_dtype: Any = torch.bfloat16
     # scatter: minibatch size inside a block (clamped to the block width)
     chunk: int = 32768
-    # a lever of the reference's XLA dense path; not ported
+    # dense: the reference's W-tile carry; the port's chain does not depend
+    # on it (module docstring)
     carry_w: bool = False
     # H chunks per worker in the rotation pipeline; None = 2
     rotate_chunks: int | None = None
@@ -93,8 +98,6 @@ class MFSGDConfig:
                 "carry_w applies to algo='dense' only (the pallas kernel "
                 "already keeps W resident across its block runs; scatter "
                 "has no tile slicing to amortize)")
-        if self.carry_w:
-            raise NotImplementedError("carry_w is " + _NOT_PORTED.format(4))
         if self.rotate_chunks is not None and self.rotate_chunks < 1:
             raise ValueError(
                 f"rotate_chunks must be >= 1, got {self.rotate_chunks}")
@@ -271,6 +274,20 @@ def _block_update(W, H, block, cfg: MFSGDConfig):
     return W, H, se, cnt
 
 
+def _tile_block_update(W, H, block, cfg: MFSGDConfig,
+                       schedule: K3.LevelSchedule | None = None):
+    """The dense and pallas algos: the tile entries ``block = (eu, ei, ev,
+    ou, oi)`` of one block → ``(W', H', se, cnt)``, through K3 (pallas) or
+    its plain version (dense), in ``schedule``'s order (built here when
+    None).  ``cfg.carry_w`` takes no part: both chains are this one
+    (module docstring)."""
+    fn = (K3.sgd_tile_update if cfg.algo == "pallas"
+          else K3.sgd_tile_update_plain)
+    ut, it = tiles(cfg)
+    return fn(W, H, *block, lr=cfg.lr, reg=cfg.reg, u_tile=ut, i_tile=it,
+              compute_dtype=cfg.compute_dtype, schedule=schedule)
+
+
 class MFSGD:
     """Host driver (the ``mapCollective`` residue of ``edu.iu.sgd``).
 
@@ -361,12 +378,7 @@ class MFSGD:
         block = tuple(a[s] for a in self._blocks)
         if cfg.algo == "scatter":
             return _block_update(W, H, block, cfg)
-        fn = (K3.sgd_tile_update if cfg.algo == "pallas"
-              else K3.sgd_tile_update_plain)
-        ut, it = tiles(cfg)
-        return fn(W, H, *block, lr=cfg.lr, reg=cfg.reg, u_tile=ut,
-                  i_tile=it, compute_dtype=cfg.compute_dtype,
-                  schedule=self._schedules[s])
+        return _tile_block_update(W, H, block, cfg, self._schedules[s])
 
     def _epoch(self, W, H):
         """One rotation epoch: every rating visited once.  Returns
@@ -518,12 +530,14 @@ def algo_kwargs(algo: str, groups: dict) -> dict:
 def _make_config(rank: int, chunk: int | None, algo: str = "dense",
                  u_tile: int | None = None, i_tile: int | None = None,
                  entry_cap: int | None = None,
+                 carry_w: bool | None = None,
                  rotate_chunks: int | None = None,
                  rotate_wire: str | None = None) -> MFSGDConfig:
     return MFSGDConfig(rank=rank, **algo_kwargs(algo, {
         "scatter": {"chunk": chunk},
         _DENSE_ALGOS: {"u_tile": u_tile, "i_tile": i_tile,
                        "entry_cap": entry_cap},
+        "dense": {"carry_w": carry_w},
         ("dense", "scatter", "pallas"): {"rotate_chunks": rotate_chunks,
                                          "rotate_wire": rotate_wire},
     }))
@@ -531,8 +545,8 @@ def _make_config(rank: int, chunk: int | None, algo: str = "dense",
 
 def benchmark(n_users=138_493, n_items=26_744, nnz=20_000_000, rank=64,
               epochs=3, mesh=None, seed=0, chunk=None, algo="dense",
-              u_tile=None, i_tile=None, entry_cap=None, rotate_chunks=None,
-              rotate_wire=None, device=None):
+              u_tile=None, i_tile=None, entry_cap=None, carry_w=None,
+              rotate_chunks=None, rotate_wire=None, device=None):
     """Updates/sec per card on MovieLens-20M shapes (the system's second
     metric).  One update is one rating visit.  Host prep (synthetic
     ratings are made with numpy from ``seed``; partition and schedule) is
@@ -540,7 +554,7 @@ def benchmark(n_users=138_493, n_items=26_744, nnz=20_000_000, rank=64,
     timed window is ``train_epochs(epochs)``, ending in its readback."""
     mesh = resolve_mesh(mesh, device)
     cfg = _make_config(rank, chunk, algo, u_tile, i_tile, entry_cap,
-                       rotate_chunks, rotate_wire)
+                       carry_w, rotate_chunks, rotate_wire)
     model = MFSGD(n_users, n_items, cfg, mesh, seed)
     u, i, v = synthetic_ratings(n_users, n_items, nnz, seed=seed)
     t0 = time.perf_counter()

@@ -33,8 +33,8 @@ from harp_tpu_torch.models import lda as L
 from harp_tpu_torch.ops import lda_kernel as K4
 from harp_tpu_torch.parallel.mesh import WorkerMesh
 from harp_tpu_torch.utils import telemetry
-from torch_world import (LDA_CASES, LDA_SHAPE, WORLD, lda_corpus,
-                         run_lda_cases, run_world)
+from torch_world import (LDA_CASES, LDA_PACK_BENCH, LDA_SHAPE, WORLD,
+                         lda_corpus, run_lda_cases, run_world)
 
 S = LDA_SHAPE
 STATE = ("Ndk", "Nwk", "Nk", "z_grid")
@@ -229,7 +229,13 @@ def test_chunk_width_shrinks_with_hot_counts(jmesh1):
 # ---- four workers -----------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory, jmesh4, corpus):
+def pack_dir(tmp_path_factory):
+    """The pack cache the four workers share."""
+    return tmp_path_factory.mktemp("lda_packs")
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory, jmesh4, corpus, pack_dir):
     d, w = corpus
     noises, refs = {}, {}
     for cid, kw in LDA_CASES:
@@ -240,7 +246,7 @@ def world(tmp_path_factory, jmesh4, corpus):
                                       _steps(cfg, WORLD), S["seed"])
         refs[cid] = (ref, _state(ref), _readers(ref))
     res = run_world(run_lda_cases, tmp_path_factory.mktemp("lda"), noises,
-                    timeout=240.0)
+                    str(pack_dir), timeout=240.0)
     return res, refs
 
 
@@ -423,9 +429,8 @@ def dataclass_defaults(cls):
                                   "--input", "--elastic",
                                   "--max-worker-loss"])
 def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
-    """pack_cache still raises naming its ROADMAP item; the checkpoint,
-    input and elastic options are ported, and each case checks its ported
-    behaviour instead."""
+    """pack_cache, the checkpoint, input and elastic options are ported,
+    and each case checks its ported behaviour instead of a raise."""
     if what == "fit-ckpt":
         a, b = _small(), _small()
         a.fit(2)
@@ -455,9 +460,156 @@ def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
                        "--w-tile", "8", "--entry-cap", "16", "--device",
                        "cpu"]) == 0
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*item"):
-        L.benchmark(n_docs=8, vocab_size=8, n_topics=2,
-                    tokens_per_doc=2, pack_cache="x", device="cpu")
+    # pack_cache: ported; a miss writes the reference's file, a hit reads
+    # it and gives the same chain
+    kw = dict(n_docs=8, vocab_size=8, n_topics=2, tokens_per_doc=2,
+              device="cpu", pack_cache=str(tmp_path / "packs"))
+    a, b = L.benchmark(**kw), L.benchmark(**kw)
+    assert a["log_likelihood"] == b["log_likelihood"]
+    assert [p.suffix for p in (tmp_path / "packs").iterdir()] == [".npz"]
+
+
+# ---- benchmark(pack_cache=...) ----------------------------------------------
+
+#: the reference's key cases (tests/test_lda.py), and the rotation chunks
+#: and push/pull layouts: (algo, knobs)
+PACK_KEY_CASES = [("dense", {}), ("dense", {"sampler": "exprace"}),
+                  ("dense", {"sampler": "exprace", "rng_impl": "rbg"}),
+                  ("dense", {"carry_db": True}), ("pallas", {}),
+                  ("scatter", {}), ("dense", {"ndk_dtype": "int16"}),
+                  ("dense", {"entry_cap": 1024}),
+                  ("pallas", {"rotate_chunks": 4}),
+                  ("pallas", {"rotate_chunks": 2}),
+                  ("pushpull", {"chunk": 4096}), ("scatter", {"chunk": 64})]
+
+
+def _pack_path(lib, tmp_path, algo, kw, workers=1):
+    cfg = lib._make_cfg(1000, algo, **kw)
+    return lib._pack_cache_path(str(tmp_path), cfg, workers, 1000, 50_000,
+                                1000, 100, seed=0)
+
+
+def test_pack_cache_key_matches_reference(tmp_path):
+    """The port's key is the reference's for every case, so a pack either
+    package wrote serves the other; the non-layout knobs share a key, the
+    layout's do not (the reference's own test's relations)."""
+    keys = {}
+    for algo, kw in PACK_KEY_CASES:
+        port = _pack_path(L, tmp_path, algo, dict(kw))
+        assert port == _pack_path(JL, tmp_path, algo, dict(kw))
+        keys[(algo, tuple(sorted(kw.items())))] = port
+    assert _pack_path(L, tmp_path, "dense", {}, 4) == \
+        _pack_path(JL, tmp_path, "dense", {}, 4) != keys[("dense", ())]
+    base = keys[("dense", ())]
+    assert base == keys[("dense", (("sampler", "exprace"),))] == \
+        keys[("dense", (("rng_impl", "rbg"), ("sampler", "exprace")))] == \
+        keys[("dense", (("carry_db", True),))]
+    for layout in (("pallas", ()), ("scatter", ()),
+                   ("dense", (("ndk_dtype", "int16"),)),
+                   ("dense", (("entry_cap", 1024),))):
+        assert keys[layout] != base, layout
+    assert keys[("pallas", (("rotate_chunks", 2),))] == keys[("pallas", ())]
+    assert keys[("pallas", (("rotate_chunks", 4),))] != keys[("pallas", ())]
+
+
+def test_benchmark_pack_cache_roundtrip(tmp_path):
+    """The reference's round trip on the port: the second run installs the
+    cached pack (one file, shared by sampler variants of one tiling) and
+    gives the same chain; another tiling gets its own file; no tmp file
+    is left."""
+    kw = dict(n_docs=128, vocab_size=64, n_topics=8, tokens_per_doc=8,
+              epochs=1, d_tile=16, w_tile=16, entry_cap=64, device="cpu",
+              pack_cache=str(tmp_path))
+    r1 = L.benchmark(**kw)
+    assert len(list(tmp_path.iterdir())) == 1
+    r2 = L.benchmark(**kw)  # a hit
+    assert r1["log_likelihood"] == r2["log_likelihood"]
+    L.benchmark(sampler="exprace", **kw)
+    assert len(list(tmp_path.iterdir())) == 1
+    L.benchmark(**{**kw, "entry_cap": 32})
+    assert len(list(tmp_path.iterdir())) == 2
+    assert not [p for p in tmp_path.iterdir() if ".tmp" in p.name]
+
+
+@pytest.mark.parametrize("ndk_dtype", ["float32", "int16"])
+def test_a_pack_either_package_wrote_serves_the_other(tmp_path, monkeypatch,
+                                                      ndk_dtype):
+    """The reference's ``_save_pack`` of its own pack, read by the port's
+    ``benchmark``, gives the chain the port's own pack gives, bit for bit,
+    without packing; the port's file reads back through the reference's
+    ``_load_pack`` as the reference's pack, dtypes included (int16 Ndk)."""
+    kw = dict(LDA_PACK_BENCH, ndk_dtype=ndk_dtype)
+    own = L.benchmark(**kw, device="cpu")
+    cfg = JL._make_cfg(kw["n_topics"], kw["algo"], d_tile=16, w_tile=16,
+                       entry_cap=64, ndk_dtype=ndk_dtype)
+    ref = JL.LDA(kw["n_docs"], kw["vocab_size"], cfg,
+                 JaxMesh(jax.devices()[:1]), 0)
+    d, w = JL.benchmark_corpus(kw["n_docs"], kw["vocab_size"],
+                               kw["tokens_per_doc"], 0)
+    ref_pack = ref.pack_tokens(d, w)
+    args = (1, kw["n_docs"], kw["vocab_size"], kw["n_topics"],
+            kw["tokens_per_doc"], 0)
+    path = JL._pack_cache_path(str(tmp_path / "ref"), cfg, *args)
+    JL._save_pack(path, ref_pack)
+    with monkeypatch.context() as mp:
+        mp.setattr(L.LDA, "pack_tokens", lambda *a, **k: pytest.fail(
+            "a cache hit must not pack"))
+        hit = L.benchmark(**kw, device="cpu",
+                          pack_cache=str(tmp_path / "ref"))
+    assert hit["log_likelihood"] == own["log_likelihood"]
+    L.benchmark(**kw, device="cpu", pack_cache=str(tmp_path / "port"))
+    port_path = L._pack_cache_path(
+        str(tmp_path / "port"), L._make_cfg(kw["n_topics"], kw["algo"],
+                                            d_tile=16, w_tile=16,
+                                            entry_cap=64,
+                                            ndk_dtype=ndk_dtype), *args)
+    assert port_path.rsplit("/", 1)[1] == path.rsplit("/", 1)[1]
+    back = JL._load_pack(port_path)
+    assert back["n_tokens"] == ref_pack["n_tokens"]
+    for k in ("z_grid", "Ndk", "Nwk", "Nk"):
+        np.testing.assert_array_equal(back[k], ref_pack[k])
+        assert back[k].dtype == np.asarray(ref_pack[k]).dtype, k
+    assert back["Ndk"].dtype == np.dtype(ndk_dtype)
+    for a, b in zip(back["tokens"], ref_pack["tokens"]):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == np.asarray(b).dtype
+    rt = L._load_pack(port_path)  # and through the port's own reader
+    assert rt["Ndk"].dtype == np.dtype(ndk_dtype)
+
+
+def test_save_pack_sweeps_dead_writers_only(tmp_path):
+    """A dead writer's tmp file and the reference's constant-name ones are
+    swept, a live writer's is left; the write is one rename."""
+    import os
+
+    pack = L.LDA(16, 8, L.LDAConfig(n_topics=2, d_tile=8, w_tile=8,
+                                    entry_cap=8), device="cpu").pack_tokens(
+        np.arange(16, dtype=np.int32) % 16, np.arange(16, dtype=np.int32) % 8)
+    path = str(tmp_path / "lda_pack_x.npz")
+    dead = subprocess.run([sys.executable, "-c", "import os; "
+                           "print(os.getpid())"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    for name in (f"{path}.{dead}.tmp.npz", f"{path}.tmp", f"{path}.tmp.npz",
+                 f"{path}.1.tmp"):  # pid 1 lives
+        open(name, "w").close()
+    L._save_pack(path, pack)
+    left = sorted(p.name for p in tmp_path.iterdir())
+    assert left == ["lda_pack_x.npz", "lda_pack_x.npz.1.tmp"]
+    assert os.path.getsize(path) > 0
+    assert L._load_pack(path)["n_tokens"] == pack["n_tokens"]
+
+
+def test_four_workers_share_one_pack(world, pack_dir):
+    """On four gloo workers every rank builds or loads the same global
+    pack, rank 0 alone writes it: one file, no tmp file, the warm run a
+    hit on every rank, and every rank's chain the same cold and warm."""
+    res, _ = world
+    assert [p.suffix for p in pack_dir.iterdir()] == [".npz"]
+    cold = {r["pack-cold"][0] for r in res}
+    warm = {r["pack-warm"][0] for r in res}
+    assert len(cold) == 1 and cold == warm
+    assert res[0]["pack-cold"][1] == 1  # rank 0 packed, then wrote
+    assert all(r["pack-warm"][1] == 0 for r in res)
 
 
 def test_state_checks_and_convert():

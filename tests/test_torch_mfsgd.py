@@ -230,9 +230,8 @@ def test_config_validation_matches_reference():
                                   "--ckpt-dir", "--resume", "--input",
                                   "--elastic", "--max-worker-loss"])
 def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
-    """carry_w still raises naming its ROADMAP item; the checkpoint, input
-    and elastic options are ported, and each case checks its ported
-    behaviour instead."""
+    """carry_w, the checkpoint, input and elastic options are ported, and
+    each case checks its ported behaviour instead of a raise."""
     if what == "fit-ckpt":
         (a, _), (b, _) = _small_model(), _small_model()
         assert a.fit(2) == b.fit(2, str(tmp_path / "c"))
@@ -260,8 +259,112 @@ def test_unported_options_raise_naming_the_roadmap(what, tmp_path):
                         "--u-tile", "16", "--i-tile", "16", "--device",
                         "cpu"]) == 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MF.MFSGDConfig(algo="dense", carry_w=True)
+    # carry_w: ported; the config, _make_config and benchmark take it and
+    # train the plain chain
+    assert MF.MFSGDConfig(algo="dense", carry_w=True).carry_w
+    assert MF._make_config(8, None, "dense", carry_w=True).carry_w
+    kw = dict(n_users=300, n_items=200, nnz=4000, rank=8, epochs=2,
+              algo="dense", u_tile=16, i_tile=16, entry_cap=32,
+              device="cpu")
+    on, off = MF.benchmark(carry_w=True, **kw), MF.benchmark(**kw)
+    assert (on["rmse_first_epoch"], on["rmse_final"]) == \
+        (off["rmse_first_epoch"], off["rmse_final"])
+
+
+def _carry_pair(carry_w: bool, n_users=130, n_items=90):
+    cfg = MF.MFSGDConfig(rank=4, algo="dense", u_tile=8, i_tile=8,
+                         entry_cap=16, compute_dtype=torch.float32,
+                         lr=0.02, reg=0.01, carry_w=carry_w)
+    m = MF.MFSGD(n_users, n_items, cfg, device="cpu", seed=3)
+    u, i, v = MF.synthetic_ratings(n_users, n_items, 3000, rank=4,
+                                   noise=0.05, seed=3)
+    m.set_ratings(u, i, v)
+    return m.train_epochs(3), m.W.numpy(), m.H.numpy()
+
+
+@pytest.mark.parametrize("n", [1, WORLD])
+def test_carry_w_chain_is_the_plain_chain(world, n):
+    """carry_w on and off train one chain, bit for bit (the reference pins
+    the same for its two paths, tests/test_mfsgd.py); the reference's
+    carry chain itself is the "dense-carry_w" case above."""
+    if n == 1:
+        on, off = _carry_pair(True), _carry_pair(False)
+        assert on[0] == off[0]
+        for a, b in zip(on[1:], off[1:]):
+            np.testing.assert_array_equal(a, b)
+        return
+    for w in world:
+        on, off = w["dense-carry_w"], w["dense"]
+        assert on["rmse"] == off["rmse"]
+        for k in ("W2", "H2", "W", "H"):
+            np.testing.assert_array_equal(on[k], off[k])
+
+
+def test_carry_w_exact_for_overlapping_tile_offsets():
+    """The reference's overlapping-offset case (tests/test_mfsgd.py: u-runs
+    at offsets 0 -> 4 -> 0 over 8-row tiles): the port's block update, on
+    a schedule that runs the entries one after another in entry order as
+    the reference's scan does, is the same with carry_w on and off, bit
+    for bit, and within the dense tolerance of the reference's carry and
+    non-carry chains.  The level schedule's builder refuses such
+    offsets."""
+    rng = np.random.default_rng(11)
+    UR = IR = 8
+    cap = 4
+    W0 = rng.normal(size=(24, 3)).astype(np.float32)
+    H0 = rng.normal(size=(16, 3)).astype(np.float32)
+    ou = np.array([0, 0, 4, 4, 0], np.int32)
+    oi = np.array([0, 8, 0, 8, 0], np.int32)
+    eu = rng.integers(0, UR, (5, cap)).astype(np.int32)
+    ei = rng.integers(0, IR, (5, cap)).astype(np.int32)
+    ev = rng.normal(size=(5, cap)).astype(np.float32)
+    with pytest.raises(ValueError, match="not multiples"):
+        K.LevelSchedule.build(eu, ei, ou, oi, UR, IR, 24, 16, "cpu")
+    # the reference's scan: each entry a level of its own, in entry order
+    sort, n_real = K.entry_sorts(eu, ei, UR, IR)
+    prev = np.arange(-1, 4, dtype=np.int32)
+    sched = K.LevelSchedule(torch.arange(5, dtype=torch.int32),
+                            np.arange(6, dtype=np.int32),
+                            torch.from_numpy(np.stack([prev, prev], 1)),
+                            torch.from_numpy(sort), torch.from_numpy(n_real))
+    assert sched.n_levels == 5 and sched.max_width == 1
+    got, ref = {}, {}
+    for carry in (False, True):
+        kw = dict(rank=3, algo="dense", u_tile=UR, i_tile=IR,
+                  entry_cap=cap, lr=0.05, reg=0.01, carry_w=carry)
+        cfg = MF.MFSGDConfig(compute_dtype=torch.float32, **kw)
+        block = tuple(torch.from_numpy(a) for a in (eu, ei, ev, ou, oi))
+        got[carry] = [np.asarray(x) for x in MF._tile_block_update(
+            torch.from_numpy(W0), torch.from_numpy(H0), block, cfg, sched)]
+        jcfg = JMF.MFSGDConfig(compute_dtype=jnp.float32, **kw)
+        ref[carry] = [np.asarray(x) for x in jax.jit(
+            lambda W, H, b, c=jcfg: JMF._tile_block_update(W, H, b, c))(
+            jnp.asarray(W0), jnp.asarray(H0),
+            tuple(jnp.asarray(a) for a in (eu, ei, ev, ou, oi)))]
+    for a, b in zip(got[True], got[False]):
+        np.testing.assert_array_equal(a, b)
+    for carry in (False, True):
+        _close(got[carry][0], ref[carry][0])
+        _close(got[carry][1], ref[carry][1])
+        np.testing.assert_allclose(got[carry][2], ref[carry][2], rtol=1e-5)
+        assert got[carry][3] == ref[carry][3] == 5 * cap
+
+
+def test_carry_w_rejections_keep_the_reference_text():
+    for algo in ("scatter", "pallas"):
+        with pytest.raises(ValueError) as a:
+            MF.MFSGDConfig(algo=algo, carry_w=True)
+        with pytest.raises(ValueError) as b:
+            JMF.MFSGDConfig(algo=algo, carry_w=True)
+        assert str(a.value) == str(b.value)
+        with pytest.raises(ValueError) as a:
+            MF._make_config(8, None, algo, carry_w=True)
+        with pytest.raises(ValueError) as b:
+            JMF._make_config(8, None, algo, carry_w=True)
+        assert str(a.value) == str(b.value) and "dense-only" in str(a.value)
+        with pytest.raises(ValueError, match="dense-only"):
+            MF.benchmark(n_users=16, n_items=8, nnz=32, rank=4, algo=algo,
+                         carry_w=True, device="cpu")
 
 
 def test_fit_and_state_checks():

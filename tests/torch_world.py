@@ -312,6 +312,8 @@ MFSGD_CASES = [
     ("pallas", {"algo": "pallas", "u_tile": 8, "i_tile": 8,
                 "entry_cap": 16}),
     ("dense", {"algo": "dense", "u_tile": 8, "i_tile": 8, "entry_cap": 16}),
+    ("dense-carry_w", {"algo": "dense", "u_tile": 8, "i_tile": 8,
+                       "entry_cap": 16, "carry_w": True}),
     ("scatter", {"algo": "scatter", "chunk": 64}),
     ("scatter-chunks4-int8", {"algo": "scatter", "chunk": 64,
                               "rotate_chunks": 4, "rotate_wire": "int8"}),
@@ -403,10 +405,20 @@ def lda_corpus(ragged: bool = False):
     return d[keep], w[keep]
 
 
-def run_lda_cases(rank: int, world: int, noises: dict) -> dict:
+#: ``lda.benchmark``'s arguments for the pack-cache runs
+LDA_PACK_BENCH = dict(n_docs=128, vocab_size=64, n_topics=8,
+                      tokens_per_doc=8, epochs=1, d_tile=16, w_tile=16,
+                      entry_cap=64, algo="pallas")
+
+
+def run_lda_cases(rank: int, world: int, noises: dict,
+                  pack_dir: str | None = None) -> dict:
     """Every LDA case on this worker: one ``sample_epoch`` under the
     injected draws ``noises[case][rank][t]``, then the tables and the
-    ledger of a second epoch on the generator."""
+    ledger of a second epoch on the generator.  With ``pack_dir`` (shared
+    by the workers), also ``benchmark(pack_cache=pack_dir)`` cold then
+    warm: each run's log-likelihood and the ``pack_tokens`` calls it
+    made."""
     import torch
 
     from harp_tpu_torch.models import lda as L
@@ -432,6 +444,23 @@ def run_lda_cases(rank: int, world: int, noises: dict) -> dict:
             m.sample_epoch()
             res["ledger"] = telemetry.ledger.summary()["lda.epochs"]
         out[cid] = res
+    if pack_dir is not None:
+        packs = []
+        orig = L.LDA.pack_tokens
+
+        def counted(self, *a, **k):
+            packs.append(1)
+            return orig(self, *a, **k)
+
+        L.LDA.pack_tokens = counted
+        try:
+            for run in ("cold", "warm"):
+                n0 = len(packs)
+                r = L.benchmark(**LDA_PACK_BENCH, device="cpu",
+                                pack_cache=pack_dir)
+                out[f"pack-{run}"] = (r["log_likelihood"], len(packs) - n0)
+        finally:
+            L.LDA.pack_tokens = orig
     return out
 
 
