@@ -196,9 +196,10 @@ def epoch_operands(centroids, quantize=None, col_scale=None) -> tuple:
     epoch, taken once an epoch: ``(c_q, c_scale, c2, col_scale)`` for
     int8 (the centroids requantized, as K1 takes them), else
     ``(centroids, c2)``."""
-    if quantize == "int8":
-        return (*_quantize_centroids(centroids, col_scale), col_scale)
-    return centroids, (centroids.to(torch.float32) ** 2).sum(-1)
+    with telemetry.span("kmeans.operands"):
+        if quantize == "int8":
+            return (*_quantize_centroids(centroids, col_scale), col_scale)
+        return centroids, (centroids.to(torch.float32) ** 2).sum(-1)
 
 
 def chunk_partials(points, operands, quantize=None):
@@ -214,11 +215,15 @@ def chunk_partials(points, operands, quantize=None):
                 torch.zeros((), device=points.device))
     if quantize == "int8":
         c_q, c_scale, c2, col_scale = operands
-        sums, counts, best_sum = kmeans_kernel.kmeans_partials_int8(
-            points, c_q, c_scale, c2, col_scale)
-        return sums, counts, best_sum + _hoisted_x2((points, col_scale))
+        with telemetry.span("kmeans.partials"):
+            sums, counts, best_sum = kmeans_kernel.kmeans_partials_int8(
+                points, c_q, c_scale, c2, col_scale)
+        with telemetry.span("kmeans.x2"):
+            x2 = _hoisted_x2((points, col_scale))
+        return sums, counts, best_sum + x2
     centroids, c2 = operands
-    return _partials_block(points, centroids, c2)
+    with telemetry.span("kmeans.partials"):
+        return _partials_block(points, centroids, c2)
 
 
 def kmeans_step(points, centroids, cfg: KMeansConfig, x2=None):

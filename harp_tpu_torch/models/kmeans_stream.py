@@ -371,8 +371,9 @@ def _stream_train(mesh, cfg, pipe, n_chunks, centroids, iters,
                 sums += s
                 counts += c
                 inertia += i
-        s, c, ep_inertia = C.allreduce((sums, counts, inertia))
-        centroids = _normalize_centroids(s, c, centroids)
+        with telemetry.span("kmeans.reduce"):
+            s, c, ep_inertia = C.allreduce((sums, counts, inertia))
+            centroids = _normalize_centroids(s, c, centroids)
         history.append(ep_inertia)
         if instrument is not None:  # one sync an epoch (docstring)
             t = time.perf_counter()
@@ -649,13 +650,15 @@ def _synthetic_run(centroids, n_iters, gen, n_chunks, cfg, col_scale):
         for j in range(n_chunks):
             x = gen(j)
             if cfg.quantize == "int8":
-                x = _quantize_rows(x, col_scale)
+                with telemetry.span("kmeans_stream.quantize"):
+                    x = _quantize_rows(x, col_scale)
             s, c, i = chunk_partials(x, ops, cfg.quantize)
             sums += s
             counts += c
             part += i
-        s, c, inertia = C.allreduce((sums, counts, part))
-        centroids = _normalize_centroids(s, c, centroids)
+        with telemetry.span("kmeans.reduce"):
+            s, c, inertia = C.allreduce((sums, counts, part))
+            centroids = _normalize_centroids(s, c, centroids)
     return centroids, inertia
 
 

@@ -339,38 +339,48 @@ class MFSGD:
     def set_ratings(self, users, items, vals):
         """Partition the global rating triples (every worker passes the
         same ones) and keep this worker's blocks on its device; for the
-        dense algos, also each block's K3 level schedule."""
-        n = self.mesh.num_workers
-        nc = rotate_chunks_resolved(self.cfg)
-        ns = self._n_slices
-        if self.cfg.algo in _DENSE_ALGOS:
-            ut, it = tiles(self.cfg)
-            eu, ei, ev, ou, oi, uo, io, ub, ibc = partition_ratings_tiles(
-                users, items, vals, self.n_users, self.n_items, n, ut, it,
-                self.cfg.entry_cap, n_slices=ns)
-            assert (uo, io) == (self.u_own, self.i_own)
-            if telemetry.enabled():
-                valid = eu < ut  # the real ratings of each block
-                skew.record_partition(
-                    "mfsgd.partition", valid.reshape(n, -1).sum(1),
-                    unit="ratings", padded_total=valid.size)
-            blocks = (eu, ei, ev, ou, oi)
-            lo = self.mesh.rank * ns
-            self._schedules = [K3.LevelSchedule.build(
-                eu[lo + s], ei[lo + s], ou[lo + s], oi[lo + s], ut, it,
-                ub, ibc, self.mesh.device) for s in range(ns)]
-        else:
-            bu, bi, bv, bm, ub, ibc = partition_ratings(
-                users, items, vals, self.n_users, self.n_items, n,
-                self.cfg.chunk, n_slices=ns)
-            if telemetry.enabled():
-                skew.record_partition(
-                    "mfsgd.partition", (bm > 0).reshape(n, -1).sum(1),
-                    unit="ratings", padded_total=bm.size)
-            blocks = (bu, bi, bv, bm)
-        assert (ub, nc * ibc) == (self.u_bound, self.i_bound)
-        self._blocks = tuple(self.mesh.shard_array(a, 0) for a in blocks)
-        self.nnz = len(np.asarray(vals))
+        dense algos, also each block's K3 level schedule.  Spans:
+        ``mfsgd.set_ratings`` around ``mfsgd.partition``,
+        ``mfsgd.schedule`` (every ``LevelSchedule.build``) and
+        ``mfsgd.shard`` (the copies to the device)."""
+        with telemetry.span("mfsgd.set_ratings"):
+            n = self.mesh.num_workers
+            nc = rotate_chunks_resolved(self.cfg)
+            ns = self._n_slices
+            if self.cfg.algo in _DENSE_ALGOS:
+                ut, it = tiles(self.cfg)
+                with telemetry.span("mfsgd.partition"):
+                    eu, ei, ev, ou, oi, uo, io, ub, ibc = \
+                        partition_ratings_tiles(
+                            users, items, vals, self.n_users, self.n_items,
+                            n, ut, it, self.cfg.entry_cap, n_slices=ns)
+                assert (uo, io) == (self.u_own, self.i_own)
+                if telemetry.enabled():
+                    valid = eu < ut  # the real ratings of each block
+                    skew.record_partition(
+                        "mfsgd.partition", valid.reshape(n, -1).sum(1),
+                        unit="ratings", padded_total=valid.size)
+                blocks = (eu, ei, ev, ou, oi)
+                lo = self.mesh.rank * ns
+                with telemetry.span("mfsgd.schedule"):
+                    self._schedules = [K3.LevelSchedule.build(
+                        eu[lo + s], ei[lo + s], ou[lo + s], oi[lo + s], ut,
+                        it, ub, ibc, self.mesh.device) for s in range(ns)]
+            else:
+                with telemetry.span("mfsgd.partition"):
+                    bu, bi, bv, bm, ub, ibc = partition_ratings(
+                        users, items, vals, self.n_users, self.n_items, n,
+                        self.cfg.chunk, n_slices=ns)
+                if telemetry.enabled():
+                    skew.record_partition(
+                        "mfsgd.partition", (bm > 0).reshape(n, -1).sum(1),
+                        unit="ratings", padded_total=bm.size)
+                blocks = (bu, bi, bv, bm)
+            assert (ub, nc * ibc) == (self.u_bound, self.i_bound)
+            with telemetry.span("mfsgd.shard"):
+                self._blocks = tuple(self.mesh.shard_array(a, 0)
+                                     for a in blocks)
+            self.nnz = len(np.asarray(vals))
 
     def _update(self, W, H, s: int):
         """Block update of W and the resident H chunk on block row ``s``."""
@@ -378,7 +388,8 @@ class MFSGD:
         block = tuple(a[s] for a in self._blocks)
         if cfg.algo == "scatter":
             return _block_update(W, H, block, cfg)
-        return _tile_block_update(W, H, block, cfg, self._schedules[s])
+        with telemetry.span("mfsgd.k3"):
+            return _tile_block_update(W, H, block, cfg, self._schedules[s])
 
     def _epoch(self, W, H):
         """One rotation epoch: every rating visited once.  Returns
@@ -398,8 +409,9 @@ class MFSGD:
                                           wire=self.cfg.rotate_wire)
         # the per-worker visited count before the sum (the reference's skew
         # counter), then the loss partials over the workers
-        work = C.allgather(cnt[None])
-        se, cnt = C.allreduce((se, cnt))
+        with telemetry.span("mfsgd.combine"):
+            work = C.allgather(cnt[None])
+            se, cnt = C.allreduce((se, cnt))
         return W, H, se, cnt, work
 
     def _epochs(self, W, H, epochs: int):
@@ -424,8 +436,9 @@ class MFSGD:
                 telemetry.ledger.run("mfsgd.epochs", steps=1):
             t0 = time.perf_counter()
             self.W, self.H, se, cnt, work = self._epoch_fn(self.W, self.H)
-            stats = flightrec.readback(torch.cat([torch.stack([se, cnt]),
-                                                  work.reshape(-1)]))
+            with telemetry.span("mfsgd.readback"):
+                stats = flightrec.readback(torch.cat(
+                    [torch.stack([se, cnt]), work.reshape(-1)]))
             skew.record_execution("mfsgd.epochs", stats[2:],
                                   unit="ratings",
                                   wall_s=time.perf_counter() - t0,
@@ -445,7 +458,8 @@ class MFSGD:
                 telemetry.ledger.run("mfsgd.epochs", steps=epochs):
             t0 = time.perf_counter()
             self.W, self.H, stats = self._epochs_fn(self.W, self.H, epochs)
-            got = flightrec.readback(stats)
+            with telemetry.span("mfsgd.readback"):
+                got = flightrec.readback(stats)
             skew.record_execution("mfsgd.epochs", got[2 * epochs:],
                                   unit="ratings",
                                   wall_s=time.perf_counter() - t0,

@@ -38,7 +38,10 @@ W and H stay row-major ``[rows, rank]`` (no transposes, no one-hot
 operands: those are TPU layout devices).  The wrapper runs the plain
 version only for tensors on the CPU; for CUDA tensors it launches K3 or
 raises.  :data:`LAUNCHES` counts wrapper calls that launched K3: one per
-rotation step, each one CUDA launch.
+rotation step, each one CUDA launch.  :data:`K3_WORK` counts the work of
+every wrapper call, on the card and on the CPU alike: the scheduled
+entries (``order.numel()``) and the levels (``n_levels``, the chain's
+length) of its schedule, both host data, so counting needs no readback.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ from harp_tpu_torch.ops import build
 
 #: K3 wrapper calls that launched the kernel since :func:`reset_launches`
 LAUNCHES = {"sgd_tile_update": 0}
+#: scheduled entries and levels of the wrapper's calls since
+#: :func:`reset_launches` (module docstring)
+K3_WORK = {"entries": 0, "levels": 0}
 
 #: blocks in a thread-block cluster: one entry runs on one cluster
 CLUSTER = 2
@@ -75,6 +81,7 @@ _FITS: set[tuple] = set()
 
 def reset_launches() -> None:
     LAUNCHES["sgd_tile_update"] = 0
+    K3_WORK.update(entries=0, levels=0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -361,16 +368,19 @@ def sgd_tile_update(W, H, eu, ei, ev, ou, oi, *, lr, reg, u_tile, i_tile,
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or "
                          f"torch.bfloat16, got {compute_dtype}")
-    kw = dict(lr=lr, reg=reg, u_tile=u_tile, i_tile=i_tile,
-              compute_dtype=compute_dtype, schedule=schedule)
-    if dev.type == "cpu":
-        return sgd_tile_update_plain(W, H, eu, ei, ev, ou, oi, **kw)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"sgd_tile_update runs on cuda or cpu, not {dev}")
     if schedule is None:
         schedule = LevelSchedule.build(eu, ei, ou, oi, u_tile, i_tile,
                                        W.shape[0], H.shape[0], dev)
     n = schedule.order.numel()
+    K3_WORK["entries"] += n
+    K3_WORK["levels"] += schedule.n_levels
+    if dev.type == "cpu":
+        return sgd_tile_update_plain(W, H, eu, ei, ev, ou, oi, lr=lr,
+                                     reg=reg, u_tile=u_tile, i_tile=i_tile,
+                                     compute_dtype=compute_dtype,
+                                     schedule=schedule)
     build.require(schedule.order, "schedule.order", i32, (n,), dev)
     build.require(schedule.pred, "schedule.pred", i32, (n, 2), dev)
     build.require(schedule.sort, "schedule.sort", i32, (n, 5, C), dev)

@@ -16,6 +16,8 @@ and is later work (ROADMAP.md, Queue 1).
 
 Each hop is :func:`harp_tpu_torch.parallel.collective.ring_hop`, recorded
 on the CommLedger under the verb the reference records, ``reshard``.
+Each step is a ``rotate.step`` span (attribute ``t``) holding its hop's
+``rotate.hop`` span (:func:`harp_tpu_torch.utils.telemetry.span`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from harp_tpu_torch.parallel.collective import RING_WIRES, ring_hop, tree_map
 from harp_tpu_torch.parallel.mesh import num_workers, worker_id
+from harp_tpu_torch.utils import telemetry
 
 #: ring payload formats for the pipelined rotation
 ROTATE_WIRES = tuple(RING_WIRES)
@@ -101,8 +104,10 @@ def rotate_pipeline(step_fn: Callable[[Any, Any, int], Any], carry: Any,
             _check_shift(shift, n, "a full revolution")
         cur = model_slice
         for t in range(n_steps):
-            carry, cur = step_fn(carry, cur, t)
-            cur = ring_hop(cur, shift, wire)
+            with telemetry.span("rotate.step", t=t):
+                carry, cur = step_fn(carry, cur, t)
+                with telemetry.span("rotate.hop"):
+                    cur = ring_hop(cur, shift, wire)
         return carry, cur
 
     if n_steps is not None:
@@ -114,8 +119,10 @@ def rotate_pipeline(step_fn: Callable[[Any, Any, int], Any], carry: Any,
     # local chunks 0..C-2 queue up for compute; chunk C-1 starts in flight
     queue, inflight = chunks[:-1], chunks[-1]
     for t in range(n_chunks * n):
-        received = ring_hop(inflight, shift, wire)
-        carry, cur = step_fn(carry, queue.pop(0), t)
+        with telemetry.span("rotate.step", t=t):
+            with telemetry.span("rotate.hop"):
+                received = ring_hop(inflight, shift, wire)
+            carry, cur = step_fn(carry, queue.pop(0), t)
         # the received chunk joins the tail: it computes C-1 steps from
         # now, so every chunk computes once per C steps on each worker
         queue.append(received)

@@ -2,9 +2,13 @@
 ``harp_tpu.utils.profiling``.
 
 One context manager captures a Chrome trace of the host's and the card's
-activity (:func:`trace`), :func:`annotate` names a region of it, and
-:func:`op_breakdown` reads the newest capture back as a table of time by
-op: the quick "where did the time go" behind ``PERF.md``'s breakdowns.
+activity (:func:`trace`), and :func:`op_breakdown` reads the newest
+capture back as a table of time by op: the quick "where did the time go"
+behind ``PERF.md``'s breakdowns.  The program names its stages with
+:func:`harp_tpu_torch.utils.telemetry.span`: while a capture records,
+each span is a ``user_annotation`` in it, on the profiler's clock, from
+the span's entry to its exit on the host, enclosing the ops and kernel
+launches made inside it (a kernel itself may run later on the card).
 
 On a CUDA capture the device tracks are the events whose ``cat`` is
 ``kernel``, ``gpu_memcpy`` or ``gpu_memset``, each on its device's track
@@ -60,13 +64,6 @@ def trace(logdir: str | None = None):
         # named by the clock in ns, zero-padded: the newest sorts last
         prof.export_chrome_trace(os.path.join(
             logdir, f"capture-{time.time_ns():020d}{_SUFFIX}"))
-
-
-def annotate(name: str):
-    """Named region that shows up in the trace timeline."""
-    import torch
-
-    return torch.profiler.record_function(name)
 
 
 def newest_capture(logdir: str) -> str:

@@ -15,11 +15,24 @@ recorded total over the executions.  A verb on a quantized wire passes
 ``wire_dtype``: its float leaves count at the wire's width (the int8 wire
 one byte an element), its other leaves at their own.
 
-**Spans**: ``with span("kmeans.fit"): ...`` records name, duration and
-attributes.
+**Spans**: ``with span("kmeans.fit", iters=3): ...`` is the program's one
+way to name a stage.  What it does depends on what is listening:
 
-Both are off unless ``HARP_TELEMETRY=1`` is set or :func:`enable` /
-:func:`scope` turns them on; when off, ``record_comm`` returns before
+- nothing (telemetry off, no profiler recording): it returns one shared
+  null context and does nothing more, no clock read and no record;
+- a ``torch.profiler`` recording: it also opens
+  ``torch.profiler.record_function(name)``, whatever the telemetry switch
+  says, so the stage shows in the profiler's trace as a
+  ``user_annotation`` on the profiler's own clock, enclosing the ops and
+  kernel launches made inside it;
+- telemetry on, or a :func:`collect_spans` block open: it appends a host
+  record (``span``, ``path``, ``t0`` on the tracer's clock, ``dur``,
+  ``depth`` and the attributes) to :data:`tracer`, which
+  :func:`export` writes out.  :func:`collect_spans` turns on these
+  records alone: the ledger and the other host planes stay off.
+
+Telemetry is off unless ``HARP_TELEMETRY=1`` is set or :func:`enable` /
+:func:`scope` turns it on; when off, ``record_comm`` returns before
 touching its argument.  The host planes (the flight recorder, the request
 tracer, the health sentinel, the memory ledger, the skew ledger, the
 superstep timeline and the elastic ledger) share this switch; :func:`scope`
@@ -46,6 +59,10 @@ _ENABLED = os.environ.get("HARP_TELEMETRY", "0").lower() not in (
 
 _UNTAGGED = "(untagged)"
 _HERE = os.path.abspath(__file__)
+#: open :func:`collect_spans` blocks: span records on, the other planes off
+_COLLECT = 0
+#: is a torch.profiler recording?  (~0.1 us a call)
+_profiling = torch.autograd._profiler_enabled
 
 
 def enabled() -> bool:
@@ -245,8 +262,12 @@ class CommLedger:
         return out
 
 
+#: the span when nothing listens: one shared context that does nothing
+_NULL_SPAN = contextlib.nullcontext()
+
+
 class SpanTracer:
-    """Nested host-level spans: {span, path, dur, depth, **attrs}."""
+    """Nested host-level spans: {span, path, t0, dur, depth, **attrs}."""
 
     def __init__(self):
         self.reset()
@@ -261,11 +282,21 @@ class SpanTracer:
         the flight recorder stamps its records with it."""
         return "/".join(self._stack) or None
 
-    @contextlib.contextmanager
     def span(self, name: str, **attrs: Any):
-        if not _ENABLED:
-            yield
-            return
+        """``with span("mfsgd.k3"): ...``: a stage named ``name``; the
+        module docstring says what it does when nothing, a profiler or a
+        collector listens."""
+        if _ENABLED or _COLLECT:
+            return self._recorded(name, attrs)
+        if _profiling():
+            return torch.profiler.record_function(name)
+        return _NULL_SPAN
+
+    @contextlib.contextmanager
+    def _recorded(self, name: str, attrs: dict):
+        rf = torch.profiler.record_function(name) if _profiling() else None
+        if rf is not None:
+            rf.__enter__()
         path = "/".join(self._stack + [name])
         depth = len(self._stack)
         self._stack.append(name)
@@ -278,6 +309,8 @@ class SpanTracer:
                                  "t0": round(t0 - self._t0, 6),
                                  "dur": time.perf_counter() - t0,
                                  "depth": depth, **attrs})
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     def summary(self) -> dict:
         """{name: {mean_s, total_s, n}} over the recorded spans."""
@@ -296,9 +329,24 @@ ledger = CommLedger()
 tracer = SpanTracer()
 
 
-def span(name: str, **attrs: Any):
-    """Module-level shorthand for ``tracer.span``."""
-    return tracer.span(name, **attrs)
+#: the program's span entry: :meth:`SpanTracer.span` on :data:`tracer`
+span = tracer.span
+
+
+@contextlib.contextmanager
+def collect_spans():
+    """Record spans, and nothing else, within a block: the tracer is
+    cleared on entry and yielded, and its records and :meth:`SpanTracer.
+    summary` hold the block's spans afterwards.  The comm ledger, the
+    flight recorder and the other host planes stay as the telemetry
+    switch has them."""
+    global _COLLECT
+    tracer.reset()
+    _COLLECT += 1
+    try:
+        yield tracer
+    finally:
+        _COLLECT -= 1
 
 
 def record_comm(verb: str, tree: Any, *, combiner: str | None = None,

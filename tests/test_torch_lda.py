@@ -15,6 +15,7 @@ invariants and by the log-likelihood within the reference's flip gate
 (abs 0.05) of the reference's chain on the same corpus.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -382,13 +383,17 @@ def test_ledger_per_epoch_on_one_worker_follows_the_reference(jmesh1,
         m.sample_epoch()
         m.sample_epochs(2)
         tag = telemetry.ledger.summary()["lda.epochs"]
-        spans = [r["span"] for r in telemetry.tracer.records]
+        recs = telemetry.tracer.records
     steps = _steps(m.cfg, 1)
     assert tag["executions"] == ref["executions"] + 1 == 3
     assert {v["verb"]: v["payload_bytes"] // 3 for v in tag["verbs"]} == {
         "allgather": site["allgather"],
         "allreduce": steps * site["allreduce"]}
-    assert spans == ["lda.epoch", "lda.epochs"]
+    assert [r["span"] for r in recs if r["depth"] == 0] == [
+        "lda.epoch", "lda.epochs"]
+    # inside: the 3 epochs' rotation steps, each with its hop
+    assert collections.Counter(r["span"] for r in recs if r["depth"]) == {
+        "rotate.step": 3 * steps, "rotate.hop": 3 * steps}
 
 
 def test_config_validation_matches_reference():

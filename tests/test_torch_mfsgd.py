@@ -11,6 +11,7 @@ dense vs pallas (the same update in another f32 summation order): W and H
 ``rtol 1e-4, atol 1e-5``, RMSEs ``rtol 1e-5``.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -184,11 +185,21 @@ def test_ledger_sheet_per_epoch_on_one_worker():
         m.train_epoch()
         m.train_epochs(3)
         tag = telemetry.ledger.summary()["mfsgd.epochs"]
-        spans = [r["span"] for r in telemetry.tracer.records]
+        recs = telemetry.tracer.records
     assert tag["executions"] == 4 and tag["total_bytes"] == 4 * 12
     assert sorted((r["verb"], r["payload_bytes"]) for r in tag["verbs"]) == \
         [("allgather", 16), ("allreduce", 32)]
-    assert spans == ["mfsgd.epoch", "mfsgd.epochs"]
+    assert [r["span"] for r in recs if r["depth"] == 0] == [
+        "mfsgd.epoch", "mfsgd.epochs"]
+    # inside: each of the 4 epochs' steps (a K3 call and a hop each), its
+    # combine, and each call's one readback
+    steps = 4 * MF.rotate_chunks_resolved(m.cfg)
+    assert collections.Counter(r["span"] for r in recs if r["depth"]) == {
+        "rotate.step": steps, "rotate.hop": steps, "mfsgd.k3": steps,
+        "mfsgd.combine": 4, "mfsgd.readback": 2}
+    assert {r["path"] for r in recs if r["span"] == "mfsgd.k3"} == {
+        "mfsgd.epoch/rotate.step/mfsgd.k3",
+        "mfsgd.epochs/rotate.step/mfsgd.k3"}
 
 
 def test_train_epochs_reads_back_once_and_launches_no_kernel_on_cpu():

@@ -28,6 +28,7 @@ from harp_tpu_torch import __main__ as cli
 from harp_tpu_torch.profile import attribution as A
 from harp_tpu_torch.profile import cli as PCLI
 from harp_tpu_torch.utils import profiling as P
+from harp_tpu_torch.utils import telemetry
 from torch_world import time_limit
 
 
@@ -122,11 +123,13 @@ def test_two_devices_split_like_the_references(tmp_path):
 def test_a_real_cpu_capture_lists_aten_mm_and_reads_the_newest(tmp_path):
     a = torch.randn(128, 128)
     with P.trace(str(tmp_path / "tr")) as d:
-        with P.annotate("loop"):
+        with telemetry.span("loop"):
             for _ in range(4):
                 torch.mm(a, a)
     first = dict(P.op_breakdown(d))
     assert "aten::mm" in first and first["aten::mm"] > 0
+    # the span is the capture's named region (telemetry off)
+    assert "loop" in dict(P.op_breakdown(d, host_events=True))
     with P.trace(d):
         torch.mm(a, a)
     second = dict(P.op_breakdown(d))
