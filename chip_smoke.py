@@ -121,8 +121,10 @@ fatal when it fails (exit code != 0 and no result line):
 25. K1 at the streaming chunk shape, [262,144, 300] with k = 1000, against
    its plain version (sums and counts equal, best_sum rtol 1e-5, reruns
    bit-equal; ms, graph_ms, bound), models.kmeans._partials_block_int8
-   timed beside it, and K2 beside _partials_block (the f32 chunk route) at
-   the same shape (stream_chunk_phase);
+   timed beside it, the fused quantize pass that makes K1's streamed
+   chunk (int8 chunk bit-equal, x2 rtol 1e-6; ms, graph_ms, plain, bound),
+   and K2 beside _partials_block (the f32 chunk route) at the same shape
+   (stream_chunk_phase);
 26. models.kmeans_stream.fit_streaming on a seeded 1M x 300 host array, k =
    1000, explicit init, f32 and int8, at prefetch 0, 1, 2 and 4: every
    depth bit-identical, the int8 stream launching K1 once a chunk an epoch
@@ -1914,6 +1916,7 @@ def stream_chunk_phase(dev, card: str, gen) -> tuple[dict, dict]:
           f"{k1['partials_block_int8_ms_chunk']:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}) [{card}]")
     del q, args, s1, s2, s3
+    quantize_chunk_check(dev, card, gen)
     t1, m1, i1 = KK.kmeans_partials(x, centers)
     t2, m2, i2 = KK.kmeans_partials_plain(x, centers)
     torch.cuda.synchronize()
@@ -1937,6 +1940,46 @@ def stream_chunk_phase(dev, card: str, gen) -> tuple[dict, dict]:
           f"f32 stream's route _partials_block "
           f"{k2['yardstick_ms_chunk']:.4f} ms [{card}]")
     return k1, k2
+
+
+def quantize_chunk_check(dev, card: str, gen) -> None:
+    """Phase 25's fused quantize pass (kmeans_kernel.quantize_rows_int8)
+    on a generated N(0, 1) chunk [STREAM_CHUNK, STREAM_D] with the
+    benchmark's static 5σ scales: the int8 chunk bit-equal to the plain
+    version's, x2 within 1e-6 of its f32 sum, reruns bit-equal; the
+    kernel's time (back-to-back calls and from a CUDA graph) beside its
+    bound (5 bytes an element) and the plain version's time."""
+    import torch
+
+    from harp_tpu_torch.ops import kmeans_kernel as KK
+    from harp_tpu_torch.utils.roofline import HBM_BYTES_S
+    from harp_tpu_torch.utils.timing import cuda_ms, graph_ms
+
+    n, d = STREAM_CHUNK, STREAM_D
+    x = torch.randn((n, d), device=dev, generator=gen)
+    col = torch.full((d,), 5.0 / 127.0, device=dev)
+    before = KK.LAUNCHES["kmeans_quantize_int8"]
+    q1, y1 = KK.quantize_rows_int8(x, col)
+    q2, y2 = KK.quantize_rows_int8_plain(x, col)
+    q3, y3 = KK.quantize_rows_int8(x, col)
+    torch.cuda.synchronize()
+    launched = KK.LAUNCHES["kmeans_quantize_int8"] - before
+    rel = abs(float(y1) - float(y2)) / float(y2)
+    if not torch.equal(q1, q2) or rel > 1e-6 or launched != 2:
+        fail(f"fused quantize at the chunk shape: int8 chunks differ, x2 "
+             f"rel err {rel} > 1e-6 or {launched} launches for 2 calls")
+    if not (torch.equal(q1, q3) and torch.equal(y1, y3)):
+        fail("fused quantize reruns differ at the chunk shape")
+    del q1, q2, q3
+    bound = 5.0 * n * d / HBM_BYTES_S * 1e3
+    ms = cuda_ms(lambda: KK.quantize_rows_int8(x, col), reps=50)
+    g_ms = graph_ms(lambda: KK.quantize_rows_int8(x, col))
+    plain = cuda_ms(lambda: KK.quantize_rows_int8_plain(x, col), reps=5,
+                    warmup=1)
+    print(f"fused quantize chunk n={n} d={d}: int8 chunk bit-equal, x2 rel "
+          f"err {rel:.2e}, reruns bit-equal; kernel {ms:.4f} ms (graph "
+          f"{g_ms:.4f}), plain {plain:.4f} ms, bound {bound:.4f} ms (bytes)"
+          f" [{card}]")
 
 
 def h2d_rates(dev, card: str) -> None:
@@ -2128,14 +2171,18 @@ def stream_benchmark_phase(dev, card: str) -> int:
     for n, q, iters in ((STREAM_N, "int8", STREAM_BENCH_ITERS),
                         (STREAM_F32_N, None, STREAM_ITERS)):
         before = KK.LAUNCHES["kmeans_partials_int8"]
+        before_q = KK.LAUNCHES["kmeans_quantize_int8"]
         out = KS.benchmark_streaming(n=n, d=STREAM_D, k=STREAM_K,
                                      iters=iters, chunk_points=STREAM_CHUNK,
                                      quantize=q)
         launched = KK.LAUNCHES["kmeans_partials_int8"] - before
+        fused = KK.LAUNCHES["kmeans_quantize_int8"] - before_q
         want = out["n_chunks"] * (1 + iters) if q else 0
-        if launched != want or not np.isfinite(out["inertia"]):
-            fail(f"benchmark_streaming {q or 'f32'}: K1 launches {launched} "
-                 f"(expected {want}) or inertia {out['inertia']}")
+        if (launched != want or fused != want
+                or not np.isfinite(out["inertia"])):
+            fail(f"benchmark_streaming {q or 'f32'}: K1 launches {launched},"
+                 f" fused quantize launches {fused} (expected {want}) or "
+                 f"inertia {out['inertia']}")
         if q:
             n_launches = launched
         print(f"benchmark_streaming {q or 'f32'} n={out['n']} d={STREAM_D} "

@@ -202,12 +202,14 @@ def epoch_operands(centroids, quantize=None, col_scale=None) -> tuple:
         return centroids, (centroids.to(torch.float32) ** 2).sum(-1)
 
 
-def chunk_partials(points, operands, quantize=None):
+def chunk_partials(points, operands, quantize=None, x2=None):
     """One streamed chunk's partials → (sums [k, d], counts [k], inertia),
     routed as :func:`_use_pallas` routes a shard by default: K1 for int8
     chunks, ``_partials_block`` for float ones.  ``points`` is this
     worker's rows of the chunk, possibly none (then nothing launches);
-    ``operands`` come from :func:`epoch_operands`."""
+    ``operands`` come from :func:`epoch_operands`.  ``x2``: an int8
+    chunk's sum of |x|^2 where its quantization gave it (the fused pass of
+    ``kmeans_kernel.quantize_rows_int8``), else taken here."""
     if points.shape[0] == 0:
         k, d = operands[0].shape
         return (torch.zeros((k, d), device=points.device),
@@ -218,8 +220,9 @@ def chunk_partials(points, operands, quantize=None):
         with telemetry.span("kmeans.partials"):
             sums, counts, best_sum = kmeans_kernel.kmeans_partials_int8(
                 points, c_q, c_scale, c2, col_scale)
-        with telemetry.span("kmeans.x2"):
-            x2 = _hoisted_x2((points, col_scale))
+        if x2 is None:
+            with telemetry.span("kmeans.x2"):
+                x2 = _hoisted_x2((points, col_scale))
         return sums, counts, best_sum + x2
     centroids, c2 = operands
     with telemetry.span("kmeans.partials"):

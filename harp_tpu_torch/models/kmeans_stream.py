@@ -25,7 +25,9 @@ memory.  Here only the centroids [k, d] and the partial accumulators
   j) alone, so every epoch revisits the same points (regeneration stands in
   for re-reading a file split) and the 1B × 300, k = 1000 configuration
   runs on one card in bounded memory.  A Python loop over epochs and
-  chunks takes the place of the reference's one fused program.
+  chunks takes the place of the reference's one fused program.  The int8
+  twin quantizes each generated chunk and takes its sum of |x|^2 in one
+  pass on the card (``kmeans_kernel.quantize_rows_int8``).
 
 The reference pads a ragged tail chunk to its static shape and masks the
 padding; PyTorch has no static-shape rule and K1 takes any row count, so
@@ -65,6 +67,7 @@ from harp_tpu_torch.models.kmeans import (_INT8_SUM_ROW_LIMIT,
                                           _normalize_centroids,
                                           chunk_partials, epoch_operands,
                                           kmeanspp_init)
+from harp_tpu_torch.ops import kmeans_kernel
 from harp_tpu_torch.parallel import collective as C
 from harp_tpu_torch.parallel.mesh import WorkerMesh, resolve_mesh
 from harp_tpu_torch.utils import flightrec, telemetry
@@ -629,12 +632,6 @@ def _make_chunk_gen(seed: int, worker: int, rows: int, d: int, dtype,
     return gen
 
 
-def _quantize_rows(x: torch.Tensor, col_scale: torch.Tensor) -> torch.Tensor:
-    """``_clip_round_int8`` on the card, in place on ``x`` (a generated
-    chunk nothing else holds): round half to even, clip to ±127."""
-    return x.div_(col_scale).round_().clamp_(-127, 127).to(torch.int8)
-
-
 def _synthetic_run(centroids, n_iters, gen, n_chunks, cfg, col_scale):
     """``n_iters`` Lloyd epochs over ``n_chunks`` generated chunks a
     worker → (centroids, last epoch's inertia); never waits for the card
@@ -648,11 +645,14 @@ def _synthetic_run(centroids, n_iters, gen, n_chunks, cfg, col_scale):
         counts = torch.zeros((k,), device=dev)
         part = torch.zeros((), device=dev)
         for j in range(n_chunks):
-            x = gen(j)
+            x, x2 = gen(j), None
             if cfg.quantize == "int8":
+                # the generated chunk to its int8 chunk and its sum of
+                # |x|^2 in one pass (a bf16 chunk widens to f32 exactly)
                 with telemetry.span("kmeans_stream.quantize"):
-                    x = _quantize_rows(x, col_scale)
-            s, c, i = chunk_partials(x, ops, cfg.quantize)
+                    x, x2 = kmeans_kernel.quantize_rows_int8(
+                        x.to(torch.float32), col_scale)
+            s, c, i = chunk_partials(x, ops, cfg.quantize, x2=x2)
             sums += s
             counts += c
             part += i

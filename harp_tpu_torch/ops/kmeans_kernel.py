@@ -3,7 +3,8 @@
 One Lloyd iteration's per-worker partials in a single pass over the points:
 scores, argmin (lowest index wins ties), one-hot sums, counts, and the sum
 of best scores.  Two kernels, each a CUDA C++ source for ``sm_90a`` beside
-its wrapper and its plain PyTorch version:
+its wrapper and its plain PyTorch version, and a third that makes K1's
+streamed input:
 
 ====  ==============================  ====================================
 K1    :func:`kmeans_partials_int8`    ``csrc/kmeans_partials_int8.cu``;
@@ -12,17 +13,22 @@ K1    :func:`kmeans_partials_int8`    ``csrc/kmeans_partials_int8.cu``;
 K2    :func:`kmeans_partials`         ``csrc/kmeans_partials.cu``;
                                       replaces the TPU kernel
                                       ``kmeans_partials``
+—     :func:`quantize_rows_int8`      ``csrc/kmeans_quantize_int8.cu``;
+                                      replaces no TPU kernel: an f32
+                                      chunk on the card to its int8 chunk
+                                      and its sum of |x|^2, in one pass
 ====  ==============================  ====================================
 
-Both share ``csrc/kmeans_tiles.cuh``.  Each source's head note gives the
-kernel's bound on the card and what its design does about it.  The library
-plans a launch per shape and card (:func:`plan`): fused (the [k, d] sums in
-shared memory, k = 100 at d = 300) or two-pass (assignments, then sums by
-centroid range, k = 1000); :func:`workspace` sizes the buffers the wrapper
-allocates for it.  A wrapper runs the plain version only for tensors on the
-CPU; for CUDA tensors it launches its kernel (on the current stream) or
-raises — there is no fallback.  :data:`LAUNCHES` counts wrapper calls that
-launched, so a run can show that its main path went through the kernels.
+K1 and K2 share ``csrc/kmeans_tiles.cuh``.  Each source's head note gives
+the kernel's bound on the card and what its design does about it.  K1's and
+K2's library plans a launch per shape and card (:func:`plan`): fused (the
+[k, d] sums in shared memory, k = 100 at d = 300) or two-pass (assignments,
+then sums by centroid range, k = 1000); :func:`workspace` sizes the buffers
+the wrapper allocates for it.  A wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel (on the current
+stream) or raises — there is no fallback.  :data:`LAUNCHES` counts wrapper
+calls that launched, so a run can show that its main path went through the
+kernels.
 
 Unlike the TPU kernels, these take any ``n`` (the ragged tile is masked),
 any ``k`` (centroid tiles loop) and any ``d``; the TPU-only gates (VMEM
@@ -40,7 +46,8 @@ import torch
 from harp_tpu_torch.ops import build
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {"kmeans_partials_int8": 0, "kmeans_partials": 0}
+LAUNCHES = {"kmeans_partials_int8": 0, "kmeans_partials": 0,
+            "kmeans_quantize_int8": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -56,9 +63,19 @@ _SIGNATURES = {
         "kmeans_partials": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                             _P, _P, _P, _P],
     },
+    "kmeans_quantize_int8": {
+        "kmeans_quantize_int8_plan": [_I, _I, _I, ctypes.POINTER(_I)],
+        "kmeans_quantize_int8": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P],
+    },
 }
 _BOUND: dict[str, ctypes.CDLL] = {}
 _PLANS: dict[tuple, "Plan"] = {}
+#: per (card index, n, d, vec): the fused quantize pass's launch plan
+_QPLANS: dict[tuple, tuple[int, ...]] = {}
+#: per (card index, stream, d): the fused pass's [d] column sums and its
+#: blocks' ticket counter, d + 1 int64 words that every call leaves at zero
+_ACC: dict[tuple[int, int, int], torch.Tensor] = {}
 #: library name -> the kernel's registry name (the fit gates' rows)
 _REGISTRY_NAMES = {"kmeans_partials_int8": "kmeans.partials_int8",
                    "kmeans_partials": "kmeans.partials"}
@@ -279,3 +296,64 @@ def kmeans_partials(points, centroids):
             "kmeans_partials launch")
     LAUNCHES["kmeans_partials"] += 1
     return sums, counts_i.to(torch.float32), ws["partial"].sum()
+
+
+# ---- the streamed int8 chunk: quantize and sum of |x|^2 in one pass -------
+
+def quantize_rows_int8_plain(x, col_scale):
+    """Plain PyTorch version of :func:`quantize_rows_int8` (same arguments
+    and results): the int8 rounding rule, then the chunk's sum of |x|^2."""
+    q = x.div(col_scale).round().clamp(-127, 127).to(torch.int8)
+    return q, ((q.to(torch.float32) * col_scale[None, :]) ** 2).sum()
+
+
+def _qplan(lib: ctypes.CDLL, n: int, d: int, vec: int, idx: int
+           ) -> tuple[int, ...]:
+    """The fused pass's launch plan for (n, d, vec) on card ``idx``, asked
+    once: (threads, tiles a block at a time, groups a tile, grid, dynamic
+    shared memory, wide)."""
+    key = (idx, n, d, vec)
+    if key not in _QPLANS:
+        out = (_I * 6)()
+        build.check(lib.kmeans_quantize_int8_plan(n, d, vec, out),
+                    "kmeans_quantize_int8_plan")
+        _QPLANS[key] = tuple(out)
+    return _QPLANS[key]
+
+
+def quantize_rows_int8(x, col_scale):
+    """An f32 chunk → ``(q [n, d] int8, x2 0-d f32)`` in one pass.
+
+    ``q`` is ``x / col_scale`` rounded half to even and clipped to ±127, bit
+    for bit as :func:`quantize_rows_int8_plain`; ``x2`` is the sum of
+    ``(q · col_scale)^2``, the int8 chunk's iteration-invariant sum of
+    |x|^2, formed exactly from integer sums of q^2 and rounded once to f32
+    (the plain version sums in f32).  ``x`` [n, d] f32 is read and left as
+    it is; ``col_scale`` [d] f32.  An empty chunk launches nothing."""
+    n, d = x.shape
+    dev = x.device
+    build.require(x, "x", (torch.float32,), (n, d), dev)
+    build.require(col_scale, "col_scale", (torch.float32,), (d,), dev)
+    if dev.type == "cpu":
+        return quantize_rows_int8_plain(x, col_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_rows_int8 runs on cuda or cpu, not {dev}")
+    q = torch.empty((n, d), dtype=torch.int8, device=dev)
+    if n == 0:
+        return q, torch.zeros((), device=dev)
+    lib = _lib("kmeans_quantize_int8")
+    vec = int(x.data_ptr() % 16 == 0 and q.data_ptr() % 4 == 0)
+    with torch.cuda.device(dev):
+        idx = torch.cuda.current_device()
+        stream = torch.cuda.current_stream(dev)
+        threads, m, groups, grid, smem, wide = _qplan(lib, n, d, vec, idx)
+        key = (idx, stream.cuda_stream, d)
+        if key not in _ACC:
+            _ACC[key] = torch.zeros((d + 1,), dtype=torch.int64, device=dev)
+        x2 = torch.empty((), dtype=torch.float32, device=dev)
+        build.check(lib.kmeans_quantize_int8(
+            x.data_ptr(), col_scale.data_ptr(), n, d, vec, threads, m,
+            groups, grid, smem, wide, q.data_ptr(), _ACC[key].data_ptr(),
+            x2.data_ptr(), stream.cuda_stream), "kmeans_quantize_int8 launch")
+    LAUNCHES["kmeans_quantize_int8"] += 1
+    return q, x2

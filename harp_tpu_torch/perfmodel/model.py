@@ -81,16 +81,15 @@ KMEANS_K1_LAUNCHES = 28
 #: launches at k = 100, a cast, the best-sum reduction: 5), the c2 and
 #: _combine_partials (11)
 KMEANS_K2_LAUNCHES = 20
-#: a streamed int8 chunk: randn, _quantize_rows (div_, round_, clamp_,
-#: cast: 4), K1's wrapper (7), the hoisted |x|² (cast, mul, pow, sum: 4),
-#: the three accumulations
-STREAM_INT8_CHUNK_LAUNCHES = 19
+#: a streamed int8 chunk: randn, the fused quantize and |x|² pass
+#: (kmeans_kernel.quantize_rows_int8: 1), K1's wrapper (7), the three
+#: accumulations
+STREAM_INT8_CHUNK_LAUNCHES = 12
 #: a streamed f32 chunk: randn, _partials_block (22), the accumulations
 STREAM_F32_CHUNK_LAUNCHES = 26
 #: bytes an int8 chunk element moves around K1: randn's f32 write (4),
-#: div_/round_/clamp_ in place (8 each), the int8 cast (4 + 1), the |x|²
-#: pass (1 + 4, 4 + 4, 4 + 4, 4: 25)
-STREAM_INT8_ELEM_BYTES = 58.0
+#: the fused pass's f32 read and int8 write (4 + 1)
+STREAM_INT8_ELEM_BYTES = 9.0
 #: special-function results an element of randn (the Box-Muller log, sqrt
 #: and sincos a pair of outputs)
 STREAM_GEN_SFU_PER_ELEM = 2.0

@@ -245,7 +245,8 @@ def test_fit_runs_each_kernel_once_per_iteration(dev):
     KM.fit(pts, k=8, iters=3, seed=0, quantize="int8")
     KM.fit(pts, k=8, iters=4, seed=0, use_pallas=True)
     KM.fit(pts, k=8, iters=2, seed=0)
-    assert KK.LAUNCHES == {"kmeans_partials_int8": 3, "kmeans_partials": 4}
+    assert KK.LAUNCHES == {"kmeans_partials_int8": 3, "kmeans_partials": 4,
+                           "kmeans_quantize_int8": 0}
 
 
 def _k3_entries(tile, cap, rank, dev, nu=200, ni=120, nnz=5000, seed=0):
@@ -1074,8 +1075,9 @@ def test_fit_streaming_runs_k1_once_a_chunk_and_matches_the_cpu(dev):
     KK.reset_launches()
     runs = [KS.fit_streaming(pts, quantize="int8", prefetch=p, **kw)
             for p in (0, 1, 2, 4)]
+    # host-fed int8 chunks arrive quantized: the fused pass never runs
     assert KK.LAUNCHES == {"kmeans_partials_int8": 4 * 7 * 3,
-                           "kmeans_partials": 0}
+                           "kmeans_partials": 0, "kmeans_quantize_int8": 0}
     for c, i, h in runs[1:]:
         np.testing.assert_array_equal(c, runs[0][0])
         np.testing.assert_array_equal(h, runs[0][2])

@@ -413,7 +413,8 @@ def test_build_needs_nvcc_and_names_it(tmp_path, monkeypatch):
 
 def test_library_names_follow_the_source_hash():
     assert build.sources() == ["flash_attention", "kmeans_partials",
-                               "kmeans_partials_int8", "lda_cgs_entry",
+                               "kmeans_partials_int8",
+                               "kmeans_quantize_int8", "lda_cgs_entry",
                                "mfsgd_tile_update",
                                "rf_hist_bins", "svm_pegasos_grad",
                                "wdamds_smacof_bx"]
@@ -429,7 +430,8 @@ def test_library_names_hash_only_the_headers_a_source_includes(tmp_path,
     """An edited header renames (so rebuilds) the libraries whose sources
     include it, directly or through another header, and no other."""
     for name in build.sources():
-        want = ["kmeans_tiles.cuh"] if name.startswith("kmeans") else []
+        want = (["kmeans_tiles.cuh"] if name.startswith("kmeans_partials")
+                else [])
         assert [h.name for h in
                 build.headers(build.CSRC / f"{name}.cu")] == want
     monkeypatch.setattr(build, "CSRC", tmp_path)

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from harp_tpu_torch.models import kmeans as KM
 from harp_tpu_torch.models import kmeans_stream as KS
 from harp_tpu_torch.models import mfsgd as MF
 from harp_tpu_torch.ops import mfsgd_kernel as K3
@@ -210,11 +211,38 @@ def test_the_streaming_loop_names_its_stages(quantize):
     names = collections.Counter(r["span"] for r in tr.records)
     per_chunk = {"kmeans.partials": 1}
     if quantize:
-        per_chunk.update({"kmeans_stream.quantize": 1, "kmeans.x2": 1})
+        # the fused pass gives the chunk's sum of |x|^2 inside the quantize
+        # span: kmeans.x2 does not open on this path
+        per_chunk.update({"kmeans_stream.quantize": 1})
     assert names == {"kmeans.operands": epochs, "kmeans.reduce": epochs,
                      **{n: c * epochs * n_chunks
                         for n, c in per_chunk.items()}}
     assert all(r["depth"] == 0 for r in tr.records)
+
+
+def test_host_fed_int8_chunks_take_their_sum_of_squares_in_kmeans_x2():
+    """``fit_streaming``'s int8 chunks arrive quantized, so
+    ``chunk_partials(..., x2=None)`` takes their sum of |x|^2 itself, in a
+    ``kmeans.x2`` span a chunk; a given ``x2`` opens none and is the one
+    added."""
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(300, 8)).astype(np.float32)
+    with telemetry.collect_spans() as tr:
+        KS.fit_streaming(pts, k=4, iters=2, chunk_points=100,
+                         init=pts[:4], quantize="int8", device="cpu")
+    names = collections.Counter(r["span"] for r in tr.records)
+    assert names["kmeans.x2"] == names["kmeans.partials"] == 2 * 3
+    q = torch.from_numpy(rng.integers(-127, 128, (50, 8), dtype=np.int8))
+    col = torch.full((8,), 0.03)
+    ops = KM.epoch_operands(torch.from_numpy(pts[:4]), "int8", col)
+    x2 = KM._hoisted_x2((q, col))
+    with telemetry.collect_spans() as tr:
+        _, _, taken = KM.chunk_partials(q, ops, "int8")
+        _, _, given = KM.chunk_partials(q, ops, "int8", x2=x2)
+        _, _, other = KM.chunk_partials(q, ops, "int8", x2=x2 + 1.0)
+    assert [r["span"] for r in tr.records] == [
+        "kmeans.partials", "kmeans.x2", "kmeans.partials", "kmeans.partials"]
+    assert torch.equal(given, taken) and not torch.equal(other, taken)
 
 
 @pytest.fixture
