@@ -15,7 +15,10 @@ metric sits in files of its own, found by the name in ``BENCHMARK.json``:
 A driver is a class ``Driver(ctx)`` with ``setup()``, ``steps(n)`` (the
 program's first steps, through the window's own call), ``window(seconds,
 trace)``, ``release()``, ``initial()`` (the parameters before the steps)
-and ``reference(n, precision)``; see ``drivers/kmeans_stream.py``.
+and ``reference(n, precision)``; see ``drivers/kmeans_stream.py``.  A
+driver that defines ``numbers(initial, steps, reference)`` supplies the
+numbers that decide ``correct`` itself (``drivers/lda.py``); every other
+driver's are ``compare.numbers``'.
 """
 
 from __future__ import annotations
@@ -238,7 +241,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     ref = drv.reference(steps, traffic["precision"])
     ctx.log(f"window {out['attempted']} epochs; the reference took "
             f"{time.perf_counter() - t_ref:.1f} s")
-    values = compare.numbers(drv.initial(), prog, ref)
+    numbers = getattr(drv, "numbers", compare.numbers)
+    values = numbers(drv.initial(), prog, ref)
     ok, checks = compare.judge(values, traffic["limits"])
     if trace:
         rec = out["record"]

@@ -10,6 +10,11 @@ cell can have, at a size a CPU test run holds.
   half of the batch left out with the mean taken over the rest.  One
   worker has no exchange between chips, and training produces no token
   or answer, so those faults do not apply.
+- LDA: the control is the program's own lower path, K4's count gathers
+  rounded to bf16 (``pallas_exact_gathers=False``); its faults are a
+  rotation step that leaves its state unchanged, a sweep that skips half
+  the entries, and a token's topic altered where K4 writes it (LDA's
+  answer is its topics).  One worker has no exchange between chips.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from portbench.tests.small import SMALL
 SEED = 2**31 + 4242
 KMEANS = ["kmeans_stream.int8.n1e9", "kmeans_stream.f32.n1e8"]
 MFSGD = ["mfsgd.ml20m.zipf", "mfsgd.ml20m.uniform"]
+LDA = "lda.enwiki1m.zipf"
 CONTROL = {"int8": "int4", "f32": "tf32", "bf16": "fp8"}
 
 
@@ -97,6 +103,49 @@ def test_mfsgd_faults_are_not_correct(cell, monkeypatch):
             mp.setattr(MF.MFSGD, name, fault)
             r = _run(cell)
         assert r["correct"] is False, (name, r["checks"])
+
+
+def test_lda_control_is_not_correct():
+    """The program with its bf16 count gathers switched on: the replayed
+    prefix no longer agrees."""
+    small = SMALL[LDA]
+    r = harness.run_cell(LDA, SEED, 0.05, False, device="cpu", overrides={
+        "config": {**small["config"], "pallas_exact_gathers": False},
+        "traffic": small["traffic"]})
+    assert r["correct"] is False, r["checks"]
+    assert r["checks"]["prefix_mismatch"]["value"] > 0
+
+
+def test_lda_faults_are_not_correct(monkeypatch):
+    from harp_tpu_torch.ops import lda_kernel as K4
+
+    from portbench import calibrate
+
+    real = K4.cgs_step
+    assert _run(LDA)["correct"] is True
+
+    def unchanged(Ndk, Nwk, nk, z, *args, **kw):
+        saved = [t.clone() for t in (Ndk, Nwk, z)]
+        real(Ndk, Nwk, nk, z, *args, **kw)
+        for t, s in zip((Ndk, Nwk, z), saved):
+            t.copy_(s)
+        return torch.zeros_like(nk)
+
+    def altered(Ndk, Nwk, nk, z, *args, **kw):
+        dnk = real(Ndk, Nwk, nk, z, *args, **kw)
+        z[0, 0] = (z[0, 0] + 1) % Ndk.shape[1]
+        return dnk
+
+    for name, fault in (("unchanged", unchanged), ("altered", altered)):
+        with monkeypatch.context() as mp:
+            mp.setattr(K4, "cgs_step", fault)
+            r = _run(LDA)
+        assert r["correct"] is False, (name, r["checks"])
+    with calibrate._half_batch("lda")():
+        r = _run(LDA)
+    assert r["correct"] is False, ("half the entries", r["checks"])
+    assert r["checks"]["prefix_mismatch"]["value"] > 0
+    assert r["checks"]["ll_gap"]["value"] > r["checks"]["ll_gap"]["limit"]
 
 
 @pytest.mark.cuda

@@ -18,12 +18,18 @@ def _manifest():
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
+#: the numbers each driver's cells are judged by
+LIMITS = {"kmeans_stream": {"loss_gap", "first_change_gap", "change_gap"},
+          "mfsgd": {"loss_gap", "first_change_gap", "change_gap"},
+          "lda": {"count_gap", "prefix_mismatch", "rotate_mismatch",
+                  "ll_gap"}}
+
+
 def test_the_committed_manifest_is_valid():
     m = harness.load_manifest()
     for w in m["workloads"]:
         cell, config, traffic = harness.resolve(m, ROOT, w["name"])
-        assert set(traffic["limits"]) == {"loss_gap", "first_change_gap",
-                                          "change_gap"}
+        assert set(traffic["limits"]) == LIMITS[config["driver"]]
         e2e, layer = harness.cell_metrics(m, w["name"])
         names = {x["name"] for x in e2e}
         assert "setup_s" in names and len(names) >= 2 and layer
@@ -102,3 +108,91 @@ def test_a_cell_added_by_files_alone_is_picked_up(tmp_path):
     r = harness.run_cell("kmeans_stream.int8.small", 11, 0.05, False,
                          root=tmp_path, device="cpu")
     assert set(r["metrics"]) == {"kmeans_points_per_s", "setup_s"}
+
+
+def test_the_lda_cell_and_its_metrics():
+    m = harness.load_manifest()
+    (cfg,) = [c for c in m["configs"] if c["name"] == "lda-enwiki1m-k1000"]
+    assert cfg["reduced"] == ["n_docs"]
+    config = json.loads((ROOT / cfg["file"]).read_text())
+    assert config["name"] == cfg["name"] and config["driver"] == "lda"
+    assert config["reduced"] == cfg["reduced"]
+    assert (config["n_docs"], config["vocab_size"], config["n_topics"]) == (
+        131_072, 1_000_000, 1000)
+    # the published enwiki widths, and the cut of documents beside them
+    pub = config["published"]
+    assert (pub["n_docs"], pub["vocab_size"], pub["tokens"]) == (
+        3_775_554, 1_000_000, 1_107_903_672)
+    assert "3,775,554" in cfg["source"] and "1,107,903,672" in cfg["source"]
+    assert set(config["why_reduced"]) == set(config["reduced"])
+    traffic = json.loads((ROOT / "portbench/traffic/enwiki1m_zipf.json")
+                         .read_text())
+    assert traffic["doc_len_mean"] == pytest.approx(
+        pub["tokens"] / pub["n_docs"], abs=0.01)
+    assert set(config["assumed"]) >= {"doc_lengths", "word_law"}
+    (cell,) = [w for w in m["workloads"] if w["name"] == "lda.enwiki1m.zipf"]
+    assert (cell["config"], cell["traffic"], cell["chips"]) == (
+        "lda-enwiki1m-k1000", "enwiki1m_zipf", 1)
+    e2e, layer = harness.cell_metrics(m, "lda.enwiki1m.zipf")
+    assert {x["name"] for x in e2e} == {"lda_tokens_per_s", "setup_s"}
+    assert {x["name"]: x["moves"] for x in layer} == {
+        "k4.roofline": "lda_tokens_per_s", "lda.step_mfu": "lda_tokens_per_s",
+        "lda.device_idle": "lda_tokens_per_s", "lda.prep_s": "setup_s"}
+    (rate,) = [x for x in m["end_to_end"] if x["name"] == "lda_tokens_per_s"]
+    assert (rate["unit"], rate["better"], rate["source"]) == (
+        "tokens/s", "higher", "host_clock")
+    # no other cell reports the LDA metrics, and LDA reports no other's
+    for w in m["workloads"]:
+        if w["name"] != "lda.enwiki1m.zipf":
+            e2e, layer = harness.cell_metrics(m, w["name"])
+            names = {x["name"] for x in e2e + layer}
+            assert not names & {"lda_tokens_per_s", "k4.roofline",
+                                "lda.step_mfu", "lda.device_idle",
+                                "lda.prep_s"}
+
+
+@pytest.mark.parametrize("cell", ["kmeans_stream.int8.n1e9",
+                                  "kmeans_stream.f32.n1e8",
+                                  "mfsgd.ml20m.zipf", "mfsgd.ml20m.uniform"])
+def test_the_hook_leaves_the_other_cells_on_compare_numbers(cell,
+                                                            monkeypatch):
+    """Their drivers define no ``numbers``: run_cell judges them by
+    ``compare.numbers``, as before the hook."""
+    from portbench import compare
+    from portbench.tests.small import SMALL
+
+    m = harness.load_manifest()
+    _, config, _ = harness.resolve(m, ROOT, cell)
+    assert not hasattr(harness.load_driver(config["driver"]), "numbers")
+    calls = []
+    real = compare.numbers
+
+    def spy(*args):
+        calls.append(cell)
+        return real(*args)
+
+    monkeypatch.setattr(compare, "numbers", spy)
+    r = harness.run_cell(cell, 13, 0.05, False, device="cpu",
+                         overrides=SMALL[cell])
+    assert calls == [cell] and r["correct"] is True
+    assert set(r["checks"]) == {"loss_gap", "first_change_gap", "change_gap"}
+
+
+def test_a_driver_with_numbers_supplies_its_own(monkeypatch):
+    from portbench import compare
+    from portbench.drivers import kmeans_stream
+    from portbench.tests.small import SMALL
+
+    seen = []
+
+    def numbers(self, initial, prog, ref):
+        seen.append((len(prog), len(ref)))
+        return compare.numbers(initial, prog, ref) | {"loss_gap": 1.0}
+
+    monkeypatch.setattr(kmeans_stream.Driver, "numbers", numbers,
+                        raising=False)
+    cell = "kmeans_stream.int8.n1e9"
+    r = harness.run_cell(cell, 13, 0.05, False, device="cpu",
+                         overrides=SMALL[cell])
+    assert seen == [(2, 2)]
+    assert r["checks"]["loss_gap"]["value"] == 1.0 and r["correct"] is False

@@ -70,11 +70,12 @@ def test_a_trace_that_lost_a_kernel_is_refused():
 
 def _rec(ops_scale=1.0):
     red = trace.reduce(_events(), 400e-6, {"K1": trace_k1(),
-                                           "K3": r"sgd_step_kernel"})
-    return {"trace": red, "slice": {"chunks": 2, "epochs": 2},
+                                           "K3": r"sgd_step_kernel",
+                                           "K4": r"add_kernel"})
+    return {"trace": red, "slice": {"chunks": 2, "epochs": 2, "sweeps": 2},
             "work": {"k1_chunk_bound_s": 10e-6 * ops_scale,
-                     "epoch_bound_s": 1e-3},
-            "host": {"epoch_s": 0.1, "prep_s": 3.5}}
+                     "epoch_bound_s": 1e-3, "sweep_bound_s": 4e-6},
+            "host": {"epoch_s": 0.1, "prep_s": 3.5, "sweep_s": 0.2}}
 
 
 @pytest.mark.parametrize("metric,want", [
@@ -85,7 +86,12 @@ def _rec(ops_scale=1.0):
     ("mfsgd.step_mfu", 1.0),
     ("mfsgd.device_idle", 100 * (1 - 180 / 400)),
     ("mfsgd.prep_s", 3.5),
-    ("k3.roofline", None)])
+    ("k3.roofline", None),
+    # K4 stands in for the two 20 us add kernels: 2 x 4 us over 40 us
+    ("k4.roofline", 100 * 8e-6 / 40e-6),
+    ("lda.step_mfu", 100 * 4e-6 / 0.2),
+    ("lda.device_idle", 100 * (1 - 180 / 400)),
+    ("lda.prep_s", 3.5)])
 def test_readers(metric, want):
     got = harness.load_reader(ROOT, metric)(_rec())
     assert got == (pytest.approx(want) if want is not None else None)
@@ -96,5 +102,6 @@ def test_readers_stay_silent_without_device_records():
     rec["trace"] = trace.reduce([], 1.0)
     for m in ("k1.roofline", "k3.roofline", "kmeans.program_ms_per_chunk",
               "kmeans.step_mfu", "kmeans.device_idle", "mfsgd.step_mfu",
-              "mfsgd.device_idle"):
+              "mfsgd.device_idle", "k4.roofline", "lda.step_mfu",
+              "lda.device_idle"):
         assert harness.load_reader(ROOT, m)(rec) is None

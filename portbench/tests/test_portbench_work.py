@@ -57,3 +57,28 @@ def test_mfsgd_epoch():
     assert w["bytes"] == 12 * 20_000_263 + 8 * 64 * (138_493 + 26_744)
     # operations bound it: 1.5360e10 / 6.7e13 s = 0.229 ms
     assert w["bound_s"] == pytest.approx(2.2926e-4, rel=1e-4)
+
+
+def test_lda_sweep():
+    """K4's least time a sweep: 7 f32 operations a real token and topic
+    (the conditional's arithmetic; gathers are bytes), or the tables and
+    tokens moved once; padded slots are no work."""
+    from portbench.work import lda
+
+    cfg = _cfg("lda-enwiki1m-k1000")
+    n, K = 100_000_000, cfg["n_topics"]
+    D, V = cfg["n_docs"], cfg["vocab_size"]
+    assert lda.OPS_PER_TOKEN_TOPIC == 7
+    w = lda.cgs_sweep(n, K, D, V, 2)
+    assert w["ops"] == 7 * n * 1000  # 7e11
+    assert w["bytes"] == 2 * 1000 * (131_072 * 2 + 1_000_000 * 4) + 16 * n
+    # operations bound it: 7e11 / 6.7e13 s = 10.45 ms (bytes 3.02 ms)
+    assert w["bound_s"] == pytest.approx(1.0448e-2, rel=1e-4)
+    assert w["bound_s"] > w["bytes"] / counts.PEAKS["hbm_bytes_s"]
+    f32 = lda.cgs_sweep(n, K, D, V, 4)
+    assert f32["bytes"] - w["bytes"] == 2 * 1000 * 131_072 * 2
+    assert lda.cgs_sweep(n // 2, K, 1, 1, 2)["ops"] == w["ops"] // 2
+    # the tables bound a sweep of few tokens
+    few = lda.cgs_sweep(1000, K, D, V, 2)
+    assert few["bound_s"] == pytest.approx(
+        few["bytes"] / counts.PEAKS["hbm_bytes_s"])
