@@ -26,6 +26,11 @@ from portbench import gen, trace
 from portbench.reference import kmeans_stream as ref
 from portbench.work import counts
 
+#: the numbers that decide ``correct`` (``compare.numbers``), and the kind
+#: of entry whose metrics this driver's cells report
+LIMITS = ("loss_gap", "first_change_gap", "change_gap")
+FAMILY = "kmeans"
+
 #: K1's kernels (the int8 partials' library) and its main kernel, one a
 #: launch of the wrapper
 K1_NAMES = r"km::main_kernel|km::range_kernel|\bpack_kernel\("
@@ -98,7 +103,8 @@ class Driver:
 
     def window(self, seconds: float, traced: bool) -> dict:
         cfg, dev = self.ctx.config, self.ctx.device
-        n_epochs = max(1, math.ceil(seconds / self.epoch_s[-1]))
+        n_epochs = self.ctx.agree(max(1, math.ceil(seconds
+                                                  / self.epoch_s[-1])))
         start = len(self.epoch_s)
         t0 = time.perf_counter()
         for e in range(n_epochs):

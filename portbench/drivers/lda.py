@@ -61,6 +61,11 @@ from portbench import gen, gen_corpus, trace
 from portbench.reference import lda as ref
 from portbench.work import lda as work
 
+#: the numbers that decide ``correct`` (:meth:`Driver.numbers`), and the
+#: kind of entry whose metrics this driver's cells report
+LIMITS = ("count_gap", "prefix_mismatch", "rotate_mismatch", "ll_gap")
+FAMILY = "lda"
+
 #: K4's kernel, one cooperative launch a rotation step (not K3's
 #: ``sgd_step_kernel``)
 K4_NAMES = r"::step_kernel<"

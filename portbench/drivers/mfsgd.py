@@ -26,6 +26,11 @@ from portbench import gen, trace
 from portbench.reference import mfsgd as ref
 from portbench.work import counts
 
+#: the numbers that decide ``correct`` (``compare.numbers``), and the kind
+#: of entry whose metrics this driver's cells report
+LIMITS = ("loss_gap", "first_change_gap", "change_gap")
+FAMILY = "mfsgd"
+
 #: K3's kernel, one launch a rotation step
 K3_NAMES = r"sgd_step_kernel"
 
@@ -121,7 +126,7 @@ class Driver:
     def window(self, seconds: float, traced: bool) -> dict:
         dev = self.ctx.device
         est = statistics.median(self.epoch_s[1:] or self.epoch_s)
-        n_epochs = max(1, math.ceil(seconds / est))
+        n_epochs = self.ctx.agree(max(1, math.ceil(seconds / est)))
         span = min(self.ctx.traffic["trace_epochs"], n_epochs) if traced \
             else 0
         first = (n_epochs - span) // 2

@@ -18,7 +18,31 @@ trace)``, ``release()``, ``initial()`` (the parameters before the steps)
 and ``reference(n, precision)``; see ``drivers/kmeans_stream.py``.  A
 driver that defines ``numbers(initial, steps, reference)`` supplies the
 numbers that decide ``correct`` itself (``drivers/lda.py``); every other
-driver's are ``compare.numbers``'.
+driver's are ``compare.numbers``'.  Each driver module also names
+``LIMITS``, the numbers its ``correct`` is decided by, and ``FAMILY``, the
+kind of entry whose metrics its cells may report (``kmeans``, ``mfsgd``,
+``lda``): the benchmark's tests check a cell by them, never by its name.
+
+**A cell of more than one card** (``chips`` > 1; ``world.py``).  The
+measuring process is rank 0 on ``cuda:0``: it keeps its host clock, its
+start and its profiler.  It spawns ranks 1 to n − 1, each on ``cuda:r``,
+and all join one ``torch.distributed`` group over a ``file://`` rendezvous
+in a temporary directory (NCCL on cards, gloo on the CPU), within
+``world.TIMEOUT_S`` seconds, the limit of any one collective too.  Every
+rank builds the same driver, with ``Context.rank`` and ``Context.world``,
+and runs the same sequence: ``setup``, ``steps``, ``window``, ``release``,
+``reference``, ``numbers``.  A count a driver takes from the host clock
+goes through ``ctx.agree(n)``, rank 0's value on every rank, so that the
+ranks' collectives match.  Rank 0 alone judges and prints; every rank
+profiles its own card in a traced run.  The per-layer metrics read rank
+0's record, so a ``device_trace`` metric reads rank 0's card; the line's
+``busy_s`` and ``window_s`` are the means over the ranks' slices, and
+``memory_peak_bytes`` the fullest card's peak.  Each worker reports its
+peak, its slice and the forbidden modules it holds; a forbidden module on
+any rank fails the run.  A rank that raises or dies fails the run with its
+traceback on standard error within ``world.FAIL_S`` seconds; the group is
+then torn down and every worker ended.  A cell of one card takes the path
+it always took: no process is spawned and no group is made.
 """
 
 from __future__ import annotations
@@ -164,8 +188,9 @@ def load_driver(name: str):
 
 @dataclasses.dataclass
 class Context:
-    """What a driver gets: the cell's files, the run's arguments and the
-    process's start on the host clock."""
+    """What a driver gets: the cell's files, the run's arguments, the
+    process's start on the host clock, and its rank in a world of
+    ``world`` processes (one a card)."""
 
     cell: dict
     config: dict
@@ -173,10 +198,26 @@ class Context:
     seed: int
     device: object
     t_start: float
+    rank: int = 0
+    world: int = 1
 
     def log(self, msg: str) -> None:
-        print(f"[portbench {self.cell['name']}] {msg}", file=sys.stderr,
-              flush=True)
+        who = self.cell["name"] + (f" rank {self.rank}" if self.world > 1
+                                   else "")
+        print(f"[portbench {who}] {msg}", file=sys.stderr, flush=True)
+
+    def agree(self, n: int) -> int:
+        """Rank 0's ``n`` on every rank (a broadcast; ``n`` itself on one
+        card): a count taken from the host clock, so that every rank runs
+        as many collectives."""
+        if self.world == 1:
+            return n
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([n], dtype=torch.int64, device=self.device)
+        dist.broadcast(t, 0)
+        return int(t.item())
 
 
 def resolve(m: dict, root: Path, workload: str) -> tuple[dict, dict, dict]:
@@ -207,30 +248,25 @@ def device_info(device, chips: int) -> dict:
     return {"platform": device.type, "kind": device.type, "count": chips}
 
 
-def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
-             root: Path = ROOT, device="cuda", overrides: dict | None = None,
-             t_start: float | None = None) -> dict:
-    """One run of one cell → the result dict (the line's keys, with
-    ``checks`` last).  ``overrides`` replace config and traffic entries
-    (the CPU tests' small sizes)."""
-    import torch
-
-    t_start = time.perf_counter() if t_start is None else t_start
-    m = load_manifest(root)
+def cell_files(m: dict, root: Path, workload: str,
+               overrides: dict | None = None) -> tuple[dict, dict, dict]:
+    """:func:`resolve`, with ``overrides``' config and traffic entries laid
+    over the configuration and the mix."""
     cell, config, traffic = resolve(m, root, workload)
     overrides = overrides or {}
-    config = {**config, **overrides.get("config", {})}
-    traffic = {**traffic, **overrides.get("traffic", {})}
-    e2e, layer = cell_metrics(m, workload)
-    readers = {x["name"]: load_reader(root, x["name"]) for x in layer} \
-        if trace else {}
-    ctx = Context(cell, config, traffic, int(seed), torch.device(device),
-                  t_start)
-    drv = load_driver(config["driver"])(ctx)
+    return (cell, {**config, **overrides.get("config", {})},
+            {**traffic, **overrides.get("traffic", {})})
+
+
+def drive(ctx: Context, seconds: float, trace: bool) -> tuple[dict, dict]:
+    """One rank's run: set-up and the checked steps, the window, release,
+    the reference and the numbers → (the window's output with
+    ``setup_s``, the numbers that decide ``correct``)."""
+    drv = load_driver(ctx.config["driver"])(ctx)
     drv.setup()
-    steps = traffic["checked_steps"]
+    steps = ctx.traffic["checked_steps"]
     prog = drv.steps(steps)
-    setup_s = time.perf_counter() - t_start
+    setup_s = time.perf_counter() - ctx.t_start
     out = drv.window(seconds, trace)
     bad = forbidden_modules()
     if bad:
@@ -238,11 +274,37 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     out["e2e"]["setup_s"] = setup_s
     drv.release()
     t_ref = time.perf_counter()
-    ref = drv.reference(steps, traffic["precision"])
+    ref = drv.reference(steps, ctx.traffic["precision"])
     ctx.log(f"window {out['attempted']} epochs; the reference took "
             f"{time.perf_counter() - t_ref:.1f} s")
     numbers = getattr(drv, "numbers", compare.numbers)
-    values = numbers(drv.initial(), prog, ref)
+    return out, numbers(drv.initial(), prog, ref)
+
+
+def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
+             root: Path = ROOT, device="cuda", overrides: dict | None = None,
+             t_start: float | None = None) -> dict:
+    """One run of one cell → the result dict (the line's keys, with
+    ``checks`` last).  ``overrides`` replace config and traffic entries
+    (the CPU tests' small sizes).  A cell of more than one card runs as a
+    process world (module docstring)."""
+    import torch
+
+    t_start = time.perf_counter() if t_start is None else t_start
+    m = load_manifest(root)
+    cell, config, traffic = cell_files(m, root, workload, overrides)
+    e2e, layer = cell_metrics(m, workload)
+    readers = {x["name"]: load_reader(root, x["name"]) for x in layer} \
+        if trace else {}
+    ctx = Context(cell, config, traffic, int(seed), torch.device(device),
+                  t_start, world=cell["chips"])
+    if cell["chips"] == 1:
+        out, values = drive(ctx, seconds, trace)
+    else:
+        from portbench import world
+
+        out, values = world.run(ctx, seconds, trace, root=root,
+                                overrides=overrides)
     ok, checks = compare.judge(values, traffic["limits"])
     if trace:
         rec = out["record"]
@@ -260,8 +322,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     result = {"correct": ok, "attempted": out["attempted"],
               "failed": out["failed"], "metrics": metrics, "device": dev}
     if trace:
-        dev["busy_s"] = out["record"]["trace"]["busy_s"]
-        dev["window_s"] = out["record"]["trace"]["window_s"]
+        # a world's: the means over its ranks' slices
+        sliced = out.get("world_slice", out["record"]["trace"])
+        dev["busy_s"] = sliced["busy_s"]
+        dev["window_s"] = sliced["window_s"]
         result["breakdown"] = out["breakdown"]
     for name, c in checks.items():
         ctx.log(f"check {name} {c['value']!r} limit {c['limit']!r}")

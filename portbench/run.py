@@ -9,7 +9,10 @@ JSON object (``correct``, ``attempted``, ``failed``, ``metrics``,
 number compared with its limit); the same checks are the last lines on
 standard error.  Exits non-zero, printing no result, when there is no CUDA
 card (or fewer than the cell asks for), when the program is not in this
-checkout, or when the process holds JAX or the JAX package.
+checkout, when the process (or a worker) holds JAX or the JAX package, or
+when a rank of a multi-card cell fails.  This process measures on
+``cuda:0``; a cell of n cards spawns ranks 1 to n − 1 on the others
+(``harness.py``, ``world.py``).
 """
 
 from __future__ import annotations

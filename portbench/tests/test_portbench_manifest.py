@@ -3,12 +3,15 @@
 from __future__ import annotations
 
 import copy
+import importlib.util
 import json
+import multiprocessing
 import shutil
 
 import pytest
 
 from portbench import harness
+from portbench.tests import added, small
 from portbench.tests.small import KMEANS
 
 ROOT = harness.ROOT
@@ -18,23 +21,56 @@ def _manifest():
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-#: the numbers each driver's cells are judged by
-LIMITS = {"kmeans_stream": {"loss_gap", "first_change_gap", "change_gap"},
-          "mfsgd": {"loss_gap", "first_change_gap", "change_gap"},
-          "lda": {"count_gap", "prefix_mismatch", "rotate_mismatch",
-                  "ll_gap"}}
+def _driver_module(root, name):
+    """``portbench/drivers/<name>.py`` under ``root``, for its ``LIMITS``
+    and ``FAMILY``."""
+    path = root / "portbench" / "drivers" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_driver_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def test_the_committed_manifest_is_valid():
-    m = harness.load_manifest()
+def _families(root, m) -> dict:
+    """Each cell's family: its driver's ``FAMILY``."""
+    out = {}
     for w in m["workloads"]:
-        cell, config, traffic = harness.resolve(m, ROOT, w["name"])
-        assert set(traffic["limits"]) == LIMITS[config["driver"]]
+        _, config, _ = harness.resolve(m, root, w["name"])
+        out[w["name"]] = _driver_module(root, config["driver"]).FAMILY
+    return out
+
+
+def _check_cells(root):
+    """Every cell's limits are its driver's ``LIMITS``; it reports
+    ``setup_s``, another end-to-end metric and a per-layer metric, each
+    with a reader."""
+    m = harness.load_manifest(root)
+    for w in m["workloads"]:
+        cell, config, traffic = harness.resolve(m, root, w["name"])
+        driver = _driver_module(root, config["driver"])
+        assert set(traffic["limits"]) == set(driver.LIMITS)
         e2e, layer = harness.cell_metrics(m, w["name"])
         names = {x["name"] for x in e2e}
         assert "setup_s" in names and len(names) >= 2 and layer
         for x in layer:
-            assert (ROOT / "portbench/metrics" / f"{x['name']}.py").exists()
+            assert (root / "portbench/metrics" / f"{x['name']}.py").exists()
+
+
+def _check_families(root):
+    """A metric is listed only for cells of one family: a KMeans cell
+    under an LDA metric fails, an LDA-family cell of any driver passes."""
+    m = harness.load_manifest(root)
+    family = _families(root, m)
+    for x in m["end_to_end"] + m["per_layer"]:
+        if "workloads" in x:
+            kinds = {family[c] for c in x["workloads"]}
+            assert len(kinds) == 1, (x["name"], kinds)
+
+
+def test_the_committed_manifest_is_valid():
+    _check_cells(ROOT)
+    _check_families(ROOT)
 
 
 @pytest.mark.parametrize("where,value", [
@@ -69,9 +105,31 @@ def test_broken_references_are_rejected(edit):
         harness.validate(m)
 
 
-def test_a_cell_added_by_files_alone_is_picked_up(tmp_path):
+@pytest.mark.parametrize("chips", [1, 4])
+def test_a_cell_added_by_files_alone_is_picked_up(tmp_path, chips):
     """A new configuration, mix and per-layer metric: new files and new
-    entries in BENCHMARK.json, no existing file edited."""
+    entries in BENCHMARK.json, no existing file edited.  On four chips: the
+    world smoke's cell, its metrics and its ``small/`` file, run by four
+    gloo workers."""
+    if chips == 4:
+        m = added.copy(tmp_path)
+        added.write(tmp_path, added.add_world_cell(tmp_path, m, 4, 0.5))
+        _check_families(tmp_path)
+        ov = small.load(tmp_path)[added.WORLD_CELL]
+        r = harness.run_cell(added.WORLD_CELL, 2**31 + 11, 0.05, False,
+                             root=tmp_path, device="cpu", overrides=ov)
+        assert list(r) == ["correct", "attempted", "failed", "metrics",
+                           "device", "checks"]
+        assert r["correct"] is True, r["checks"]
+        assert r["attempted"] >= 1 and r["failed"] == 0
+        assert r["device"]["count"] == 4
+        assert set(r["metrics"]) == {"ring_hop_ms", "ring_hop_gb_per_s",
+                                     "setup_s"}
+        assert all(v["value"] > 0 for v in r["metrics"].values())
+        assert set(r["checks"]) == {"allreduce_mismatch", "rotate_mismatch",
+                                    "hop_mismatch"}
+        assert multiprocessing.active_children() == []
+        return
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     m = _manifest()
@@ -141,14 +199,55 @@ def test_the_lda_cell_and_its_metrics():
     (rate,) = [x for x in m["end_to_end"] if x["name"] == "lda_tokens_per_s"]
     assert (rate["unit"], rate["better"], rate["source"]) == (
         "tokens/s", "higher", "host_clock")
-    # no other cell reports the LDA metrics, and LDA reports no other's
+    # only cells of the LDA family report the LDA metrics (the cell's own
+    # sets above: it reports no other's)
+    family = _families(ROOT, m)
+    assert family["lda.enwiki1m.zipf"] == "lda"
     for w in m["workloads"]:
-        if w["name"] != "lda.enwiki1m.zipf":
-            e2e, layer = harness.cell_metrics(m, w["name"])
-            names = {x["name"] for x in e2e + layer}
-            assert not names & {"lda_tokens_per_s", "k4.roofline",
-                                "lda.step_mfu", "lda.device_idle",
-                                "lda.prep_s"}
+        e2e, layer = harness.cell_metrics(m, w["name"])
+        names = {x["name"] for x in e2e + layer}
+        if names & {"lda_tokens_per_s", "k4.roofline", "lda.step_mfu",
+                    "lda.device_idle", "lda.prep_s"}:
+            assert family[w["name"]] == "lda", w["name"]
+
+
+_LDA_METRICS = ("lda_tokens_per_s", "k4.roofline", "lda.step_mfu",
+                "lda.device_idle", "lda.prep_s")
+
+
+@pytest.mark.parametrize("case", ["new_lda_driver", "kmeans_under_lda"])
+def test_a_metric_is_listed_for_one_family_only(tmp_path, case):
+    """A four-card LDA-family cell of a new driver, appended under the LDA
+    metrics by files alone, passes the manifest's checks; a KMeans cell
+    listed there fails them."""
+    m = added.copy(tmp_path)
+    if case == "new_lda_driver":
+        (tmp_path / "portbench/drivers/lda_world.py").write_text(
+            '"""An LDA driver of a process world."""\n'
+            "from portbench.drivers.lda import LIMITS, Driver  # noqa\n"
+            'FAMILY = "lda"\n')
+        cfg = json.loads((ROOT / "portbench/configs/"
+                          "lda-enwiki1m-k1000.json").read_text())
+        cfg.update(name="lda-world", driver="lda_world")
+        trf = json.loads((ROOT / "portbench/traffic/enwiki1m_zipf.json")
+                         .read_text())
+        cell = "lda.world.rotate4"
+        added.add_cell(tmp_path, m, cell, cfg, "enwiki1m_world", trf, 4,
+                       small.LDA)
+    else:
+        cell = "kmeans_stream.int8.n1e9"
+    for x in m["end_to_end"] + m["per_layer"]:
+        if x["name"] in _LDA_METRICS:
+            x["workloads"].append(cell)
+    added.write(tmp_path, m)
+    harness.load_manifest(tmp_path)
+    if case == "new_lda_driver":
+        _check_cells(tmp_path)
+        _check_families(tmp_path)
+        assert small.load(tmp_path)[cell] == small.LDA
+    else:
+        with pytest.raises(AssertionError):
+            _check_families(tmp_path)
 
 
 @pytest.mark.parametrize("cell", ["kmeans_stream.int8.n1e9",

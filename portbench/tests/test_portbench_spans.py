@@ -3,6 +3,8 @@ counter, on hand-made traces and records."""
 
 from __future__ import annotations
 
+import importlib
+
 import pytest
 
 from portbench import harness, trace
@@ -115,10 +117,17 @@ def test_k3_readers_stay_silent_without_the_counter_or_a_launch(
 
 
 def test_the_k3_metrics_are_listed_for_the_mfsgd_cells_only():
+    """Both MF-SGD cells, and no cell of another family (a driver's
+    ``FAMILY``)."""
     m = harness.load_manifest(ROOT)
     for name in K3_METRICS:
         (x,) = [x for x in m["per_layer"] if x["name"] == name]
         assert x["source"] == "program_counter"
         assert x["moves"] == "mfsgd_updates_per_s"
-        assert sorted(x["workloads"]) == ["mfsgd.ml20m.uniform",
-                                          "mfsgd.ml20m.zipf"]
+        assert {"mfsgd.ml20m.uniform", "mfsgd.ml20m.zipf"} <= set(
+            x["workloads"])
+        for cell in x["workloads"]:
+            _, config, _ = harness.resolve(m, ROOT, cell)
+            driver = importlib.import_module(
+                f"portbench.drivers.{config['driver']}")
+            assert driver.FAMILY == "mfsgd", cell
